@@ -1,0 +1,26 @@
+"""Dense one-step oracle for the frontier relaxation (tests only).
+
+The port of `repro.kernels.frontier.ref`: every vertex in the frontier
+scatters `attr[u] ⊗ W[u, v]` along its out-edges and destinations merge
+with ⊕, over a dense (n, n) matrix with the ⊕-identity for absent edges.
+Returns (new_attrs, new_frontier): the new frontier is exactly the set
+of vertices whose attribute strictly ⊕-improved.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.algebra import MIN_PLUS, Semiring
+
+
+def relax_step_ref(attrs: torch.Tensor, frontier: torch.Tensor,
+                   w_dense: torch.Tensor, semiring: Semiring = MIN_PLUS):
+    """attrs: (n,) f32; frontier: (n,) bool; w_dense: (n, n) f32
+    (⊕-identity = no edge). Returns (new_attrs (n,), new_frontier (n,))."""
+    src_vals = torch.where(frontier, attrs, semiring.zero)
+    best = semiring.add_reduce(semiring.mul(src_vals[:, None], w_dense),
+                               dim=0)
+    new_attrs = semiring.add(attrs, best)
+    new_frontier = torch.logical_and(
+        semiring.add(new_attrs, attrs) == new_attrs, new_attrs != attrs)
+    return new_attrs, new_frontier

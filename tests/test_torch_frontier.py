@@ -1,0 +1,297 @@
+"""Port vs reference: the blocked graph and one frontier relax step.
+
+`build_blocks` must give array-equal layouts, and one step of the plain
+PyTorch version, fed the reference's own block arrays through
+`blocked_graph_from_numpy`, must equal `_relax_jnp`, `_relax_jnp_compact`
+and `frontier_relax_pallas(interpret=True)`: bit for bit for the
+idempotent semirings, within atol 1e-5 for plus_times. The CUDA kernel
+itself runs only on the card and is held against the same plain version
+there by chip_smoke.py; here its wrapper's CPU-side contract is tested.
+"""
+import zlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.algebra import ALGEBRAS as REF_ALGEBRAS
+from repro.graphs import make_road_network, make_synthetic
+from repro.kernels.frontier import build_blocks as ref_build_blocks
+from repro.kernels.frontier.frontier import frontier_relax_pallas
+from repro.kernels.frontier.ops import (_relax_jnp, _relax_jnp_compact,
+                                        compact_block_stream)
+from repro.kernels.frontier.ops import tile_activity as ref_tile_activity
+from repro.kernels.frontier.ref import relax_step_ref as ref_relax_step_ref
+from repro_torch.algebra import ALGEBRAS, MIN_PLUS
+from repro_torch.graphs import make_synthetic as port_make_synthetic
+from repro_torch.kernels.frontier import frontier as kernel
+from repro_torch.kernels.frontier.ops import (blocked_graph_from_numpy,
+                                              build_blocks, frontier_relax,
+                                              frontier_relax_torch,
+                                              tile_activity)
+from repro_torch.kernels.frontier.ref import relax_step_ref
+
+PLUS_TIMES_ATOL = 1e-5
+# one algebra per semiring: its blocks carry that semiring's weights
+SEMIRING_ALGOS = {"min_plus": "sssp", "max_min": "widest",
+                  "or_and": "reach", "plus_times": "pagerank"}
+
+
+def carried(bg_ref, algo):
+    """The port's BlockedGraph built from the reference's arrays."""
+    arrays = {k: np.asarray(getattr(bg_ref, k))
+              for k in ("blocks", "bsrc", "bdst", "perm", "inv_perm")}
+    arrays.update(n=bg_ref.n, tile=bg_ref.tile)
+    return blocked_graph_from_numpy(arrays, ALGEBRAS[algo], "cpu")
+
+
+def make_state(bg, batch, d, rng, inactive_tile=True):
+    """(src_vals, carry) as numpy: random carry (masses in [0, 1) for
+    (+, ×)), src_vals frontier-masked to ~40% of lanes with source tile 1
+    wholly inactive, so compaction has blocks to drop."""
+    sr = bg.semiring
+    shape = ((batch,) if batch else ()) + (bg.ntiles, bg.tile) + \
+        ((d,) if d > 1 else ())
+    if sr.name == "or_and":
+        carry = (rng.random(shape) < 0.5).astype(np.float32)
+    elif sr.name == "plus_times":
+        carry = rng.uniform(0, 1, shape).astype(np.float32)
+    else:
+        carry = rng.uniform(0.5, 9, shape).astype(np.float32)
+    mask = rng.random(shape) < 0.4
+    if inactive_tile:
+        if d > 1:
+            mask[..., 1, :, :] = False
+        else:
+            mask[..., 1, :] = False
+    sv = np.where(mask, carry, np.float32(sr.zero)).astype(np.float32)
+    return sv, carry
+
+
+def assert_same(got, want, idempotent):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    if idempotent:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, atol=PLUS_TIMES_ATOL, rtol=0)
+
+
+# ------------------------------------------------------------------ #
+# (c) the blocked layout
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("tile", [16, 32, 128])
+@pytest.mark.parametrize("algo", sorted(ALGEBRAS))
+def test_build_blocks_array_equal(algo, tile):
+    g = make_synthetic(200, 600, seed=2)
+    gp = port_make_synthetic(200, 600, seed=2)
+    order = np.random.default_rng(tile).permutation(g.n)
+    for o in (None, order):
+        ref = ref_build_blocks(g, algo, tile=tile, order=o)
+        got = build_blocks(gp, algo, tile=tile, order=o)
+        assert (got.n, got.tile, got.ntiles) == (ref.n, ref.tile,
+                                                 ref.ntiles)
+        np.testing.assert_array_equal(got.blocks.numpy(),
+                                      np.asarray(ref.blocks))
+        np.testing.assert_array_equal(got.bsrc.numpy(), np.asarray(ref.bsrc))
+        np.testing.assert_array_equal(got.bdst.numpy(), np.asarray(ref.bdst))
+        np.testing.assert_array_equal(got.perm, ref.perm)
+        np.testing.assert_array_equal(got.inv_perm, ref.inv_perm)
+        np.testing.assert_array_equal(got.dst_start.numpy(), ref.dst_start)
+        assert got.bsrc.dtype == torch.int32 and got.blocks.dtype == \
+            torch.float32
+
+
+@pytest.mark.parametrize("algo", sorted(ALGEBRAS))
+def test_to_tiled_round_trip_ragged_n(algo):
+    """37 = 2 * 16 + 5 vertices: to_tiled/to_orig equal the reference's,
+    padded lanes hold the ⊕-identity."""
+    g = make_synthetic(37, 100, seed=8)
+    ref = ref_build_blocks(g, algo, tile=16)
+    bg = carried(ref, algo)
+    rng = np.random.default_rng(1)
+    for shape, features in (((37,), False), ((5, 37), False),
+                            ((37, 8), True), ((3, 37, 8), True)):
+        x = rng.uniform(0.5, 9, shape).astype(np.float32)
+        tiled = bg.to_tiled(x, features=features)
+        np.testing.assert_array_equal(
+            tiled.numpy(), np.asarray(ref.to_tiled(x, features=features)))
+        np.testing.assert_array_equal(bg.to_orig(tiled, features=features),
+                                      x)
+
+
+@pytest.mark.parametrize("batch", [0, 8])
+@pytest.mark.parametrize("name", sorted(SEMIRING_ALGOS))
+def test_tile_activity_matches(name, batch):
+    algo = SEMIRING_ALGOS[name]
+    g = make_road_network(40, seed=3, delete_frac=0.5)
+    ref = ref_build_blocks(g, algo, tile=16)
+    bg = carried(ref, algo)
+    sv, _ = make_state(bg, batch, 1, np.random.default_rng(batch))
+    np.testing.assert_array_equal(
+        tile_activity(torch.from_numpy(sv), bg.semiring).numpy(),
+        np.asarray(ref_tile_activity(jnp.asarray(sv), ref.semiring)))
+
+
+# ------------------------------------------------------------------ #
+# (d) one relax step against every reference form
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("batch", [0, 8])
+@pytest.mark.parametrize("compact", [False, True])
+@pytest.mark.parametrize("name", sorted(SEMIRING_ALGOS))
+def test_relax_step_matches_reference(name, compact, batch, d):
+    algo = SEMIRING_ALGOS[name]
+    g = make_road_network(40, seed=3, delete_frac=0.5)   # 40 = 2*16 + 8
+    ref = ref_build_blocks(g, algo, tile=16)
+    bg = carried(ref, algo)
+    sr, rsr = bg.semiring, ref.semiring
+    rng = np.random.default_rng(zlib.crc32(f"{name}{compact}{batch}{d}"
+                                           .encode()))
+    sv, carry = make_state(bg, batch, d, rng)
+    features = d > 1
+    got = frontier_relax_torch(torch.from_numpy(sv), torch.from_numpy(carry),
+                               bg.blocks, bg.bsrc, bg.bdst, sr,
+                               feature_dim=d, compact=compact)
+    # the dispatcher takes the same route for CPU tensors
+    via = frontier_relax(torch.from_numpy(sv), torch.from_numpy(carry), bg,
+                         mode="auto", compact=compact, feature_dim=d)
+    assert torch.equal(got, via)
+    jsv, jcarry = jnp.asarray(sv), jnp.asarray(carry)
+    if compact:
+        bsel, bsrc_c, bdst_c, _ = compact_block_stream(
+            ref_tile_activity(jsv, rsr, features), ref.bsrc, ref.bdst)
+        want_jnp = _relax_jnp_compact(jsv, jcarry, ref.blocks_ext, ref.bsrc,
+                                      ref.bdst, bsel, semiring=rsr,
+                                      features=features)
+        want_pallas = frontier_relax_pallas(
+            jsv, jcarry, ref.blocks_ext, bsrc_c, bdst_c, semiring=rsr,
+            interpret=True, bsel=bsel, feature_dim=d)
+    else:
+        want_jnp = _relax_jnp(jsv, jcarry, ref.blocks, ref.bsrc, ref.bdst,
+                              semiring=rsr, features=features)
+        want_pallas = frontier_relax_pallas(
+            jsv, jcarry, ref.blocks, ref.bsrc, ref.bdst, semiring=rsr,
+            interpret=True, feature_dim=d)
+    assert_same(got, want_jnp, sr.idempotent)
+    assert_same(got, want_pallas, sr.idempotent)
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("compact", [False, True])
+def test_destination_without_block_keeps_carry(compact, batched):
+    """A destination tile no block writes returns its carry verbatim
+    (the reference's carry->out alias; the kernel's carry ⊕ identity)."""
+    t, ntiles = 8, 3
+    rng = np.random.default_rng(0)
+    blocks = rng.uniform(1, 5, (1, t, t)).astype(np.float32)
+    arrays = dict(blocks=blocks, bsrc=[2], bdst=[0], perm=np.arange(24),
+                  inv_perm=np.arange(24), n=24, tile=t)
+    bg = blocked_graph_from_numpy(arrays, ALGEBRAS["sssp"], "cpu")
+    np.testing.assert_array_equal(bg.dst_start.numpy(), [0, 1, 1, 1])
+    sv = rng.uniform(0, 10, (ntiles, t)).astype(np.float32)
+    carry = rng.uniform(0, 10, (ntiles, t)).astype(np.float32)
+    if batched:
+        sv, carry = np.stack([sv, sv + 1.0]), np.stack([carry, carry + 1.0])
+    got = frontier_relax_torch(torch.from_numpy(sv), torch.from_numpy(carry),
+                               bg.blocks, bg.bsrc, bg.bdst, MIN_PLUS,
+                               compact=compact).numpy()
+    np.testing.assert_array_equal(got[..., 1:, :], carry[..., 1:, :])
+    from repro.algebra import MIN_PLUS as REF_MIN_PLUS
+    want = frontier_relax_pallas(jnp.asarray(sv), jnp.asarray(carry),
+                                 jnp.asarray(blocks), jnp.asarray([2]),
+                                 jnp.asarray([0]), semiring=REF_MIN_PLUS,
+                                 interpret=True)
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+@pytest.mark.parametrize("batch", [0, 8])
+@pytest.mark.parametrize("name", sorted(SEMIRING_ALGOS))
+def test_all_inactive_step_returns_carry(name, batch):
+    algo = SEMIRING_ALGOS[name]
+    g = make_road_network(40, seed=3, delete_frac=0.5)
+    bg = carried(ref_build_blocks(g, algo, tile=16), algo)
+    _, carry = make_state(bg, batch, 1, np.random.default_rng(5))
+    sv = np.full_like(carry, np.float32(bg.semiring.zero))
+    for compact in (False, True):
+        got = frontier_relax_torch(torch.from_numpy(sv),
+                                   torch.from_numpy(carry), bg.blocks,
+                                   bg.bsrc, bg.bdst, bg.semiring,
+                                   compact=compact)
+        np.testing.assert_array_equal(got.numpy(), carry)
+
+
+def test_plain_version_chunks_blocks(monkeypatch):
+    """A chunk bound of one block gives the same answer as one chunk."""
+    from repro_torch.kernels.frontier import ops
+    g = make_road_network(90, seed=1, delete_frac=0.6)
+    bg = carried(ref_build_blocks(g, "sssp", tile=16), "sssp")
+    sv, carry = make_state(bg, 3, 1, np.random.default_rng(2))
+    args = (torch.from_numpy(sv), torch.from_numpy(carry), bg.blocks,
+            bg.bsrc, bg.bdst, bg.semiring)
+    whole = frontier_relax_torch(*args)
+    monkeypatch.setattr(ops, "_CHUNK_BYTES", 1)
+    assert torch.equal(frontier_relax_torch(*args), whole)
+
+
+def test_single_step_against_dense_oracles():
+    g = make_synthetic(60, 180, seed=5)
+    bg = carried(ref_build_blocks(g, "sssp", tile=16), "sssp")
+    rng = np.random.default_rng(0)
+    attrs0 = rng.uniform(0, 10, g.n).astype(np.float32)
+    fr0 = rng.random(g.n) < 0.3
+    w = g.dense_weights()
+    want, want_fr = ref_relax_step_ref(jnp.asarray(attrs0), jnp.asarray(fr0),
+                                       jnp.asarray(w))
+    got, got_fr = relax_step_ref(torch.from_numpy(attrs0),
+                                 torch.from_numpy(fr0), torch.from_numpy(w))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(got_fr.numpy(), np.asarray(want_fr))
+    attrs = bg.to_tiled(attrs0)
+    fr = np.zeros(bg.padded_n, bool)
+    fr[bg.perm[fr0.nonzero()[0]]] = True
+    sv = torch.where(torch.from_numpy(fr.reshape(bg.ntiles, bg.tile)),
+                     attrs, torch.inf)
+    out = frontier_relax(sv, attrs, bg)
+    np.testing.assert_allclose(bg.to_orig(out), np.asarray(want), atol=1e-5)
+
+
+# ------------------------------------------------------------------ #
+# (g) the CUDA route's CPU-side contract
+# ------------------------------------------------------------------ #
+def _small_bg():
+    g = make_road_network(40, seed=3, delete_frac=0.5)
+    return carried(ref_build_blocks(g, "sssp", tile=16), "sssp")
+
+
+def test_cuda_mode_on_cpu_tensors_raises():
+    bg = _small_bg()
+    x = bg.to_tiled(np.zeros(bg.n, np.float32))
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        frontier_relax(x, x, bg, mode="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.frontier_relax_cuda(x, x, bg.blocks, bg.bsrc, bg.dst_start,
+                                   bg.semiring)
+    assert kernel.frontier_relax_cuda.launches == 0
+    with pytest.raises(ValueError, match="relax mode"):
+        frontier_relax(x, x, bg, mode="pallas")
+
+
+def test_kernel_build_recipe():
+    """sm_90a, no fast math (min/max must stay bit-equal), the library
+    keyed on the source, nothing built at import time."""
+    flags = " ".join(kernel.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "-O3" in flags
+    assert kernel.SOURCE.exists()
+    name = kernel.library_path().name
+    assert name.startswith("frontier_relax-") and name.endswith(".so")
+    assert kernel.library_path() == kernel.library_path()
+    assert set(kernel.SEMIRING_IDS) == set(REF_ALGEBRAS[a].semiring.name
+                                          for a in SEMIRING_ALGOS.values())
+    src = kernel.SOURCE.read_text()
+    assert "frontier_relax_pallas" in src          # names what it replaces
+    for name, code in kernel.SEMIRING_IDS.items():
+        assert f"= {code}" in src.split("enum Op")[1].split("}")[0]
