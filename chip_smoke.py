@@ -6,10 +6,13 @@
 Phases (every failure raises and exits nonzero):
   1. device  -- the card's name, and its name and power limit from
                 nvidia-smi;
-  2. build   -- compile the three CUDA kernels (frontier relax, flash
-                attention, SSD intra-chunk) from the sources in this
-                checkout, one nvcc each, all at once (sm_90a); log ptxas
-                registers and spills;
+  2. build   -- compile the CUDA kernels (frontier relax, flash attention
+                on the CUDA cores and on the tensor cores, SSD
+                intra-chunk) from the sources in this checkout, one nvcc
+                each, all at once (sm_90a); log ptxas registers, spills
+                and warnings, and fail if the tensor-core attention kernel
+                spills or its wgmma is serialized (C7510) or setmaxnreg
+                ignored (C7508);
   3. kernel  -- hold the kernel against its plain PyTorch version,
                 `frontier_relax_torch`, on the card: 4 semirings x dense /
                 frontier-masked / empty states x B in {1, 8} x d in {1, 8},
@@ -31,17 +34,24 @@ Phases (every failure raises and exits nonzero):
                 the 16,384-vertex Ext. LRN graph, each checked the same way;
   6. attention kernel -- flash attention against `attention_ref` on the
                 card: causal x window {None, 128} x GQA ratio {1, 2, 8} x
-                {f32, bf16} x hd {64, 128, 256}, a ragged length, and
+                {f32, bf16} x hd {64, 128, 256}, ragged lengths (S=200 and
+                S=5, shorter than one tile), and
                 qwen3-0.6b's layer at B=1, S=4096 (f32 atol 2e-5, bf16 atol
-                2e-2 against the f32 reference); timed at the prefill
-                shape beside its plain version and SDPA (yardstick only);
+                2e-2 against the f32 reference, and at that layer also a
+                relative Frobenius error of 1e-2); each case logs its route
+                ("wgmma": bf16 at hd 64-256 on the tensor cores; "fma": the
+                CUDA cores) and must have taken `flash.route`'s. Timed at
+                the prefill shape: the wgmma kernel beside the CUDA-core
+                kernel at the same shape, the plain version and SDPA
+                (yardstick only);
   7. SSD kernel -- the intra-chunk kernel against `ssd_intra_ref` (and
                 `ssd_cuda` against `ssd_ref`) at the reference tests'
                 shapes, a ragged chunk and mamba2-370m's shape (atol 1e-4
                 x max(1, max|ref|)); timed beside its plain version;
   8. LM paths -- for qwen3-0.6b and mamba2-370m at full width in bf16: a
                 B=4 x 4,096 prefill through `make_prefill_step` (kernel
-                launches = layers x prefills), the float32 prefill of a
+                launches = layers x prefills; for qwen3 every one on the
+                wgmma route), the float32 prefill of a
                 256-token prompt against a token-by-token `decode_step`
                 replay (rtol 2e-2, atol 2e-3), `launch.serve.main` with 8
                 slots answering 16 requests, one profiled prefill and one
@@ -225,12 +235,15 @@ def demangle(names: list[str]) -> list[str]:
 
 
 def phase_build() -> None:
-    sources = (relax.SOURCE, flash.SOURCE, ssd.SOURCE)
+    sources = (relax.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE, ssd.SOURCE)
     t0 = time.perf_counter()
-    for path, seconds, text in _build.build_all(sources, verbose=True):
+    for source, (path, seconds, text) in zip(
+            sources, _build.build_all(sources, verbose=True)):
         log(f"built {path.name} in {seconds:.2f} s; ptxas:")
         names, props = [], []
         for ln in text.splitlines():
+            if "warning" in ln:
+                log(f"  {ln.strip()}")
             if "Compiling entry function" in ln:
                 names.append(ln.split("'")[1])
                 props.append([])
@@ -238,9 +251,18 @@ def phase_build() -> None:
                 props[-1].append(ln.split(":", 1)[-1].strip())
         for name, prop in zip(demangle(names), props):
             log(f"  {name}: {'; '.join(prop)}")
+        if source == flash.WGMMA_SOURCE:
+            require("C7510" not in text and "C7508" not in text,
+                    f"{source.name}: ptxas serialized wgmma (C7510) or "
+                    "ignored setmaxnreg (C7508)")
+            require(" 0 bytes spill stores" in text
+                    and text.count("spill stores") == text.count(
+                        " 0 bytes spill stores"),
+                    f"{source.name}: ptxas reports spills")
     log(f"all kernels built in {time.perf_counter() - t0:.2f} s")
     relax._library()
-    flash._library()
+    flash._library("fma")
+    flash._library("wgmma")
     ssd._library()
 
 
@@ -373,6 +395,7 @@ def profile_query(cq, srcs, label: str) -> None:
 # the LM kernels: flash attention (K2) and the SSD intra-chunk form (K3)
 # ------------------------------------------------------------------ #
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+ATTN_REL_TOL = 1e-2           # bf16 at the qwen3 layer, relative Frobenius
 SSD_ATOL = 1e-4               # scaled by max(1, max|ref|)
 LM_BATCH, LM_SEQ = 4, 4_096   # the prefill cell (prefill_32k cut to fit)
 KERNELS = (relax.frontier_relax_cuda, flash.flash_attention_cuda,
@@ -385,18 +408,32 @@ def randn(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
 
 
 def attention_check(label: str, q, k, v, causal: bool,
-                    window: int | None, quiet: bool = False) -> float:
+                    window: int | None, quiet: bool = False,
+                    rel_tol: float | None = None) -> float:
     """The kernel against `attention_ref` on the same inputs (upcast to
-    f32 for a bf16 kernel, as tests/test_kernels_attention.py does)."""
+    f32 for a bf16 kernel, as tests/test_kernels_attention.py does); the
+    call must take `flash.route`'s route. With `rel_tol`, also holds the
+    relative Frobenius error ||out - ref|| / ||ref||."""
+    name = flash.route(q.dtype, q.shape[-1])
+    before = dict(flash.flash_attention_cuda.route_launches)
     out = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
+    taken = [r for r, n in flash.flash_attention_cuda.route_launches.items()
+             if n != before[r]]
+    require(taken == [name], f"attention {label}: took {taken}, not {name}")
     ref = attention_ref(q.float(), k.float(), v.float(), causal=causal,
                         window=window)
     err = float((out.float() - ref).abs().max())
     atol = ATTN_ATOL[q.dtype]
     ok = err <= atol and bool(torch.isfinite(out).all())
+    rel = ""
+    if rel_tol is not None:
+        r = float((out.float() - ref).norm() / ref.norm())
+        ok = ok and r <= rel_tol
+        rel = f", relative Frobenius {r:.3e} (tol {rel_tol:g})"
     if not (quiet and ok):
-        log(f"attention {label}: max|err| {err:.3e} (atol {atol:g}: {ok})")
+        log(f"attention {label} [{name}]: max|err| {err:.3e} (atol "
+            f"{atol:g}){rel}: {ok}")
     require(ok, f"flash attention disagrees with attention_ref: {label}")
     return err
 
@@ -428,25 +465,34 @@ def phase_attention(gen) -> tuple[float, dict]:
                             f"{str(dtype)[6:]} hd={hd} g={8 // kh} "
                             f"causal={causal} window={window} S=320",
                             q, k, v, causal, window, quiet=True))
-            log(f"attention {str(dtype)[6:]} hd={hd}: 12 cases (GQA ratio "
-                "1/2/8 x causal x window None/128, B=2, S=320, H=8): max"
-                f"|err| {max(group):.3e} (atol {ATTN_ATOL[dtype]:g})")
+            log(f"attention {str(dtype)[6:]} hd={hd} "
+                f"[{flash.route(dtype, hd)}]: 12 cases (GQA ratio 1/2/8 x "
+                "causal x window None/128, B=2, S=320, H=8): max|err| "
+                f"{max(group):.3e} (atol {ATTN_ATOL[dtype]:g})")
             errs += group
-    q = randn(gen, (1, 200, 4, 32))
-    k, v = randn(gen, (1, 200, 2, 32)), randn(gen, (1, 200, 2, 32))
-    errs.append(attention_check("f32 hd=32 ragged S=200 window=50", q, k, v,
-                                True, 50))
+    # ragged lengths; S=5 is shorter than one tile of either kernel
+    for dtype, hd, n, window in ((torch.float32, 32, 200, 50),
+                                 (torch.bfloat16, 64, 200, 50),
+                                 (torch.bfloat16, 256, 200, 50),
+                                 (torch.bfloat16, 128, 5, None)):
+        q = randn(gen, (1, n, 4, hd), dtype)
+        k = randn(gen, (1, n, 2, hd), dtype)
+        v = randn(gen, (1, n, 2, hd), dtype)
+        errs.append(attention_check(
+            f"{str(dtype)[6:]} hd={hd} ragged S={n} window={window}", q, k,
+            v, True, window))
     qcfg = configs.get("qwen3_0_6b")
     shape = (qcfg.num_heads, qcfg.num_kv_heads, qcfg.head_dim)
     # at S=4096 a row's output is ~0.03, under the bf16 atol: the f32
-    # case at atol 2e-5 is the one that holds the long causal range
+    # case at atol 2e-5 holds the long causal range on the CUDA cores, and
+    # the relative error holds it on the tensor cores
     for dtype in (torch.float32, torch.bfloat16):
         q = randn(gen, (1, LM_SEQ, shape[0], shape[2]), dtype)
         k = randn(gen, (1, LM_SEQ, shape[1], shape[2]), dtype)
         v = randn(gen, (1, LM_SEQ, shape[1], shape[2]), dtype)
         errs.append(attention_check(
             f"qwen3 layer {str(dtype)[6:]} B=1 S={LM_SEQ}", q, k, v, True,
-            None))
+            None, rel_tol=ATTN_REL_TOL if dtype == torch.bfloat16 else None))
 
     # timing at the main path's shape: the qwen3 prefill's layer
     b, s = LM_BATCH, LM_SEQ
@@ -454,17 +500,23 @@ def phase_attention(gen) -> tuple[float, dict]:
     k = randn(gen, (b, s, shape[1], shape[2]), torch.bfloat16)
     v = randn(gen, (b, s, shape[1], shape[2]), torch.bfloat16)
     w = attention_work(b, s, *shape, torch.bfloat16)
-    ms = time_ms(lambda: flash.flash_attention_cuda(q, k, v), reps=5)
+    ms = time_ms(lambda: flash.flash_attention_cuda(q, k, v), reps=20)
+    # the CUDA-core kernel at the same shape, launched directly: the
+    # wrapper never routes bf16 at hd=128 there
+    fma_ms = time_ms(lambda: flash._launch("fma", q, k, v, True, None),
+                     reps=3, warmup=1)
     plain_ms = time_ms(lambda: attention_ref(q, k, v), reps=2, warmup=1)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
                                       enable_gqa=True), reps=10)
     log(f"time attention bf16 B={b} S={s} H={shape[0]} KH={shape[1]} "
-        f"hd={shape[2]} causal: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"SDPA {library_ms:.4f} ms, bound {w['bound_ms']:.4f} ms "
-        f"({w['bound_by']}; {w['ops']:.4g} ops, {w['bytes']} B); "
-        f"{w['ops'] / ms / 1e9:.2f} TFLOP/s")
+        f"hd={shape[2]} causal: wgmma kernel {ms:.4f} ms "
+        f"({w['ops'] / ms / 1e9:.2f} TFLOP/s), CUDA-core kernel "
+        f"{fma_ms:.4f} ms ({w['ops'] / fma_ms / 1e9:.2f} TFLOP/s), plain "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
+        f"{w['bound_ms']:.4f} ms ({w['bound_by']}; {w['ops']:.4g} ops, "
+        f"{w['bytes']} B)")
     return max(errs), dict(w, ms=ms, plain_ms=plain_ms,
                            library_ms=library_ms)
 
@@ -618,6 +670,9 @@ def lm_path(arch: str, kernel, rng) -> int:
     # the main path: counts start at 0 here
     for wrapper in KERNELS:
         wrapper.launches = 0
+    routes = flash.flash_attention_cuda.route_launches
+    for name in routes:
+        routes[name] = 0
     walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -630,14 +685,20 @@ def lm_path(arch: str, kernel, rng) -> int:
             f"{arch}: {launches} kernel launches for 2 prefills of "
             f"{cfg.num_layers} layers -- the path did not go through the "
             "kernel")
+    if kernel is flash.flash_attention_cuda:
+        require(routes == {"wgmma": launches, "fma": 0},
+                f"{arch}: bf16 prefill routes {routes}; every launch must "
+                "take the wgmma kernel")
     require(tuple(logits.shape) == (LM_BATCH, 1, cfg.padded_vocab)
             and bool(torch.isfinite(logits).all()),
             f"{arch}: prefill logits {tuple(logits.shape)} not finite or "
             "of the wrong shape")
     ntok = LM_BATCH * LM_SEQ
+    by_route = (f" ({routes['wgmma']} wgmma, {routes['fma']} fma)"
+                if kernel is flash.flash_attention_cuda else "")
     log(f"{arch} prefill B={LM_BATCH} S={LM_SEQ}: wall {walls[0]:.3f} / "
         f"{walls[1]:.3f} s, {ntok / walls[1]:.1f} tokens/s (second call), "
-        f"launches {launches}")
+        f"launches {launches}{by_route}")
     profile_call(lambda: prefill(params, batch), f"{arch} prefill")
     profile_decode(params, cfg, f"{arch} decode step B=8")
     del params, logits
@@ -743,10 +804,11 @@ def main() -> None:
                    "src/repro/kernels/frontier/frontier.py:137", launches,
                    max(err_small, err_full),
                    dict(timing["all"], library_ms=None)),
-        kernel_row("flash_attention",
-                   "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
-                   "src/repro/kernels/attention/flash.py:84",
-                   attn_launches, err_attn, t_attn),
+        dict(kernel_row(
+            "flash_attention",
+            "src/repro_torch/kernels/attention/csrc/flash_attention_wgmma.cu",
+            "src/repro/kernels/attention/flash.py:84", attn_launches,
+            err_attn, t_attn), kernel_route="wgmma"),
         kernel_row("ssd_intra",
                    "src/repro_torch/kernels/ssd/csrc/ssd_intra.cu",
                    "src/repro/kernels/ssd/ssd.py:50", ssd_launches,

@@ -1,11 +1,20 @@
-"""The hand-written CUDA flash-attention kernel: binding and wrapper.
+"""The hand-written CUDA flash-attention kernels: binding and wrapper.
 
-`csrc/flash_attention.cu` is the Hopper counterpart of the Pallas TPU
-kernel `repro.kernels.attention.flash.flash_attention_pallas`; its header
-says what bounds it and how the design answers that. It is built at
-first use by `repro_torch.kernels._build` and launched on PyTorch's
-current stream. The plain PyTorch version of the same function is
-`ref.attention_ref`.
+Two kernels compute the Pallas TPU kernel
+`repro.kernels.attention.flash.flash_attention_pallas`, one route each;
+`route` picks it from the dtype and head dim, in one place:
+
+* ``"wgmma"``: `csrc/flash_attention_wgmma.cu`, bf16 at hd 64/128/256, on
+  the tensor cores (wgmma, TMA-fed K/V, a producer warpgroup);
+* ``"fma"``: `csrc/flash_attention.cu`, f32 at every hd and bf16 at hd
+  16/32, f32 FMAs on the CUDA cores (a tensor-core product would not hold
+  the f32 cases).
+
+Each source's header says what bounds it and how the design answers that.
+They are built at first use by `repro_torch.kernels._build` and launched
+on PyTorch's current stream. There is no fallback from one route to the
+other: a failed build or launch raises. The plain PyTorch version of the
+same function is `ref.attention_ref`.
 """
 from __future__ import annotations
 
@@ -18,16 +27,38 @@ import torch
 
 from repro_torch.kernels import _build
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = CSRC / "flash_attention.cu"                # the "fma" route
+WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"    # the "wgmma" route
 HEAD_DIMS = (16, 32, 64, 128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
+# route -> (source, prefix of its C functions `<prefix>_launch` and
+# `<prefix>_error_string`, which share one signature)
+ROUTES = {"wgmma": (WGMMA_SOURCE, "flash_attention_wgmma"),
+          "fma": (SOURCE, "flash_attention")}
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that q/k/v of `dtype` and `head_dim` take: ``"wgmma"``
+    for bf16 at hd 64/128/256, ``"fma"`` for f32 at any hd in
+    `HEAD_DIMS` and bf16 at hd 16/32. Raises on anything else."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_cuda: head_dim {head_dim} not "
+                         f"in {HEAD_DIMS}")
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype in DTYPE_IDS:
+        return "fma"
+    raise ValueError(f"flash_attention_cuda: dtype {dtype}; the kernels "
+                     "take float32 or bfloat16")
 
 
 def kv_tile_range(qi: int, bq: int, bkv: int, causal: bool,
                   window: int | None, s: int, t: int) -> tuple[int, int]:
     """The kv tiles ``[first, last]`` that hold a key some row of q tile
     `qi` may see (q rows ``qi*bq .. qi*bq+bq-1`` of `s`, kv rows in tiles
-    of `bkv` of `t`). The CUDA kernel computes the same formula.
+    of `bkv` of `t`). Both CUDA kernels compute the same formula.
 
     Unlike the reference's ``last = qi * bq // bkv`` (flash.py:36), which
     drops keys when ``bq > bkv``, `last` is the tile of the q tile's last
@@ -43,24 +74,49 @@ def kv_tile_range(qi: int, bq: int, bkv: int, causal: bool,
 
 
 @functools.cache
-def _library() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    lib.flash_attention_launch.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_void_p])
-    lib.flash_attention_launch.restype = ctypes.c_int
-    lib.flash_attention_error_string.argtypes = [ctypes.c_int]
-    lib.flash_attention_error_string.restype = ctypes.c_char_p
-    return lib
+def _library(route_name: str):
+    """The route's built ``(launch, error_string)`` C functions."""
+    source, prefix = ROUTES[route_name]
+    lib = _build.load(source)
+    launch = getattr(lib, f"{prefix}_launch")
+    error = getattr(lib, f"{prefix}_error_string")
+    launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+    launch.restype = ctypes.c_int
+    error.argtypes = [ctypes.c_int]
+    error.restype = ctypes.c_char_p
+    return launch, error
+
+
+def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
+            v: torch.Tensor, causal: bool, window: int | None
+            ) -> torch.Tensor:
+    """One launch of the named route's kernel on checked inputs; counts
+    nothing. `flash_attention_cuda` is the wrapper."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    launch, error = _library(route_name)
+    with torch.cuda.device(q.device):
+        err = launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPE_IDS[q.dtype], b, s, t, h, kh, hd, int(causal),
+            0 if window is None else int(window), 1.0 / math.sqrt(hd),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention ({route_name}) kernel launch "
+                           f"failed: {error(err).decode()} ({err})")
+    return out
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: int | None = None
                          ) -> torch.Tensor:
     """GQA attention on the card. q: (B,S,H,hd); k/v: (B,T,KH,hd), all
-    contiguous CUDA tensors of one dtype (f32 or bf16), H % KH == 0,
-    hd in `HEAD_DIMS`. Returns (B,S,H,hd) in q's dtype. Raises on anything
-    the kernel does not take; never falls back to the plain version."""
+    contiguous, 16-byte aligned CUDA tensors of one dtype (f32 or bf16),
+    H % KH == 0, hd in `HEAD_DIMS`. Returns (B,S,H,hd) in q's dtype. The
+    route is `route(q.dtype, hd)`. Raises on anything the kernels do not
+    take; never falls back to the plain version or the other route."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_cuda needs CUDA tensors; the "
                          "plain version is ref.attention_ref")
@@ -69,40 +125,32 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
                          "(B,S,H,hd) / (B,T,KH,hd)")
     b, s, h, hd = q.shape
-    t, kh = k.shape[1], k.shape[2]
+    kh = k.shape[2]
     if k.shape[0] != b or k.shape[3] != hd or kh == 0 or h % kh:
         raise ValueError(f"flash_attention_cuda: k/v {tuple(k.shape)} do "
                          f"not fit q {tuple(q.shape)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head_dim {hd} not in "
-                         f"{HEAD_DIMS}")
-    if q.dtype not in DTYPE_IDS or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention_cuda: dtypes {q.dtype}, "
-                         f"{k.dtype}, {v.dtype}; the kernel takes one of "
-                         "float32 / bfloat16 for all three")
+                         f"{k.dtype}, {v.dtype}; the kernels take one dtype "
+                         "for all three")
+    name = route(q.dtype, hd)
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention_cuda: q, k, v on different "
                          "devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention_cuda: q, k, v must be contiguous")
+    if any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention_cuda: q, k, v must be 16-byte "
+                         "aligned")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_cuda: window {window} < 1")
     if q.numel() == 0 or k.numel() == 0:
         raise ValueError("flash_attention_cuda: empty q or k")
-    out = torch.empty_like(q)
-    lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPE_IDS[q.dtype], b, s, t, h, kh, hd, int(causal),
-            0 if window is None else int(window), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(
-            "flash_attention kernel launch failed: "
-            f"{lib.flash_attention_error_string(err).decode()} ({err})")
+    out = _launch(name, q, k, v, causal, window)
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.route_launches[name] += 1
     return out
 
 
 flash_attention_cuda.launches = 0    # kernel launches since the last reset
+flash_attention_cuda.route_launches = {"wgmma": 0, "fma": 0}   # by route

@@ -5,8 +5,12 @@ Flash attention (K2): `repro_torch.kernels.attention.ref.attention_ref`
 and the CPU dispatch `ops.flash_attention` against
 `repro.kernels.attention.ref.attention_ref` over causal x window x GQA x
 head dim, and against `flash_attention_pallas(interpret=True)` at
-bq == bkv (f32, atol 2e-5). `kv_tile_range`, whose formula the CUDA
-kernel mirrors, against a brute-force mask, including bq != bkv.
+bq == bkv (f32, atol 2e-5). `kv_tile_range`, whose formula both CUDA
+kernels mirror, against a brute-force mask at both kernels' tile pairs
+and at bq != bkv. The routing rule (dtype x hd -> "wgmma" / "fma" /
+raise), and the "wgmma" route's numerics (bf16 q, k, v; P rounded to bf16
+before P.V; tiled online softmax in exp2) emulated on the CPU and held
+against both references at the bf16 tolerances of `chip_smoke.py`.
 
 SSD (K3): `ssd_intra_ref` against `ssd_intra_pallas(interpret=True)`;
 `ssd_ref`, `ssd_chunked` and the kernel path's torch glue (`ssd_cuda`
@@ -15,6 +19,8 @@ with the plain intra-chunk form in place of the kernel) against
 shapes (atol 1e-4). The CUDA kernels themselves run only on the card
 (`chip_smoke.py`).
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -89,7 +95,7 @@ def _visible_tiles(qi, bq, bkv, causal, window, s, t):
 
 
 @pytest.mark.parametrize("bq,bkv", [(64, 64), (128, 64), (64, 128),
-                                    (32, 48)])
+                                    (32, 48), (128, 128)])
 @pytest.mark.parametrize("window", [None, 1, 50, 200])
 @pytest.mark.parametrize("causal", [True, False])
 def test_kv_tile_range_matches_brute_force(bq, bkv, causal, window):
@@ -114,13 +120,96 @@ def test_reference_causal_range_is_short_when_bq_exceeds_bkv():
 def test_flash_cuda_wrapper_rejects_cpu_tensors():
     q, k, v = map(torch.from_numpy, _qkv(64, 2, 1, 16))
     before = flash.flash_attention_cuda.launches
+    routes = dict(flash.flash_attention_cuda.route_launches)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         flash.flash_attention_cuda(q, k, v)
     assert flash.flash_attention_cuda.launches == before
+    assert flash.flash_attention_cuda.route_launches == routes
     assert set(flash.HEAD_DIMS) == {16, 32, 64, 128, 256}
-    src = flash.SOURCE.read_text()
-    assert "flash_attention_pallas" in src            # names what it replaces
-    assert "kv_tile_range" in src
+    for source in (flash.SOURCE, flash.WGMMA_SOURCE):
+        src = source.read_text()
+        assert "flash_attention_pallas" in src        # names what it replaces
+        assert "kv_tile_range" in src
+
+
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+def test_flash_route_rule(dtype, hd):
+    """bf16 at hd 64/128/256 takes the tensor-core kernel; f32 at every
+    hd and bf16 at hd 16/32 the CUDA-core kernel; anything else raises."""
+    if hd not in flash.HEAD_DIMS or dtype == torch.float16:
+        with pytest.raises(ValueError):
+            flash.route(dtype, hd)
+        return
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256)
+            else "fma")
+    assert flash.route(dtype, hd) == want
+    assert flash.ROUTES[want][0].exists()
+
+
+def _wgmma_emulation(q, k, v, causal, window):
+    """The "wgmma" route's arithmetic in f32 on the CPU: per 128-row q tile
+    the kv tiles of `kv_tile_range`; S = q k^T of the bf16 inputs in f32;
+    the online softmax in log2 units with the kernel's -1e30 mask; P
+    rounded to bf16 before P.V; O / max(l, 1e-30) rounded to bf16."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    bq, bkv = 128, 64 if hd == 256 else 128      # BQ, BKV of the source
+    scale_log2 = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) \
+        * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    kf, vf = (x.repeat_interleave(h // kh, dim=1) for x in (kf, vf))
+    out = torch.empty(b, h, s, hd)
+    for qi in range(-(-s // bq)):
+        rows = torch.arange(qi * bq, min(qi * bq + bq, s))
+        m = torch.full((b, h, rows.numel()), -1e30)
+        l = torch.zeros_like(m)
+        o = torch.zeros(b, h, rows.numel(), hd)
+        first, last = flash.kv_tile_range(qi, bq, bkv, causal, window, s, t)
+        for kt in range(first, last + 1):
+            keys = torch.arange(kt * bkv, min(kt * bkv + bkv, t))
+            x = qf[:, :, rows] @ kf[:, :, keys].mT * scale_log2
+            ok = torch.ones(rows.numel(), keys.numel(), dtype=torch.bool)
+            if causal:
+                ok &= keys[None] <= rows[:, None]
+            if window is not None:
+                ok &= keys[None] > rows[:, None] - window
+            x = torch.where(ok, x, -1e30)
+            mn = torch.maximum(m, x.amax(dim=-1))
+            corr = torch.exp2(m - mn)
+            p = torch.exp2(x - mn[..., None])
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, keys]
+            m = mn
+        out[:, :, rows] = o / l.clamp_min(1e-30)[..., None]
+    return out.transpose(1, 2).bfloat16()
+
+
+@pytest.mark.parametrize("h,kh,hd,s,causal,window", [
+    (16, 8, 128, 512, True, None),      # qwen3-0.6b's layer width
+    (8, 4, 128, 320, True, 128),
+    (8, 8, 64, 320, False, None),
+    (4, 2, 256, 320, True, None),       # bq > bkv
+    (4, 1, 64, 200, True, 50),          # ragged
+])
+def test_wgmma_route_numerics_hold_against_reference(h, kh, hd, s, causal,
+                                                     window):
+    """The bf16 hold of `chip_smoke.py` (atol 2e-2 and relative Frobenius
+    error 1e-2 against the f32 reference on the same bf16 inputs) is the
+    right one for the tensor-core kernel's rounding."""
+    q, k, v = (torch.from_numpy(x).bfloat16()
+               for x in _qkv(s, h, kh, hd, seed=11))
+    got = _wgmma_emulation(q, k, v, causal, window).float()
+    refs = (attention_ref(q.float(), k.float(), v.float(), causal=causal,
+                          window=window),
+            torch.from_numpy(np.asarray(ref_attention(
+                *(jnp.asarray(x.float().numpy()) for x in (q, k, v)),
+                causal=causal, window=window))))
+    for ref in refs:
+        assert float((got - ref).abs().max()) <= 2e-2
+        assert float((got - ref).norm() / ref.norm()) <= 1e-2
+        assert not torch.equal(got, ref.bfloat16().float())   # P rounds
 
 
 # ------------------------------------------------------------------ #
