@@ -11,8 +11,10 @@ Phases (every failure raises and exits nonzero):
                 intra-chunk) from the sources in this checkout, one nvcc
                 each, all at once (sm_90a); log ptxas registers, spills
                 and warnings, and fail if the tensor-core attention kernel
-                spills or its wgmma is serialized (C7510) or setmaxnreg
-                ignored (C7508);
+                or any function of the SSD kernel spills, if the attention
+                kernel's wgmma is serialized (C7510) or its setmaxnreg
+                ignored (C7508), or if the SSD kernel's SASS waits after
+                every wgmma;
   3. kernel  -- hold the kernel against its plain PyTorch version,
                 `frontier_relax_torch`, on the card: 4 semirings x dense /
                 frontier-masked / empty states x B in {1, 8} x d in {1, 8},
@@ -44,10 +46,19 @@ Phases (every failure raises and exits nonzero):
                 the prefill shape: the wgmma kernel beside the CUDA-core
                 kernel at the same shape, the plain version and SDPA
                 (yardstick only);
-  7. SSD kernel -- the intra-chunk kernel against `ssd_intra_ref` (and
+  7. SSD kernel -- logs the kernel's route (3xTF32 tensor-core products,
+                the head group sharing one G panel); holds the
+                intra-chunk kernel against `ssd_intra_ref` (and
                 `ssd_cuda` against `ssd_ref`) at the reference tests'
-                shapes, a ragged chunk and mamba2-370m's shape (atol 1e-4
-                x max(1, max|ref|)); timed beside its plain version;
+                shapes (chunk 16), a ragged chunk (100), N=20 / P=12 /
+                chunk 72 (no multiple of 8, 16 or 64), N=5 / P=6 /
+                chunk 48 (4-byte staging), P over 64 (two 64-column
+                slots per head: P=100, 70, 128), a strong-decay case (cums
+                below -500 inside a chunk, where a factored exp
+                overflows) and mamba2-370m's shape, at atol 1e-4 x
+                max(1, max|ref|); timed beside its plain version, with
+                the route's bound (3xTF32 tensor cores) and the f32
+                CUDA-core bound;
   8. LM paths -- for qwen3-0.6b and mamba2-370m at full width in bf16: a
                 B=4 x 4,096 prefill through `make_prefill_step` (kernel
                 launches = layers x prefills; for qwen3 every one on the
@@ -96,6 +107,7 @@ from repro_torch.models import model as M  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 rate outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor-core rate
 FULL_N = 262_144              # DIMACS USA-road-d.NY scale (264,346 nodes)
 PROGRAM_N = 16_384            # Ext. LRN, the paper's largest group
 PLUS_TIMES_ATOL = 1e-5
@@ -234,6 +246,28 @@ def demangle(names: list[str]) -> list[str]:
     return short if len(short) == len(names) else names
 
 
+def wgmma_waits(library: Path) -> dict:
+    """Per kernel of a built library, (HGMMA, WARPGROUP.DEPBAR) counts in
+    its SASS, through the toolkit's cuobjdump. A wait after every HGMMA
+    means ptxas serialized the wgmma batch."""
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    require(tool.exists(), f"no {tool}: the SSD kernel's wgmma batches "
+            "cannot be checked")
+    sass = subprocess.run([str(tool), "-sass", str(library)],
+                          capture_output=True, text=True, timeout=120,
+                          check=True).stdout
+    names, counts = [], []
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            names.append(ln.split("Function :", 1)[1].strip())
+            counts.append([0, 0])
+        elif names and "HGMMA" in ln:
+            counts[-1][0] += 1
+        elif names and "WARPGROUP.DEPBAR" in ln:
+            counts[-1][1] += 1
+    return dict(zip(demangle(names), map(tuple, counts)))
+
+
 def phase_build() -> None:
     sources = (relax.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE, ssd.SOURCE)
     t0 = time.perf_counter()
@@ -255,10 +289,22 @@ def phase_build() -> None:
             require("C7510" not in text and "C7508" not in text,
                     f"{source.name}: ptxas serialized wgmma (C7510) or "
                     "ignored setmaxnreg (C7508)")
+        if source in (flash.WGMMA_SOURCE, ssd.SOURCE):
             require(" 0 bytes spill stores" in text
                     and text.count("spill stores") == text.count(
                         " 0 bytes spill stores"),
                     f"{source.name}: ptxas reports spills")
+        if source == ssd.SOURCE:
+            # ptxas gives no C7510 when it serializes these wgmma (a
+            # register-A operand): only the SASS shows it
+            waits = wgmma_waits(path)
+            for name, (n_mma, n_wait) in waits.items():
+                if n_mma:
+                    log(f"  {name}: {n_mma} HGMMA, {n_wait} wgmma waits in "
+                        "the SASS")
+                    require(2 * n_wait < n_mma,
+                            f"{source.name}: ptxas serialized the wgmma "
+                            f"of {name} (a wait after each)")
     log(f"all kernels built in {time.perf_counter() - t0:.2f} s")
     relax._library()
     flash._library("fma")
@@ -521,19 +567,25 @@ def phase_attention(gen) -> tuple[float, dict]:
                            library_ms=library_ms)
 
 
-def ssd_inputs(gen, b, l, h, p, n):
-    """The reference tests' distribution: x, B, C, A_log, D normal; dt
-    uniform in [0.01, 0.2)."""
+def ssd_inputs(gen, b, l, h, p, n, a_shift=0.0):
+    """The reference tests' distribution: x, B, C, A_log, D normal (A_log
+    shifted by `a_shift`); dt uniform in [0.01, 0.2)."""
     return (randn(gen, (b, l, h, p)),
             0.01 + 0.19 * torch.rand((b, l, h), generator=gen,
                                      device="cuda"),
             randn(gen, (b, l, n)), randn(gen, (b, l, n)),
-            randn(gen, (h,)), randn(gen, (h,)))
+            randn(gen, (h,)) + a_shift, randn(gen, (h,)))
 
 
-def ssd_check(label: str, gen, b, l, h, p, n, chunk) -> float:
-    x, dt, Bm, Cm, A_log, D = ssd_inputs(gen, b, l, h, p, n)
+def ssd_check(label: str, gen, b, l, h, p, n, chunk, a_shift=0.0) -> float:
+    x, dt, Bm, Cm, A_log, D = ssd_inputs(gen, b, l, h, p, n, a_shift)
     C_c, B_c, dtx, cums = chunk_inputs(x, dt, Bm, Cm, A_log, chunk)
+    if a_shift:
+        # exp(-cums_j) overflows f32 below -88: a factored decay gives NaN
+        require(float(cums.min()) < -500,
+                f"ssd {label}: cums min {float(cums.min()):.1f} is not "
+                "below -500")
+        label += f", cums min {float(cums.min()):.1f}"
     y, S = ssd.ssd_intra_cuda(C_c, B_c, dtx, cums)
     torch.cuda.synchronize()
     y_ref, S_ref = ssd_intra_ref(C_c, B_c, dtx, cums)
@@ -557,16 +609,22 @@ def ssd_check(label: str, gen, b, l, h, p, n, chunk) -> float:
 def ssd_work(b, nc, q, n, h, p) -> dict:
     """What the intra-chunk function needs: G over the i >= j pairs once
     per chunk, then per head the decay product, att @ dtx and the state;
-    C, B, dtx, cums read once, y and S written once."""
+    C, B, dtx, cums read once, y and S written once. `bound_ms` is the
+    route's own: every product as three TF32 products on the tensor cores
+    (3 x ops / 495 TFLOP/s) against the bytes; `f32_bound_ms` the same
+    work as f32 FMAs on the CUDA cores (ops / 67 TFLOP/s)."""
     pairs = q * (q + 1) // 2
     ops = b * nc * (2 * pairs * n + h * (pairs + 2 * pairs * p
                                          + 2 * q * n * p))
     nbytes = 4 * b * nc * (2 * q * n + q * h * p + q * h + q * h * p
                            + h * n * p)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * ops / TF32_OPS_PER_S
     return {"bytes": nbytes, "ops": ops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_rate": "3xTF32: 3 x ops / 495 TFLOP/s",
+            "f32_bound_ms": max(t_bytes, ops / FP32_OPS_PER_S) * 1e3}
 
 
 def phase_ssd(gen) -> tuple[float, dict]:
@@ -577,8 +635,26 @@ def phase_ssd(gen) -> tuple[float, dict]:
                       b, l, hh, pp, nn, 16)
             for b, l, hh, pp, nn in ((1, 32, 2, 8, 4), (2, 64, 4, 16, 8),
                                      (1, 128, 1, 32, 16))]
+    log(f"ssd route: {ssd.ROUTE}")
     errs.append(ssd_check("ragged B=1 L=200 H=3 P=24 N=20 chunk=100", gen,
                           1, 200, 3, 24, 20, 100))
+    errs.append(ssd_check("ragged B=2 L=144 H=3 P=12 N=20 chunk=72", gen,
+                          2, 144, 3, 12, 20, 72))
+    # N and P off a multiple of 4: the kernel stages with 4-byte copies
+    errs.append(ssd_check("ragged B=1 L=96 H=2 P=6 N=5 chunk=48", gen, 1,
+                          96, 2, 6, 5, 48))
+    # P over 64: two 64-column slots per head, the second one ragged
+    # (P=100, and P=70 with 4-byte copies), and the widest head (P=128);
+    # H=9 puts a second head group behind a ragged chunk of three i tiles
+    errs.append(ssd_check("two slots B=1 L=320 H=9 P=100 N=36 chunk=160",
+                          gen, 1, 320, 9, 100, 36, 160))
+    errs.append(ssd_check("two slots B=1 L=200 H=3 P=70 N=20 chunk=100",
+                          gen, 1, 200, 3, 70, 20, 100))
+    errs.append(ssd_check(f"two slots B=1 L=512 H=3 P=128 N={n} chunk={q}",
+                          gen, 1, 512, 3, 128, n, q))
+    errs.append(ssd_check(f"strong decay B=1 L=512 H=4 P={p} N={n} "
+                          f"chunk={q} A_log+4", gen, 1, 512, 4, p, n, q,
+                          a_shift=4.0))
     errs.append(ssd_check(f"mamba2 B={LM_BATCH} L={LM_SEQ} H={h} P={p} "
                           f"N={n} chunk={q}", gen, LM_BATCH, LM_SEQ, h, p,
                           n, q))
@@ -591,8 +667,10 @@ def phase_ssd(gen) -> tuple[float, dict]:
                        warmup=1)
     log(f"time ssd_intra f32 B={LM_BATCH} nc={LM_SEQ // q} Q={q} N={n} "
         f"H={h} P={p}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{w['bound_ms']:.4f} ms ({w['bound_by']}; {w['ops']:.4g} ops, "
-        f"{w['bytes']} B); {w['ops'] / ms / 1e9:.2f} TFLOP/s of needed work")
+        f"{w['bound_ms']:.4f} ms ({w['bound_by']}, {w['bound_rate']}; "
+        f"{w['ops']:.4g} ops, {w['bytes']} B), f32 CUDA-core bound "
+        f"{w['f32_bound_ms']:.4f} ms; {w['ops'] / ms / 1e9:.2f} TFLOP/s of "
+        "needed work")
     return max(errs), dict(w, ms=ms, plain_ms=plain_ms, library_ms=None)
 
 
@@ -809,10 +887,11 @@ def main() -> None:
             "src/repro_torch/kernels/attention/csrc/flash_attention_wgmma.cu",
             "src/repro/kernels/attention/flash.py:84", attn_launches,
             err_attn, t_attn), kernel_route="wgmma"),
-        kernel_row("ssd_intra",
-                   "src/repro_torch/kernels/ssd/csrc/ssd_intra.cu",
-                   "src/repro/kernels/ssd/ssd.py:50", ssd_launches,
-                   err_ssd, t_ssd),
+        dict(kernel_row("ssd_intra",
+                        "src/repro_torch/kernels/ssd/csrc/ssd_intra.cu",
+                        "src/repro/kernels/ssd/ssd.py:50", ssd_launches,
+                        err_ssd, t_ssd),
+             bound_rate=t_ssd["bound_rate"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

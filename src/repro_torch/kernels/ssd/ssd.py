@@ -1,8 +1,10 @@
 """The hand-written CUDA SSD intra-chunk kernel: binding and wrapper.
 
 `csrc/ssd_intra.cu` is the Hopper counterpart of the Pallas TPU kernel
-`repro.kernels.ssd.ssd.ssd_intra_pallas`; its header says what bounds it
-and how the design answers that. It is built at first use by
+`repro.kernels.ssd.ssd.ssd_intra_pallas`: 3xTF32 tensor-core products
+(wgmma, and mma.sync for G; f32 accumulation) with one G = C.B^T panel
+shared by a group of heads. Its header says what bounds it and how the
+design answers that. It is built at first use by
 `repro_torch.kernels._build` and launched on PyTorch's current stream.
 The plain PyTorch version of the same function is `ref.ssd_intra_ref`.
 
@@ -22,8 +24,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ssd.ref import chunk_inputs, ssd_from_intra
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_intra.cu"
-MAX_STATE = 128             # N: state size the kernel holds per thread block
-MAX_HEAD_DIM = 128          # P: head dim, 16 columns per thread at most
+MAX_STATE = 128             # N: two warpgroups x 64 state rows
+MAX_HEAD_DIM = 128          # P: two 64-column slots per head
+MAX_CHUNK = 256             # Q: the G panel of a 64-row tile fits in smem
+HEAD_GROUP = 8              # heads that share one G = C.B^T panel
+ROUTE = (f"3xTF32 tensor cores, f32 accumulate (wgmma m64n64k8 for y and S, "
+         f"mma.sync m16n8k8 for G); G = C.B^T shared by {HEAD_GROUP} heads")
 
 
 @functools.cache
@@ -41,10 +47,10 @@ def ssd_intra_cuda(C: torch.Tensor, B: torch.Tensor, dtx: torch.Tensor,
                    cums: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """The intra-chunk form on the card. C/B: (b,nc,Q,N); dtx:
     (b,nc,Q,H,P); cums: (b,nc,Q,H); all contiguous f32 CUDA tensors,
-    N <= 128, P <= 128. Returns (y_intra (b,nc,Q,H,P), S (b,nc,H,N,P)),
-    f32. One call launches the kernel's two functions (y, then S) and
-    counts once. Raises on anything the kernel does not take; never falls
-    back to the plain version."""
+    Q <= 256, N <= 128, P <= 128. Returns (y_intra (b,nc,Q,H,P),
+    S (b,nc,H,N,P)), f32. One call launches the kernel's two functions
+    (y, then S) and counts once. Raises on anything the kernel does not
+    take; never falls back to the plain version."""
     tensors = {"C": C, "B": B, "dtx": dtx, "cums": cums}
     if not all(x.is_cuda for x in tensors.values()):
         raise ValueError("ssd_intra_cuda needs CUDA tensors; the plain "
@@ -61,9 +67,11 @@ def ssd_intra_cuda(C: torch.Tensor, B: torch.Tensor, dtx: torch.Tensor,
         raise ValueError(f"ssd_intra_cuda: dtx {tuple(dtx.shape)} / cums "
                          f"{tuple(cums.shape)} do not fit C "
                          f"{tuple(C.shape)}")
-    if not (1 <= n <= MAX_STATE and 1 <= p <= MAX_HEAD_DIM):
-        raise ValueError(f"ssd_intra_cuda: state {n} / head dim {p} "
-                         f"outside 1..{MAX_STATE} / 1..{MAX_HEAD_DIM}")
+    if not (1 <= n <= MAX_STATE and 1 <= p <= MAX_HEAD_DIM
+            and 1 <= q <= MAX_CHUNK):
+        raise ValueError(f"ssd_intra_cuda: state {n} / head dim {p} / "
+                         f"chunk {q} outside 1..{MAX_STATE} / "
+                         f"1..{MAX_HEAD_DIM} / 1..{MAX_CHUNK}")
     for name, x in tensors.items():
         if x.dtype != torch.float32:
             raise ValueError(f"ssd_intra_cuda: {name} has dtype {x.dtype}, "

@@ -16,8 +16,12 @@ SSD (K3): `ssd_intra_ref` against `ssd_intra_pallas(interpret=True)`;
 `ssd_ref`, `ssd_chunked` and the kernel path's torch glue (`ssd_cuda`
 with the plain intra-chunk form in place of the kernel) against
 `ssd_ref` and `ssd_pallas(interpret=True)` at the reference tests'
-shapes (atol 1e-4). The CUDA kernels themselves run only on the card
-(`chip_smoke.py`).
+shapes (atol 1e-4). The kernel's route (3xTF32 tensor-core products in
+its tile structure, with the decay masked before the exp) emulated on
+the CPU and held against both references at `chip_smoke.py`'s tolerance
+(atol 1e-4 x max(1, max|ref|)), ragged and strong-decay cases included;
+one TF32 product per multiply shown to miss it. The CUDA kernels
+themselves run only on the card (`chip_smoke.py`).
 """
 import math
 
@@ -287,3 +291,121 @@ def test_ssd_dispatch_rules():
     assert ssd.ssd_intra_cuda.launches == before
     src = ssd.SOURCE.read_text()
     assert "ssd_intra_pallas" in src                  # names what it replaces
+
+
+# The route of `ssd_intra.cu`: 3xTF32 tensor-core products, f32 accumulate
+def _tf32(x):
+    """Round f32 to TF32 as `cvt.rna.tf32.f32` does: to nearest with ties
+    away from zero, 10 mantissa bits kept (the low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b as the kernel's MMAs take it: exact products of TF32 operands
+    summed in f32. passes=3: x = hi + lo with hi = tf32(x), lo = tf32(x -
+    hi), and a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi; passes=1: one TF32
+    product a_hi.b_hi."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _ssd_3xtf32_emulation(C, B, dtx, cums, passes=3, br=64):
+    """The kernel's arithmetic on the CPU, in its tile structure. Per
+    64-row i tile: the G panel C_i . B^T up to the diagonal (split
+    products); off the diagonal (j < i0) the decay as exp(ci - c0) *
+    exp(c0 - cj) with c0 = cums[i0 - 1], both factors <= 1: the dtx rows
+    weighted by exp(c0 - cj) and split, G split, their product scaled by
+    exp(ci - c0); on the diagonal tile att = G * exp(ci - cj), masked
+    before the exp, split and multiplied by the split dtx tile. S =
+    B^T . (exp(last - cums) * dtx), both operands split. Products of
+    split operands are exact in f32, sums are f32."""
+    b, nc, q, n = C.shape
+    h, p = dtx.shape[3], dtx.shape[4]
+    xt = dtx.permute(0, 1, 3, 2, 4)                        # (b,nc,H,Q,P)
+    ct = cums.permute(0, 1, 3, 2)                          # (b,nc,H,Q)
+    y = torch.zeros(b, nc, h, q, p)
+    for i0 in range(0, q, br):
+        i1 = min(i0 + br, q)
+        G = _mm_tf32(C[:, :, i0:i1], B[:, :, :i1].mT, passes)
+        ci = ct[:, :, :, i0:i1]
+        if i0:
+            c0 = ct[:, :, :, i0 - 1:i0]
+            xw = torch.exp(c0 - ct[:, :, :, :i0])[..., None] \
+                * xt[:, :, :, :i0]
+            off = _mm_tf32(G[:, :, None, :, :i0], xw, passes)
+            y[:, :, :, i0:i1] = off * torch.exp(ci - c0)[..., None]
+        keep = (torch.arange(i0, i1)[:, None]
+                >= torch.arange(i0, i1)[None])
+        d = ci[..., :, None] - ci[..., None, :]
+        att = G[:, :, None, :, i0:i1] * torch.exp(
+            torch.where(keep, d, -torch.inf))
+        y[:, :, :, i0:i1] += _mm_tf32(att, xt[:, :, :, i0:i1], passes)
+    w = torch.exp(ct[..., -1:] - ct)                       # (b,nc,H,Q)
+    S = _mm_tf32(B[:, :, None].mT, w[..., None] * xt, passes)
+    return y.permute(0, 1, 3, 2, 4), S
+
+
+def test_tf32_rounding_is_nearest_ties_away():
+    one = 1.0 + 2.0 ** -10                  # the TF32 neighbour of 1.0
+    x = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      -(1.0 + 2.0 ** -11), 3.0, 0.0])
+    assert _tf32(x).tolist() == [one, 1.0, -one, 3.0, 0.0]
+
+
+SSD_ROUTE_CASES = [   # (b, l, h, p, n, chunk, A_log shift)
+    *((*s, 16, 0.0) for s in SSD_SHAPES),
+    (1, 200, 3, 24, 20, 100, 0.0),          # ragged chunk
+    (2, 144, 3, 12, 20, 72, 0.0),           # N, P, chunk off 8 / 16 / 64
+    (1, 192, 5, 100, 36, 64, 0.0),          # P over 64: two slots per head
+    (1, 512, 2, 64, 128, 256, 0.0),         # mamba2-370m's widths
+    (1, 512, 2, 64, 128, 256, 4.0),         # strong decay: cums < -500
+]
+
+
+@pytest.mark.parametrize("b,l,h,p,n,chunk,shift", SSD_ROUTE_CASES)
+def test_ssd_3xtf32_route_holds_against_references(b, l, h, p, n, chunk,
+                                                   shift):
+    """`chip_smoke.py`'s hold of the kernel (atol 1e-4 x max(1, max|ref|))
+    is met by its 3xTF32 arithmetic, against `ssd_intra_ref` and the
+    interpret-mode Pallas kernel."""
+    ins = list(_ssd_inputs(b, l, h, p, n, seed=7))
+    ins[4] = ins[4] + np.float32(shift)
+    C, B, dtx, cums = chunk_inputs(*map(torch.from_numpy, ins[:5]), chunk)
+    if shift:
+        assert float(cums.min()) < -500     # exp(-cums_j) overflows f32
+    y, S = _ssd_3xtf32_emulation(C, B, dtx, cums)
+    refs = (ssd_intra_ref(C, B, dtx, cums),
+            tuple(torch.from_numpy(np.array(r)) for r in ssd_intra_pallas(
+                *(jnp.asarray(t.numpy()) for t in (C, B, dtx, cums)),
+                interpret=True)))
+    for y_ref, S_ref in refs:
+        for got, ref in ((y, y_ref), (S, S_ref)):
+            assert bool(torch.isfinite(got).all())
+            tol = 1e-4 * max(1.0, float(ref.abs().max()))
+            assert float((got - ref).abs().max()) <= tol
+
+
+def test_ssd_one_tf32_product_misses_the_hold():
+    """Why the kernel splits: at mamba2's widths one TF32 product per
+    multiply misses the f32 hold for both y and S."""
+    ins = _ssd_inputs(1, 512, 2, 64, 128, seed=7)
+    C, B, dtx, cums = chunk_inputs(*map(torch.from_numpy, ins[:5]), 256)
+    y, S = _ssd_3xtf32_emulation(C, B, dtx, cums, passes=1)
+    y_ref, S_ref = ssd_intra_ref(C, B, dtx, cums)
+    for got, ref in ((y, y_ref), (S, S_ref)):
+        tol = 1e-4 * max(1.0, float(ref.abs().max()))
+        assert float((got - ref).abs().max()) > tol
+
+
+def test_ssd_kernel_limits_match_wrapper():
+    """The wrapper raises on exactly the shapes the CUDA source refuses:
+    its limits are the source's MAXQ / MAXN / MAXP; the head group its
+    route names is the source's HG."""
+    src = ssd.SOURCE.read_text()
+    for name, want in (("MAXQ", ssd.MAX_CHUNK), ("MAXN", ssd.MAX_STATE),
+                       ("MAXP", ssd.MAX_HEAD_DIM), ("HG", ssd.HEAD_GROUP)):
+        assert f"constexpr int {name} = {want};" in src
