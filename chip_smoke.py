@@ -66,7 +66,33 @@ Phases (every failure raises and exits nonzero):
                 256-token prompt against a token-by-token `decode_step`
                 replay (rtol 2e-2, atol 2e-3), `launch.serve.main` with 8
                 slots answering 16 requests, one profiled prefill and one
-                profiled decode step at 8 slots.
+                profiled decode step at 8 slots;
+  9. updates -- on phase 4's road network: sssp x8, then a monotone edge
+                batch (64 weights halved, 4 two-hop shortcuts) through
+                `cq.update`; the warm query must equal the scratch query
+                bit for bit and pass `check()`; then 16 deletions: warm
+                'auto' recomputes from scratch and passes `check()`,
+                'always' raises. Logs update() seconds, blocks rebuilt,
+                warm/scratch steps and walls;
+ 10. trace   -- sssp x8 and bfs with `trace=True` equal their untraced
+                results bit for bit; one trace row per step, fetched +
+                skipped = every block on each row; the Chrome trace is
+                written and read back. Logs the traced/untraced wall
+                ratio and blocks fetched per step;
+ 11. serving -- `AsyncGraphServer(batch=8, segment_steps=4)` on the real
+                clock over bfs + sssp: a seeded Zipf (s = 1.1) stream of
+                64 requests over 24 sources, one monotone update, 32 more.
+                Every request is ok (none failed or shed) and equals one
+                batched query per algebra and graph version bit for bit,
+                two per version pass `check()`, warm starts follow the
+                update, every lane state lives on the card, and the
+                kernel's launches equal the windows' iterations. Logs
+                queries/s, latency and queue-wait quantiles, occupancy,
+                cache hit rate, and a profiled 16-request burst.
+
+In phases 4, 5 and 9-11 every fixpoint step is one launch of the
+frontier-relax kernel: each path resets the launch count before it runs
+and requires launches = iterations after it.
 
 The last lines are one JSON object describing each kernel and then
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; without one it
@@ -78,6 +104,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -103,6 +130,8 @@ from repro_torch.kernels.ssd.ref import (chunk_inputs,  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.obs import write_chrome_trace  # noqa: E402
+from repro_torch.serving import AsyncGraphServer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
 FP32_OPS_PER_S = 67e12        # H100 SXM fp32 rate outside the tensor cores
@@ -383,30 +412,42 @@ def phase_kernel_full(bg: BlockedGraph, rng) -> tuple[float, dict]:
     return max(errs), timing
 
 
-def run_query(cq, srcs, label: str) -> int:
-    """One query on the card; checks it against the oracle and that the
-    kernel ran once per fixpoint iteration. Returns the launches."""
+def counted_query(cq, srcs, label: str, **kw):
+    """One query on the card with the kernel's count set to 0 just
+    before it; requires one launch per fixpoint iteration. Returns
+    ``(result, wall_s, launches)``."""
     relax.frontier_relax_cuda.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = cq.query(srcs)
+    r = cq.query(srcs, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = relax.frontier_relax_cuda.launches
-    steps = np.atleast_1d(r.steps)
-    iters = int(steps.max())
-    nq = steps.size
-    bg = cq.engine.bg
-    log(f"{label}: |V|={cq.graph.n} |E|={cq.graph.m} nb={bg.bsrc.numel()} "
-        f"steps={steps.tolist()} wall {wall:.3f} s, {nq / wall:.3f} "
-        f"queries/s, {wall / max(iters, 1) * 1e3:.4f} ms/step, "
-        f"launches {launches}")
+    iters = int(np.max(r.steps))
     require(launches == iters,
             f"{label}: {launches} kernel launches for {iters} fixpoint "
-            "iterations -- the main path did not go through the kernel")
+            "iterations -- the path did not go through the kernel")
+    return r, wall, launches
+
+
+def check(r, label: str) -> None:
     t0 = time.perf_counter()
     require(r.check(), f"{label}: result disagrees with the numpy oracle")
     log(f"{label}: check() passed ({time.perf_counter() - t0:.1f} s)")
+
+
+def run_query(cq, srcs, label: str) -> int:
+    """One query on the card; checks it against the oracle and that the
+    kernel ran once per fixpoint iteration. Returns the launches."""
+    r, wall, launches = counted_query(cq, srcs, label)
+    steps = np.atleast_1d(r.steps)
+    iters = int(steps.max())
+    bg = cq.engine.bg
+    log(f"{label}: |V|={cq.graph.n} |E|={cq.graph.m} nb={bg.bsrc.numel()} "
+        f"steps={steps.tolist()} wall {wall:.3f} s, {steps.size / wall:.3f} "
+        f"queries/s, {wall / max(iters, 1) * 1e3:.4f} ms/step, "
+        f"launches {launches}")
+    check(r, label)
     return launches
 
 
@@ -435,6 +476,248 @@ def profile_query(cq, srcs, label: str) -> None:
     for ms, count, key in rows[:8]:
         log(f"  {ms:9.3f} ms {count:6d}x {ms / count * 1e3:8.2f} us  "
             f"{key[:90]}")
+
+
+# ------------------------------------------------------------------ #
+# the graph-serving surface: updates (9), tracing (10), serving (11)
+# ------------------------------------------------------------------ #
+def monotone_batch(g, rng, reweights: int = 64, inserts: int = 4):
+    """Weights halved on `reweights` random existing edges, plus
+    `inserts` new two-hop shortcuts u -> x (x a neighbour's neighbour,
+    not adjacent to u) at 0.9 x the two-hop length: a road batch of
+    repaired and new segments, ⊕-improving under min_plus."""
+    eu = g.edge_sources()
+    idx = rng.choice(g.m, size=reweights, replace=False)
+    batch = [(int(eu[i]), int(g.indices[i]), float(g.weights[i]) * 0.5)
+             for i in idx]
+    while len(batch) < reweights + inserts:
+        u = int(rng.integers(g.n))
+        nbr, w1 = g.neighbors(u), g.edge_weights(u)
+        if nbr.size == 0:
+            continue
+        j = int(rng.integers(nbr.size))
+        v = int(nbr[j])
+        far, w2 = g.neighbors(v), g.edge_weights(v)
+        k = int(rng.integers(far.size))
+        x = int(far[k])
+        if x != u and x not in set(nbr.tolist()):
+            batch.append((u, x, 0.9 * float(w1[j] + w2[k])))
+    return batch
+
+
+def phase_updates(sssp, srcs, rng) -> int:
+    """Phase 9 (module docstring). Returns the kernel's launches."""
+    label = f"update sssp x{len(srcs)}"
+    r, _, launches = counted_query(sssp, srcs, f"{label} base")
+    batch = monotone_batch(sssp.graph, rng)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cq2, delta = sssp.update(batch)
+    torch.cuda.synchronize()
+    upd_s = time.perf_counter() - t0
+    require(delta.monotone and not delta.shape_changed,
+            f"{label}: the reweight + shortcut batch is not a monotone "
+            f"value-only update ({delta.monotone}, {delta.shape_changed})")
+    w, w_wall, n = counted_query(cq2, srcs, f"{label} warm", warm=r)
+    launches += n
+    s, s_wall, n = counted_query(cq2, srcs, f"{label} scratch")
+    launches += n
+    require(np.array_equal(w.attrs, s.attrs),
+            f"{label}: warm and scratch results differ")
+    log(f"{label}: monotone batch of {len(batch)} edges, update() "
+        f"{upd_s:.3f} s, {delta.n_blocks_rebuilt} blocks rebuilt, "
+        f"shape_changed {delta.shape_changed}, "
+        f"{delta.affected_src.size} sources seeded; warm steps "
+        f"{np.asarray(w.steps).tolist()} in {w_wall:.3f} s vs scratch "
+        f"{np.asarray(s.steps).tolist()} in {s_wall:.3f} s; launches = "
+        "iterations on every query")
+    check(w, f"{label} warm (bit-equal to scratch)")
+
+    eu = cq2.graph.edge_sources()
+    idx = rng.choice(cq2.graph.m, size=16, replace=False)
+    dels = [(int(eu[i]), int(cq2.graph.indices[i]), None) for i in idx]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cq3, delta3 = cq2.update(dels)
+    torch.cuda.synchronize()
+    upd3_s = time.perf_counter() - t0
+    require(not delta3.monotone,
+            f"{label}: a batch of deletions reads as monotone")
+    w3, w3_wall, n = counted_query(cq3, srcs, f"{label} after deletes",
+                                   warm=w)
+    launches += n
+    log(f"{label}: 16 deletions, update() {upd3_s:.3f} s, "
+        f"{delta3.n_blocks_rebuilt} blocks rebuilt, shape_changed "
+        f"{delta3.shape_changed}; warm='auto' recomputed from scratch in "
+        f"{np.asarray(w3.steps).tolist()} steps, {w3_wall:.3f} s")
+    check(w3, f"{label} after deletes")
+    always = dataclasses.replace(cq3, plan=dataclasses.replace(
+        cq3.plan, warm="always"))
+    try:
+        always.query(srcs, warm=w)
+    except ValueError as e:
+        log(f"{label}: warm='always' refused the deletions: {e}")
+    else:
+        raise RuntimeError(f"{label}: warm='always' resumed across a "
+                           "non-monotone batch")
+    return launches
+
+
+def phase_trace(sssp, bfs, srcs) -> int:
+    """Phase 10 (module docstring). Returns the kernel's launches."""
+    launches = 0
+    for cq, q, label in ((sssp, srcs, f"trace sssp x{len(srcs)}"),
+                         (bfs, 0, "trace bfs")):
+        r, wall, n = counted_query(cq, q, f"{label} untraced")
+        rt, t_wall, nt = counted_query(cq, q, label, trace=True)
+        launches += n + nt
+        require(np.array_equal(r.attrs, rt.attrs)
+                and np.array_equal(r.steps, rt.steps),
+                f"{label}: traced and untraced results differ")
+        disp = rt.telemetry.dispatches[0]
+        tr, nb = disp.trace, cq.engine.bg.bsrc.numel()
+        require(len(tr) == int(np.max(r.steps)) and not disp.truncated,
+                f"{label}: {len(tr)} trace rows for {np.max(r.steps)} "
+                "steps")
+        require(bool(((tr.blocks_fetched + tr.blocks_skipped) == nb).all()),
+                f"{label}: fetched + skipped != {nb} blocks on some row")
+        with tempfile.TemporaryDirectory() as tmp:
+            path = write_chrome_trace(str(Path(tmp) / "trace.json"), rt)
+            with open(path) as f:
+                doc = json.load(f)
+        spans = [e for e in doc["traceEvents"]
+                 if e.get("name", "").startswith("step ")]
+        require(len(spans) == len(tr),
+                f"{label}: {len(spans)} step spans in the Chrome trace")
+        bf = tr.blocks_fetched
+        log(f"{label}: {len(tr)} rows, traced/untraced wall "
+            f"{t_wall:.3f} / {wall:.3f} s = {t_wall / wall:.3f}, blocks "
+            f"fetched per step min {int(bf.min())} median "
+            f"{float(np.median(bf)):.1f} max {int(bf.max())} of {nb}, "
+            f"mean active tiles {float(tr.active_tiles.mean()):.1f} of "
+            f"{cq.engine.bg.ntiles}; Chrome trace of {len(spans)} step "
+            "spans read back")
+    return launches
+
+
+def zipf_stream(rng, pool, n: int):
+    """`n` (algo, src) requests, bfs and sssp alternating, sources drawn
+    from `pool` by a Zipf (s = 1.1) rank law."""
+    ranks = np.minimum(rng.zipf(1.1, size=n), len(pool)) - 1
+    return [(("bfs", "sssp")[i % 2], int(pool[k]))
+            for i, k in enumerate(ranks)]
+
+
+def phase_serving(g, rng) -> int:
+    """Phase 11 (module docstring). Returns the kernel's launches."""
+    srv = AsyncGraphServer(g, batch=8, segment_steps=4)
+    for algo in ("bfs", "sssp"):
+        srv.session(algo)                  # build both layouts up front
+    pool = rng.choice(g.n, size=24, replace=False)
+    streams = [zipf_stream(rng, pool, 64), zipf_stream(rng, pool, 32)]
+    batch = monotone_batch(g, rng)
+    relax.frontier_relax_cuda.launches = 0
+    versions, walls, upd_s = [], [], 0.0
+    for i, stream in enumerate(streams):
+        if i:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            srv.update(batch)
+            torch.cuda.synchronize()
+            upd_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = srv.serve(stream)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        versions.append(({a: srv.session(a) for a in ("bfs", "sssp")},
+                         reqs))
+    launches = relax.frontier_relax_cuda.launches
+    st = srv.stats()
+    iters = st["metrics"]["histograms"]["window_iters"]
+    require(launches == int(iters["sum"]),
+            f"serving: {launches} kernel launches for {iters['sum']} "
+            "window iterations")
+    require(all(x.is_cuda for rb in srv._batches.values()
+                for x in rb.state),
+            "serving: a rotating-batch state tensor is not on CUDA")
+    reqs = [r for _, rs in versions for r in rs]
+    bad = [(r.req_id, r.error) for r in reqs if not r.ok]
+    require(not bad and st["failed"] == st["shed"] == 0,
+            f"serving: {len(bad)} requests not ok, failed {st['failed']}, "
+            f"shed {st['shed']}: {bad[:3]}")
+    warm = sum(r.warm_started for r in versions[1][1])
+    require(warm > 0, "serving: no request warm-started after the update")
+
+    # every result against one batched query per algebra and version
+    # (comparison launches, outside the count above)
+    checked = 0
+    for sessions, rs in versions:
+        for algo, cq in sessions.items():
+            mine = [r for r in rs if r.algo == algo]
+            distinct = sorted({r.src for r in mine})
+            ref = cq.query(distinct)
+            row = {s: i for i, s in enumerate(distinct)}
+            for r in mine:
+                # a warm start (or a hit on one) takes fewer steps than
+                # scratch, to the same fixpoint
+                cold = not (r.warm_started or r.cache_hit)
+                require(np.array_equal(r.result, ref.attrs[row[r.src]])
+                        and (r.steps == int(ref.steps[row[r.src]])
+                             or not cold),
+                        f"serving: request {r.req_id} ({algo}, src "
+                        f"{r.src}) differs from the batched query")
+            require(cq.program.check(cq.graph, mine[0].src,
+                                     mine[0].result),
+                    f"serving: {algo} src {mine[0].src} fails check()")
+            checked += 1
+    m = st["metrics"]["histograms"]
+    nq = len(reqs)
+    lat = " ".join(
+        f"{a} p50/p95/p99 {m[f'latency_s.{a}']['p50'] * 1e3:.1f}/"
+        f"{m[f'latency_s.{a}']['p95'] * 1e3:.1f}/"
+        f"{m[f'latency_s.{a}']['p99'] * 1e3:.1f} ms, queue wait p50/p95 "
+        f"{m[f'queue_wait_s.{a}']['p50'] * 1e3:.1f}/"
+        f"{m[f'queue_wait_s.{a}']['p95'] * 1e3:.1f} ms;"
+        for a in ("bfs", "sssp"))
+    # lane occupancy: steps the lanes took over the lane-steps offered
+    occ = ((m["steps.bfs"]["sum"] + m["steps.sssp"]["sum"])
+           / max(1.0, 8 * iters["sum"]))
+    log(f"serving: {nq} requests ({len(streams[0])} + update + "
+        f"{len(streams[1])}) in {sum(walls):.3f} s = "
+        f"{nq / sum(walls):.2f} queries/s (update() {upd_s:.3f} s); {lat} "
+        f"{st['windows']} windows, {int(iters['sum'])} iterations = "
+        f"launches {launches}, lane occupancy {occ:.3f}, cache hit rate "
+        f"{st['cache']['hit_rate']:.3f}, {warm} warm starts; all equal "
+        f"their batched queries, {checked} pass check()")
+
+    # a profiled burst of 16 fresh sources (not counted above)
+    from torch.profiler import ProfilerActivity, profile
+    fresh = [int(s) for s in rng.choice(g.n, size=64, replace=False)
+             if s not in set(pool.tolist())][:16]
+    w0 = srv.windows
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        burst = srv.serve([(("bfs", "sssp")[i % 2], s)
+                           for i, s in enumerate(fresh)])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    require(all(r.ok for r in burst), "serving: a burst request failed")
+    rows = [(e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    nwin = srv.windows - w0
+    if rows:
+        busy = sum(ms for ms, _ in rows)
+        log(f"serving profile: 16 requests, {nwin} windows, wall "
+            f"{wall_ms:.1f} ms, device busy {busy:.1f} ms "
+            f"({busy / wall_ms:.1%}), {sum(c for _, c in rows) / nwin:.1f} "
+            f"device ops/window, {wall_ms / nwin:.3f} ms/window")
+    else:
+        log("serving profile: device time not measured (no device events)")
+    return launches
 
 
 # ------------------------------------------------------------------ #
@@ -866,6 +1149,7 @@ def main() -> None:
     for algo in ("pagerank", "wcc", "widest", "reach", "multi_bfs",
                  "labelprop"):
         launches += run_query(flip_torch.compile(g2, algo), 0, algo)
+    del g2
 
     # the LM kernels, then the LM paths (each resets its kernel's count)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -875,6 +1159,14 @@ def main() -> None:
     err_ssd, t_ssd = phase_ssd(gen)
     attn_launches = lm_path("qwen3_0_6b", flash.flash_attention_cuda, rng)
     ssd_launches = lm_path("mamba2_370m", ssd.ssd_intra_cuda, rng)
+
+    # the graph-serving surface on phase 4's network and sessions
+    for phase, fn in (("9 updates", lambda: phase_updates(sssp, srcs, rng)),
+                      ("10 trace", lambda: phase_trace(sssp, bfs, srcs)),
+                      ("11 serving", lambda: phase_serving(g, rng))):
+        t0 = time.perf_counter()
+        launches += fn()
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
 
     print(json.dumps({"kernels": [
         kernel_row("frontier_relax",

@@ -13,11 +13,12 @@ CPU.
 from repro_torch.api import (BackendFailure, CapacityExceeded, CompiledQuery,
                              ConvergenceFailure, DeadlineExceeded,
                              ExecutionPlan, FlipError, InvalidRequest,
-                             Program, QueryResult, compile, plan_from_cli)
+                             Program, QueryResult, WarmStart, compile,
+                             plan_from_cli)
 
 __all__ = [
     "ExecutionPlan", "Program", "CompiledQuery", "QueryResult",
-    "compile", "plan_from_cli",
+    "WarmStart", "compile", "plan_from_cli",
     "FlipError", "InvalidRequest", "CapacityExceeded",
     "DeadlineExceeded", "ConvergenceFailure", "BackendFailure",
 ]

@@ -12,9 +12,13 @@ Layers ported so far:
   repro_torch.kernels    -- hand-written CUDA kernels, each beside its
                             plain PyTorch version: frontier relax, flash
                             attention, the SSD intra-chunk form
-  repro_torch.core       -- FlipEngine: the host-driven fixpoint
-  repro_torch.api        -- compile(graph, program, plan).query(srcs)
-                            (alias: `import flip_torch`)
+  repro_torch.core       -- FlipEngine: the host-driven fixpoint, warm
+                            starts, tracing, the segment surface
+  repro_torch.api        -- compile(graph, program, plan).query(srcs),
+                            update(batch) (alias: `import flip_torch`)
+  repro_torch.obs        -- step traces, metrics, Chrome-trace export
+  repro_torch.resilience -- typed errors, classify, finite_guard
+  repro_torch.serving    -- AsyncGraphServer: continuous batching
   repro_torch.models     -- the LM stack for inference (no MoE yet)
   repro_torch.configs    -- qwen3-0.6b and mamba2-370m
   repro_torch.launch     -- graph_run, serve, prefill/decode steps

@@ -5,9 +5,9 @@ The port of `repro.api.plan`. The fields keep the reference's names and
 meanings; `relax_mode` names the port's routes ('auto' | 'cuda' |
 'torch'). `resolve(algebra, device)` validates every combination up
 front and collapses every ``"auto"``, so a resolved plan is a complete
-record of how a query ran. The reference's knobs whose machinery is not
-ported yet (mesh/distributed, warm policy) are absent; `tuned` is
-rejected with the ROADMAP item that brings the autotuner.
+record of how a query ran. The reference's mesh knobs (the distributed
+fixpoint, ROADMAP Queue 1 item 10) are absent; `tuned` is rejected with
+the ROADMAP item that brings the autotuner.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.frontier.ops import RELAX_MODES, resolve_relax_mode
 
 MODES = ("data", "op")
+WARM_POLICIES = ("auto", "always", "never")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +39,11 @@ class ExecutionPlan:
     batch       -- serving bucket size: 0 runs any source sequence as
                    one fixpoint; B > 0 dispatches fixed-size, padded
                    buckets of B.
+    warm        -- incremental-recompute policy for `query(..., warm=)`:
+                   'auto' resumes from the prior result whenever sound
+                   (monotone algebra + monotone update delta) and
+                   recomputes from scratch otherwise; 'always' raises
+                   instead of recomputing; 'never' forbids warm starts.
     feature_dim -- feature width d: 0 adopts the program's native width;
                    vector programs only run at their native width.
     max_steps   -- fixpoint safety valve.
@@ -52,6 +58,7 @@ class ExecutionPlan:
     compact: bool | str = "auto"
     tile: int = 128
     batch: int = 0
+    warm: str = "auto"
     feature_dim: int = 0
     max_steps: int = 100_000
     deadline_s: float | None = None
@@ -64,7 +71,8 @@ class ExecutionPlan:
 
     def validate(self, algebra: VertexAlgebra | None = None) -> None:
         """Reject inconsistent or unported knob combinations with one
-        clear error."""
+        clear error. With `algebra`, also the algebra-dependent ones
+        (warm='always' needs a monotone algebra)."""
         if self.mode not in MODES:
             raise ValueError(
                 f"plan.mode must be one of {MODES}, got {self.mode!r}")
@@ -88,6 +96,10 @@ class ExecutionPlan:
             raise ValueError(
                 f"plan.batch must be an int >= 0 (0 = one fixpoint over "
                 f"the whole source sequence), got {self.batch!r}")
+        if self.warm not in WARM_POLICIES:
+            raise ValueError(
+                f"plan.warm must be one of {WARM_POLICIES}, got "
+                f"{self.warm!r}")
         if not isinstance(self.feature_dim, int) or self.feature_dim < 0:
             raise ValueError(
                 f"plan.feature_dim must be an int >= 0 (0 = the "
@@ -115,6 +127,13 @@ class ExecutionPlan:
             raise ValueError(
                 "plan.tuned is not ported yet (ROADMAP Queue 1 item 8, "
                 "the autotuner); set the knobs by hand")
+        if algebra is not None and self.warm == "always" \
+                and algebra.kind != "monotone":
+            raise ValueError(
+                f"plan.warm='always' needs a monotone algebra; "
+                f"{algebra.name} is {algebra.kind!r} (its fixpoint "
+                "cannot resume from a prior result) -- use warm='auto' "
+                "or 'never'")
 
     def resolve(self, algebra: VertexAlgebra | None = None,
                 device: str | torch.device | None = None

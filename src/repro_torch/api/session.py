@@ -9,12 +9,16 @@ The port of `repro.api.session`:
     rb = cq.query([0, 5, 9])                      # batch  -> (B, n)
     assert r.check()                              # vs the numpy oracle
 
-`query` handles scalar, batched and bucketed (plan.batch > 0) execution;
-the plan decides *how*, never *what*. A session runs on the CUDA device
-unless the caller passes ``device="cpu"``; with no CUDA device and no
-explicit device, `compile` raises instead of quietly running on the CPU.
-Warm starts (`query(warm=)`, `update`) and tracing (`query(trace=)`) are
-not ported yet (ROADMAP Queue 1 item 3).
+    cq2, delta = cq.update(edge_batch)            # streaming mutation
+    r2 = cq2.query(5, warm=r)                     # incremental recompute
+    rt = cq.query(5, trace=True)                  # rt.telemetry: per step
+
+`query` handles scalar, batched, bucketed (plan.batch > 0), incremental
+(warm=) and traced (trace=) execution; the plan decides *how*, never
+*what*. A session runs on the CUDA device unless the caller passes
+``device="cpu"``; with no CUDA device and no explicit device, `compile`
+raises instead of quietly running on the CPU. Sessions are immutable
+snapshots of one graph version: `update` returns a new one.
 """
 from __future__ import annotations
 
@@ -26,9 +30,11 @@ import torch
 
 from repro_torch.api.plan import ExecutionPlan
 from repro_torch.api.program import Program
-from repro_torch.core.engine import FlipEngine
+from repro_torch.core.engine import FlipEngine, WarmStart
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph
+from repro_torch.kernels.frontier.ops import UpdateDelta
+from repro_torch.obs.telemetry import QueryTelemetry
 from repro_torch.resilience.errors import ConvergenceFailure, InvalidRequest
 
 
@@ -37,7 +43,15 @@ class QueryResult:
     """One query's outcome: attrs in original vertex order ((n,) for a
     scalar source, (B, n) for a batch), per-query relaxation step counts
     (int / (B,) to match), the sources as queried, the resolved plan,
-    and wall seconds.
+    and wall seconds. Usable as the `warm=` argument of a post-update
+    `query` call.
+
+    `compile_s` is the share of `wall_s` spent in the first dispatch of
+    each signature (solo / batch-of-B, traced or not) the session has
+    run: on the card that dispatch builds or loads the kernel, so
+    steady-state latency reads ``wall_s - compile_s``. `telemetry` is
+    set iff the query ran with ``trace=``: per-dispatch, per-step
+    frontier records (see `repro_torch.obs`).
 
     `converged` (bool, or (B,)) is the engine's per-query convergence
     mask: False means the query was stopped by a `max_steps` /
@@ -53,6 +67,8 @@ class QueryResult:
     graph: Graph
     wall_s: float = 0.0
     dispatches: int = 1
+    compile_s: float = 0.0
+    telemetry: QueryTelemetry | None = None
     converged: bool | np.ndarray = True
     deadline_expired: bool | np.ndarray = False
 
@@ -96,6 +112,13 @@ class CompiledQuery:
     program: Program
     plan: ExecutionPlan
     engine: FlipEngine
+    delta: UpdateDelta | None = None   # set by update(): the last batch
+    prev_fp: str | None = None         # fingerprint of the pre-update
+                                       # graph the delta resumes from
+    # dispatch signatures this session has run; a signature's first
+    # dispatch is attributed to QueryResult.compile_s. Shared across
+    # update()-derived sessions (the kernel stays loaded).
+    _dispatched: set = dataclasses.field(default_factory=set, repr=False)
 
     @property
     def device(self) -> torch.device:
@@ -110,6 +133,15 @@ class CompiledQuery:
                       plan.batch = B > 0 a sequence dispatches in padded
                       fixed-size buckets of B. Out-of-range ids raise
                       `InvalidRequest`.
+        warm       -- resume from a prior converged result: a
+                      `QueryResult` for the same sources on the
+                      pre-update session (the session's last `update`
+                      delta decides soundness under plan.warm), or an
+                      explicit `WarmStart`.
+        trace      -- per-step frontier tracing: True, or an int row
+                      capacity. The result's `telemetry` then holds one
+                      `DispatchTelemetry` per dispatch. Exact: attrs and
+                      steps are bit-identical to the untraced run.
         max_steps  -- per-request step budget (int, or one per source),
                       clipped to plan.max_steps; a query it stops comes
                       back with ``converged`` False.
@@ -117,17 +149,7 @@ class CompiledQuery:
                       call (default plan.deadline_s), enforced at step
                       boundaries; `deadline_expired` marks queries it
                       stopped.
-        warm, trace -- not ported yet (ROADMAP Queue 1 item 3); passing
-                      either raises.
         """
-        if warm is not None:
-            raise NotImplementedError(
-                "query(warm=...) is not ported yet (ROADMAP Queue 1 item 3, "
-                "warm starts and updates); recompute from scratch")
-        if trace:
-            raise NotImplementedError(
-                "query(trace=...) is not ported yet (ROADMAP Queue 1 item "
-                "3, tracing)")
         t0 = time.perf_counter()
         self._validate_srcs(srcs)
         if deadline_s is None:
@@ -155,24 +177,42 @@ class CompiledQuery:
                 program=self.program, graph=self.graph,
                 wall_s=time.perf_counter() - t0, dispatches=0,
                 converged=np.ones(0, dtype=bool),
-                deadline_expired=np.zeros(0, dtype=bool))
+                deadline_expired=np.zeros(0, dtype=bool),
+                telemetry=QueryTelemetry([]) if trace else None)
+        ws = self._resolve_warm(warm, srcs)
+        teles: list = []
         if not batched or self.plan.batch == 0:
-            det = self._dispatch(srcs, budgets, deadline_abs)
+            det, wall, first = self._dispatch(srcs, ws, trace, budgets,
+                                              deadline_abs)
             out, steps = det.attrs, det.steps
             conv, expired = det.converged, det.deadline_expired
             dispatches = 1
+            compile_s = wall if first else 0.0
+            if det.telemetry is not None:
+                teles.append(det.telemetry)
         else:
-            out, steps, conv, expired, dispatches = self._query_bucketed(
-                np.atleast_1d(np.asarray(srcs, dtype=np.int64)), budgets,
-                deadline_abs)
+            (out, steps, conv, expired, dispatches, teles, compile_s) = \
+                self._query_bucketed(
+                    np.atleast_1d(np.asarray(srcs, dtype=np.int64)),
+                    ws, trace, budgets, deadline_abs)
+        wall_s = time.perf_counter() - t0
+        telemetry = (QueryTelemetry(dispatches=teles, wall_s=wall_s,
+                                    compile_s=compile_s)
+                     if trace else None)
         return QueryResult(attrs=out, steps=steps,
                            srcs=(np.asarray(srcs) if batched
                                  else int(srcs)),
                            plan=self.plan, program=self.program,
-                           graph=self.graph,
-                           wall_s=time.perf_counter() - t0,
-                           dispatches=dispatches, converged=conv,
+                           graph=self.graph, wall_s=wall_s,
+                           dispatches=dispatches, compile_s=compile_s,
+                           telemetry=telemetry, converged=conv,
                            deadline_expired=expired)
+
+    def validate_sources(self, srcs) -> None:
+        """Public admission-edge check: raise `InvalidRequest` unless
+        every id in `srcs` is a vertex of this session's graph -- the
+        check `query` applies, for callers that queue requests first."""
+        self._validate_srcs(srcs)
 
     def _validate_srcs(self, srcs) -> None:
         a = np.atleast_1d(np.asarray(srcs))
@@ -224,19 +264,33 @@ class CompiledQuery:
                 f"{minimum}, got {finite[low][0]}", value=val)
         return np.broadcast_to(arr, (b,))
 
-    def _dispatch(self, srcs, budgets=None, deadline_abs=None):
+    def _dispatch(self, srcs, ws, trace, budgets=None, deadline_abs=None):
+        """One engine dispatch: returns ``(ExecutionDetail, wall_s,
+        first)`` where `first` marks the first dispatch of this
+        signature."""
+        sig = ("solo" if not np.ndim(srcs) else len(srcs), bool(trace))
+        first = sig not in self._dispatched
         remaining = (None if deadline_abs is None
                      else np.asarray(deadline_abs) - time.monotonic())
-        return self.engine.execute(srcs, max_steps=budgets,
-                                   deadline_s=remaining, detail=True)
+        t0 = time.perf_counter()
+        det = self.engine.execute(srcs, warm=ws, trace=trace,
+                                  max_steps=budgets, deadline_s=remaining,
+                                  detail=True)
+        wall = time.perf_counter() - t0
+        self._dispatched.add(sig)
+        if det.telemetry is not None:
+            det.telemetry.wall_s = wall
+        return det, wall, first
 
-    def _query_bucketed(self, srcs, budgets=None, deadline_abs=None):
+    def _query_bucketed(self, srcs, ws, trace, budgets=None,
+                        deadline_abs=None):
         """plan.batch-sized dispatch: pad the tail bucket by repeating
-        its last source (budgets and deadlines pad along with it) so
-        every dispatch has one (B, ntiles, T) shape, then drop the
-        padded rows."""
+        its last source (budgets, deadlines and per-query warm rows pad
+        along with it) so every dispatch has one (B, ntiles, T) shape,
+        then drop the padded rows."""
         nb = self.plan.batch
-        outs, steps, convs, exps = [], [], [], []
+        outs, steps, convs, exps, teles = [], [], [], [], []
+        compile_s = 0.0
 
         def pad(arr, i, k):
             if arr is None:
@@ -246,14 +300,101 @@ class CompiledQuery:
 
         for i in range(0, len(srcs), nb):
             k = len(srcs[i:i + nb])
-            det = self._dispatch(pad(srcs, i, k), pad(budgets, i, k),
-                                 pad(deadline_abs, i, k))
+            det, wall, first = self._dispatch(
+                pad(srcs, i, k), self._slice_warm(ws, i, k, nb), trace,
+                pad(budgets, i, k), pad(deadline_abs, i, k))
+            if first:
+                compile_s += wall
+            if det.telemetry is not None:
+                teles.append(det.telemetry)
             outs.append(det.attrs[:k])
             steps.append(det.steps[:k])
             convs.append(np.atleast_1d(det.converged)[:k])
             exps.append(np.atleast_1d(det.deadline_expired)[:k])
         return (np.concatenate(outs), np.concatenate(steps),
-                np.concatenate(convs), np.concatenate(exps), len(outs))
+                np.concatenate(convs), np.concatenate(exps), len(outs),
+                teles, compile_s)
+
+    def _slice_warm(self, ws, i, k, nb):
+        """Per-bucket view of a warm start: batch-shared warm attrs
+        ((n,), or (n, d) at feature_dim d > 1) go to every bucket;
+        per-query warm attrs ((B, n[, d])) follow their queries, padded
+        by repeating the chunk's last row like the sources."""
+        shared_ndim = 2 if self.plan.feature_dim > 1 else 1
+        if ws is None or np.ndim(ws.attrs) == shared_ndim:
+            return ws
+        rows = np.asarray(ws.attrs)[i:i + k]
+        rows = np.concatenate([rows, np.repeat(rows[-1:], nb - k, axis=0)])
+        return WarmStart(attrs=rows, seeds=ws.seeds)
+
+    def _resolve_warm(self, warm, srcs) -> WarmStart | None:
+        """Apply the plan's warm policy to the caller's `warm`."""
+        if warm is None:
+            return None
+        if self.plan.warm == "never":
+            raise ValueError(
+                "this session's plan has warm='never'; query(warm=...) "
+                "is forbidden -- recompute from scratch or compile with "
+                "warm='auto'")
+        if isinstance(warm, WarmStart):
+            return warm
+        if isinstance(warm, QueryResult):
+            qs = np.atleast_1d(np.asarray(srcs, dtype=np.int64))
+            wsrc = np.atleast_1d(np.asarray(warm.srcs, dtype=np.int64))
+            # a converged result only resumes *its own* sources; a
+            # scalar-source result may fan out over a batch of it
+            if not ((wsrc.shape == qs.shape and np.array_equal(wsrc, qs))
+                    or (wsrc.size == 1 and bool(np.all(qs == wsrc[0])))):
+                raise ValueError(
+                    f"warm result was computed for sources "
+                    f"{wsrc.tolist()} but this query asks for "
+                    f"{qs.tolist()}; a warm start only resumes the "
+                    "same sources")
+            if self.delta is None:
+                raise ValueError(
+                    "query(warm=QueryResult) resumes across an update: "
+                    "this session has no update delta (create it with "
+                    "session.update(...)); pass an explicit WarmStart "
+                    "to resume from arbitrary state")
+            attrs = np.asarray(warm.attrs)
+            batched_ndim = 3 if self.plan.feature_dim > 1 else 2
+            if wsrc.size == 1 and attrs.ndim == batched_ndim \
+                    and qs.shape != wsrc.shape:
+                attrs = attrs[0]      # (1, n[, d]) fans out like (n[, d])
+            if warm.graph.fingerprint() != self.prev_fp:
+                # the delta's seeds only cover the *last* batch
+                raise ValueError(
+                    "warm result was not computed on this session's "
+                    "pre-update graph version; re-query each version "
+                    "(warm results are valid across exactly one "
+                    "update), or pass an explicit WarmStart")
+            ws = self.engine.resolve_warm(attrs, self.delta)
+            if ws is None and self.plan.warm == "always":
+                raise ValueError(
+                    f"plan.warm='always' but the last update batch is "
+                    f"not monotone under {self.program.name}'s ⊕ (or "
+                    "the algebra is not monotone): incremental "
+                    "recompute would be unsound")
+            return ws
+        raise TypeError(
+            f"warm must be a QueryResult or WarmStart, got "
+            f"{type(warm).__name__}")
+
+    # -------------------------------------------------------------- #
+    def update(self, updates, new_graph: Graph | None = None) \
+            -> tuple["CompiledQuery", UpdateDelta]:
+        """Streaming graph mutation: apply one edge-update batch and
+        return ``(new_session, delta)``. The new session re-blocks only
+        the touched tiles and remembers `delta`, so a later
+        ``query(src, warm=prev_result)`` resumes incrementally exactly
+        when sound. This session is left untouched."""
+        updates = list(updates)      # consumed twice (graph + engine)
+        g2 = (self.graph.apply_updates(updates) if new_graph is None
+              else new_graph)
+        eng2, delta = self.engine.apply_updates(g2, updates)
+        return dataclasses.replace(
+            self, graph=g2, engine=eng2, delta=delta,
+            prev_fp=self.graph.fingerprint()), delta
 
 
 # ------------------------------------------------------------------ #

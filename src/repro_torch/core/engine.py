@@ -20,10 +20,21 @@ queries whose frontier emptied or whose step budget or deadline ran out
 flagged partial results. Each step is exactly one relax launch, so on
 the card the kernel's launch count equals the fixpoint's iterations.
 
-Not ported yet (ROADMAP Queue 1): warm starts and updates, tracing, the
-segment surface, the distributed fixpoint, and a captured (CUDA-graph)
-loop. The reference proves its on-device while_loop bit-equal to this
-host loop, so the port keeps only the host loop.
+On top of that loop, as in the reference:
+  * warm starts (`WarmStart`, `resolve_warm`, `apply_updates`):
+    incremental recompute after a monotone edge batch, seeded at the
+    sources whose out-edges changed;
+  * tracing (`execute(trace=)`): per-step frontier stats into
+    `repro_torch.obs`, kept on the device until the loop ends, so
+    tracing adds no device->host read per step;
+  * the segment surface (`idle_state`, `write_slot`, `run_segment`,
+    `finalize_state`) that the continuous-batching scheduler
+    (`repro_torch.serving`) drives.
+
+Not ported yet (ROADMAP Queue 1): the distributed fixpoint (item 10)
+and a captured (CUDA-graph) K-step loop. The reference proves its
+on-device while_loop bit-equal to this host loop, so the port keeps
+only the host loop.
 """
 from __future__ import annotations
 
@@ -36,9 +47,33 @@ import torch
 from repro_torch.algebra import VertexAlgebra
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph
-from repro_torch.kernels.frontier.ops import (BlockedGraph, build_blocks,
-                                              frontier_relax)
+from repro_torch.kernels.frontier.ops import (BlockedGraph, UpdateDelta,
+                                              build_blocks, frontier_relax,
+                                              resolve_relax_mode,
+                                              tile_activity)
+from repro_torch.obs.telemetry import DispatchTelemetry, StepTrace
 from repro_torch.resilience.errors import InvalidRequest
+
+# default per-step trace row capacity (`execute(trace=True)`); steps
+# beyond it still execute exactly, only their rows are dropped (flagged
+# `truncated`)
+TRACE_CAP_DEFAULT = 4096
+
+
+@dataclasses.dataclass
+class WarmStart:
+    """Resume state for delta-driven incremental recompute.
+
+    `attrs` is the converged result of a prior run on the pre-update
+    engine, in original vertex order: `(n,)` (applied to every query of
+    the batch) or `(B, n)` matching the batch (a trailing d at
+    feature_dim d > 1). `seeds` holds the original ids of the vertices
+    whose out-edge ⊗ operands changed (`UpdateDelta.affected_src`): they
+    form the initial frontier, so the fixpoint relaxes only what the
+    batch can improve. Sound only for monotone algebras under a
+    `Semiring.monotone_under` batch -- `resolve_warm` decides."""
+    attrs: np.ndarray
+    seeds: np.ndarray
 
 
 @dataclasses.dataclass
@@ -46,12 +81,14 @@ class ExecutionDetail:
     """One `execute(detail=True)` outcome: attrs in original vertex
     order, per-query steps, the per-query convergence mask (False = the
     query was frozen by a step budget, a deadline or `max_steps`: its
-    attrs are a flagged partial) and which of those stops were the
-    deadline's. Scalar source -> scalar fields, batch -> (B,) arrays."""
+    attrs are a flagged partial), which of those stops were the
+    deadline's, and the dispatch's telemetry when it ran traced. Scalar
+    source -> scalar fields, batch -> (B,) arrays."""
     attrs: np.ndarray
     steps: int | np.ndarray
     converged: bool | np.ndarray
     deadline_expired: bool | np.ndarray
+    telemetry: DispatchTelemetry | None = None
 
 
 @dataclasses.dataclass
@@ -110,26 +147,54 @@ class FlipEngine:
         return bool(self.compact)
 
     # -------------------------------------------------------------- #
-    def initial_state(self, srcs):
+    def initial_state(self, srcs, warm: WarmStart | None = None):
         """(attrs, aux, frontier) tensors for a batch of sources:
         (B, ntiles, T[, d]) f32 state and a (B, ntiles, T) bool
         frontier; padded lanes hold the ⊕-identity so they never
-        activate or contribute."""
+        activate or contribute. Built on the host, moved once.
+
+        With `warm`, the fixpoint resumes from a prior converged result:
+        attrs come from `warm.attrs` and only `warm.seeds` start
+        active."""
         bg, alg = self.bg, self.algebra
         d, features = self.feature_dim, self._features
         srcs = np.atleast_1d(np.asarray(srcs, dtype=np.int64))
         b = srcs.shape[0]
-        attrs = bg.to_tiled(alg.initial_attrs(bg.n, srcs, feature_dim=d),
-                            features=features)
         frontier = np.zeros((b, bg.padded_n), dtype=bool)
-        frontier[:, bg.perm] = alg.initial_frontier(bg.n, srcs,
-                                                    feature_dim=d)
+        if warm is not None:
+            if alg.kind != "monotone":
+                raise ValueError(
+                    f"warm start needs a monotone algebra; {alg.name} is "
+                    f"{alg.kind!r} -- recompute from scratch instead")
+            prev = np.asarray(warm.attrs, dtype=np.float32)
+            want = (b, bg.n, d) if features else (b, bg.n)
+            if features and (prev.ndim < 2 or prev.shape[-1] != d):
+                wd = prev.shape[-1] if prev.ndim >= 2 else 1
+                raise ValueError(
+                    f"warm attrs carry feature_dim {wd} but this "
+                    f"engine runs {alg.name} at feature_dim {d}; "
+                    f"warm state shape {prev.shape} != {want}")
+            if prev.ndim == len(want) - 1:   # shared across the batch
+                prev = np.broadcast_to(prev, want)
+            if prev.shape != want:
+                raise ValueError(
+                    f"warm attrs shape {prev.shape} does not match "
+                    f"{want} (B={b}, n={bg.n}"
+                    + (f", d={d})" if features else ")"))
+            attrs = bg.to_tiled(prev, features=features)
+            seeds = np.asarray(warm.seeds, dtype=np.int64)
+            frontier[:, bg.perm[seeds]] = True
+        else:
+            attrs = bg.to_tiled(alg.initial_attrs(bg.n, srcs, feature_dim=d),
+                                features=features)
+            frontier[:, bg.perm] = alg.initial_frontier(bg.n, srcs,
+                                                        feature_dim=d)
         aux = torch.zeros_like(attrs)
         frontier = torch.from_numpy(
             frontier.reshape(b, bg.ntiles, bg.tile)).to(self.device)
         return attrs, aux, frontier
 
-    def _step(self, attrs, aux, frontier):
+    def _step(self, attrs, aux, frontier, with_stats: bool = False):
         alg, features = self.algebra, self._features
         sv, carry = alg.scatter_carry(attrs, frontier,
                                       op_mode=(self.mode == "op"),
@@ -137,29 +202,66 @@ class FlipEngine:
         new = frontier_relax(sv, carry, self.bg, mode=self.relax_mode,
                              compact=self._use_compact,
                              feature_dim=self.feature_dim)
-        return alg.post_step(attrs, aux, sv, new, features=features)
+        out = alg.post_step(attrs, aux, sv, new, features=features)
+        if not with_stats:
+            return out
+        return out, self._step_stats(sv, frontier)
 
-    def _masked_step(self, attrs, aux, frontier, live: np.ndarray):
+    def _step_stats(self, sv, frontier):
+        """One trace row's stats as device tensors (no host read): the
+        frontier entering the step, the per-tile activity of the
+        scattered source values (the kernel's packet-trigger rule) and
+        the blocks with an active source tile. Extra outputs only -- the
+        step never reads them, so traced runs stay bit-identical.
+
+        Returns ``(active_vertices (B,), active_tiles (), fetched ())``;
+        `fetched` keeps the reference's definition: Σ tile_activity[bsrc]
+        under compaction, every block under dense streaming (the kernel
+        itself tests the trigger per (block, query))."""
+        bg = self.bg
+        act = tile_activity(sv, bg.semiring, self._features)   # (ntiles,)
+        active_tiles = act.sum()
+        if self._use_compact:
+            fetched = act[bg.bsrc.long()].sum()
+        else:
+            fetched = int(bg.bsrc.shape[0])
+        active_v = frontier.flatten(1).sum(dim=1)
+        return active_v, active_tiles, fetched
+
+    def _masked_step(self, attrs, aux, frontier, live: np.ndarray,
+                     with_stats: bool = False):
         """One relax step with the per-query freeze applied: queries not
         in `live` ((B,) bool) keep their state *and their frontier*, so
         a budget-frozen query still reads as non-converged while a
-        finished one stays finished."""
-        attrs_n, aux_n, frontier_n = self._step(attrs, aux, frontier)
-        if live.all():                    # torch.where would be identity
-            return attrs_n, aux_n, frontier_n
-        lv = torch.from_numpy(live).to(self.device)
-        ms = lv.reshape(lv.shape + (1,) * (attrs.ndim - 1))
-        return (torch.where(ms, attrs_n, attrs),
-                torch.where(ms, aux_n, aux),
-                torch.where(lv[:, None, None], frontier_n, frontier))
+        finished one stays finished. Returns the step's own new tensors,
+        or `torch.where` of them (a monotone algebra's aux, which no step
+        reads, passes through)."""
+        stepped = self._step(attrs, aux, frontier, with_stats=with_stats)
+        (attrs_n, aux_n, frontier_n), stats = \
+            stepped if with_stats else (stepped, None)
+        if not live.all():                # torch.where would be identity
+            lv = torch.from_numpy(live).to(self.device)
+            ms = lv.reshape(lv.shape + (1,) * (attrs.ndim - 1))
+            attrs_n = torch.where(ms, attrs_n, attrs)
+            aux_n = torch.where(ms, aux_n, aux)
+            frontier_n = torch.where(lv[:, None, None], frontier_n,
+                                     frontier)
+        out = (attrs_n, aux_n, frontier_n)
+        return (out, stats) if with_stats else out
 
-    def _fixpoint(self, attrs, aux, frontier, budgets=None,
-                  deadlines_t=None):
+    def _fixpoint(self, attrs, aux, frontier, trace_cap: int = 0,
+                  budgets=None, deadlines_t=None):
         """Host-driven fixpoint with per-query live masking, step
         budgets ((B,) ints, default `max_steps`) and absolute
         `time.monotonic` deadlines ((B,), +inf = none), enforced at step
-        boundaries. Returns ``(attrs, aux, steps, converged, expired)``
-        with (B,) numpy steps and masks."""
+        boundaries.
+
+        Returns ``(attrs, aux, frontier, steps, trace, converged,
+        expired)``: (B,) numpy steps and masks; the final frontier, so a
+        bounded-budget run resumes exactly (`run_segment`); and `trace`,
+        a ``(StepTrace, truncated)`` pair when `trace_cap` > 0, else
+        None. The trace rows stay on the device until the loop ends, and
+        the per-step wall closes at the loop's one device->host read."""
         b = int(attrs.shape[0])
         if budgets is None:
             budgets = np.full(b, self.max_steps, dtype=np.int32)
@@ -171,49 +273,203 @@ class FlipEngine:
                                           (b,)))
         expired = np.zeros(b, dtype=bool)
         steps = np.zeros(b, np.int32)
+        rows: list[tuple] = []
+        walls: list[float] = []
+        n_iter = 0
+        t0 = time.perf_counter()
         while True:
-            # the loop's one device->host read per step
+            # the loop's one device->host read per step; it also closes
+            # the previous traced step's wall
             active = frontier.flatten(1).any(dim=1).cpu().numpy()
+            if len(walls) < len(rows):
+                walls.append(time.perf_counter() - t0)
             if deadlines is not None:
                 # a deadline only expires a query that has work left
                 expired |= active & (deadlines <= time.monotonic())
             live = active & ~expired & (steps < budgets)
             if not live.any():
                 break
-            attrs, aux, frontier = self._masked_step(attrs, aux, frontier,
-                                                     live)
+            t0 = time.perf_counter()
+            if trace_cap:
+                (attrs, aux, frontier), st = self._masked_step(
+                    attrs, aux, frontier, live, with_stats=True)
+                if n_iter < trace_cap:
+                    rows.append(st + (~live,))
+            else:
+                attrs, aux, frontier = self._masked_step(attrs, aux,
+                                                         frontier, live)
             steps = steps + live.astype(np.int32)
-        return attrs, aux, steps, ~active, expired
+            n_iter += 1
+        trace = None
+        if trace_cap:
+            trace = (self._step_trace(rows, walls, b), n_iter > trace_cap)
+        return attrs, aux, frontier, steps, trace, ~active, expired
+
+    def _step_trace(self, rows, walls, b: int) -> StepTrace:
+        """Stack the device-side trace rows once, after the loop."""
+        nb = int(self.bg.bsrc.shape[0])
+        if not rows:
+            zero = np.zeros(0, np.int32)
+            return StepTrace(active_vertices=np.zeros((0, b), np.int32),
+                             active_tiles=zero, blocks_fetched=zero,
+                             blocks_skipped=zero,
+                             converged=np.zeros((0, b), bool),
+                             step_wall_s=np.zeros(0, np.float64))
+
+        def stacked(i):
+            return torch.stack([torch.as_tensor(r[i]) for r in rows]) \
+                .cpu().numpy().astype(np.int32)
+
+        bf = stacked(2)
+        return StepTrace(active_vertices=stacked(0),
+                         active_tiles=stacked(1), blocks_fetched=bf,
+                         blocks_skipped=np.int32(nb) - bf,
+                         converged=np.stack([r[3] for r in rows]),
+                         step_wall_s=np.asarray(walls, dtype=np.float64))
 
     # -------------------------------------------------------------- #
-    def execute(self, srcs, *, max_steps=None, deadline_s=None,
-                detail: bool = False):
+    def execute(self, srcs, *, warm: WarmStart | None = None,
+                trace: bool | int = False, max_steps=None,
+                deadline_s=None, detail: bool = False):
         """Run the fixpoint from `srcs`: a scalar source is a solo query
         (`(n,)` result, int steps), a sequence a batch (`(B, n)` /
-        `(B,)`). `max_steps` (int or (B,) ints) caps each query's steps
-        below `self.max_steps`; `deadline_s` (relative seconds, scalar
-        or (B,)) stops a query at the first step boundary past its
+        `(B,)`). `warm` resumes from a prior converged result (see
+        `WarmStart` / `resolve_warm`). `trace` (True = the default
+        `TRACE_CAP_DEFAULT` rows, an int = that capacity) records
+        per-step stats and makes the call return ``(out, steps,
+        DispatchTelemetry)``; results are bit-identical either way.
+        `max_steps` (int or (B,) ints) caps each query's steps below
+        `self.max_steps`; `deadline_s` (relative seconds, scalar or
+        (B,)) stops a query at the first step boundary past its
         deadline. Returns ``(out, steps)``, or an `ExecutionDetail` with
         `detail=True`."""
         batched = bool(np.ndim(srcs))
         srcs = np.atleast_1d(np.asarray(srcs, dtype=np.int64))
         budgets = self._resolve_budgets(max_steps, len(srcs))
         deadlines_t = self._resolve_deadlines(deadline_s, len(srcs))
-        attrs0, aux0, frontier0 = self.initial_state(srcs)
-        attrs, aux, steps, conv, expired = self._fixpoint(
-            attrs0, aux0, frontier0, budgets=budgets,
-            deadlines_t=deadlines_t)
-        out = self.bg.to_orig(self.algebra.finalize(attrs, aux),
-                              features=self._features)
+        out, steps, tele, conv, expired = self._execute_local(
+            srcs, warm=warm, trace_cap=self._trace_cap(trace),
+            budgets=budgets, deadlines_t=deadlines_t)
         if detail:
             if batched:
                 return ExecutionDetail(attrs=out, steps=steps,
                                        converged=conv,
-                                       deadline_expired=expired)
+                                       deadline_expired=expired,
+                                       telemetry=tele)
             return ExecutionDetail(attrs=out[0], steps=int(steps[0]),
                                    converged=bool(conv[0]),
-                                   deadline_expired=bool(expired[0]))
-        return (out, steps) if batched else (out[0], int(steps[0]))
+                                   deadline_expired=bool(expired[0]),
+                                   telemetry=tele)
+        r = (out, steps) if batched else (out[0], int(steps[0]))
+        return r + (tele,) if trace else r
+
+    def _execute_local(self, srcs, warm: WarmStart | None = None,
+                       trace_cap: int = 0, budgets=None,
+                       deadlines_t=None):
+        """The fixpoint over a (B,) source array; always batched.
+        Returns ``(out, steps, DispatchTelemetry | None, converged,
+        deadline_expired)``."""
+        attrs0, aux0, frontier0 = self.initial_state(srcs, warm=warm)
+        t0 = time.perf_counter()
+        attrs, aux, _, steps, rec, converged, expired = self._fixpoint(
+            attrs0, aux0, frontier0, trace_cap, budgets=budgets,
+            deadlines_t=deadlines_t)
+        out = self.finalize_state(attrs, aux)
+        tele = None
+        if rec is not None:
+            trace, truncated = rec
+            tele = DispatchTelemetry(
+                backend=resolve_relax_mode(self.relax_mode, self.device),
+                mode=self.mode, compact=self._use_compact,
+                batch=int(steps.shape[0]), n=self.bg.n,
+                ntiles=self.bg.ntiles, n_blocks=int(self.bg.bsrc.shape[0]),
+                steps=steps, trace=trace,
+                wall_s=time.perf_counter() - t0, truncated=truncated,
+                tile=self.bg.tile, feature_dim=self.feature_dim)
+        return out, steps, tele, converged, expired
+
+    def _trace_cap(self, trace: bool | int) -> int:
+        """0 (off) or the per-step trace row capacity."""
+        if not trace:
+            return 0
+        cap = TRACE_CAP_DEFAULT if trace is True else int(trace)
+        return max(1, min(cap, self.max_steps))
+
+    def resolve_warm(self, prev, delta: UpdateDelta) -> WarmStart | None:
+        """Warm-start dispatch after `apply_updates`: a `delta.monotone`
+        batch on a monotone algebra may resume from `prev` with only
+        `delta.affected_src` seeded active; anything else must recompute
+        from scratch (returns None)."""
+        if delta.monotone and self.algebra.kind == "monotone":
+            return WarmStart(attrs=np.asarray(prev, dtype=np.float32),
+                             seeds=delta.affected_src)
+        return None
+
+    def apply_updates(self, new_graph: Graph,
+                      updates) -> tuple["FlipEngine", UpdateDelta]:
+        """Incremental re-block after a mutation batch (`new_graph` is
+        ``graph.apply_updates(updates)``): only the touched tiles are
+        rebuilt (`BlockedGraph.apply_updates`). Returns ``(new_engine,
+        delta)``; this engine is left untouched."""
+        bg2, delta = self.bg.apply_updates(new_graph, updates)
+        return dataclasses.replace(self, bg=bg2), delta
+
+    # -------------------------------------------------------------- #
+    # bounded-segment stepping: the continuous-batching yield surface
+    # -------------------------------------------------------------- #
+    def idle_state(self, b: int):
+        """(B, ntiles, T[, d]) state on the device with every lane inert:
+        ⊕-identity attrs, zero aux, empty frontier. The live mask freezes
+        an inert lane, so it costs nothing and perturbs no other lane."""
+        bg = self.bg
+        shape = (b, bg.ntiles, bg.tile)
+        if self._features:
+            shape = shape + (self.feature_dim,)
+        return (torch.full(shape, self.algebra.semiring.zero,
+                           dtype=torch.float32, device=self.device),
+                torch.zeros(shape, dtype=torch.float32, device=self.device),
+                torch.zeros((b, bg.ntiles, bg.tile), dtype=torch.bool,
+                            device=self.device))
+
+    def write_slot(self, state, b: int, src: int,
+                   warm: WarmStart | None = None):
+        """Admit one query into lane `b`: returns a new state whose lane
+        `b` is the freshly initialized (or warm-resumed) solo state of
+        `src`; the given state is left as it was. Every fixpoint
+        operation is independent along the batch axis, so the lane then
+        evolves exactly as a solo run of `src`."""
+        one = self.initial_state([int(src)], warm=warm)
+        out = []
+        for x, x1 in zip(state, one):
+            x = x.clone()
+            x[b] = x1[0]
+            out.append(x)
+        return tuple(out)
+
+    def run_segment(self, state, budgets):
+        """Advance a (B, ...) fixpoint state by a bounded segment: lane
+        `b` runs at most ``budgets[b]`` further steps (0 = frozen) and
+        stops early once its frontier empties. Between segments the host
+        can retire converged lanes, admit queued queries and enforce
+        deadlines, then re-enter with the same state.
+
+        Returns ``(state, steps, converged)``: the advanced (attrs, aux,
+        frontier), the (B,) steps taken this segment and the (B,)
+        end-of-segment convergence mask (idle lanes read True). Exact:
+        every step is `_masked_step`, so K-step segments compose into
+        the single-call fixpoint bit for bit."""
+        attrs, aux, frontier = state
+        attrs, aux, frontier, steps, _, converged, _ = self._fixpoint(
+            attrs, aux, frontier, 0,
+            budgets=np.asarray(budgets, dtype=np.int32))
+        return (attrs, aux, frontier), steps, converged
+
+    def finalize_state(self, attrs, aux) -> np.ndarray:
+        """A tiled state -> original-vertex-order numpy results:
+        (B, ntiles, T[, d]) -> (B, n[, d]). Lane-independent, so a
+        rotating batch finalizes one lane by slicing ``attrs[b:b+1]``."""
+        return self.bg.to_orig(self.algebra.finalize(attrs, aux),
+                               features=self._features)
 
     def _resolve_budgets(self, max_steps, b: int):
         """Per-query step budgets ((B,) i32) from a caller cap: None

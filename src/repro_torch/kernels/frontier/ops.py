@@ -3,8 +3,9 @@
 The port of `repro.kernels.frontier.ops`. `build_blocks` turns a CSR
 graph (+ an optional vertex order) into the block-sparse tile form the
 kernel consumes, with the reference's numpy build unchanged and the
-tensors placed on the session's device. `frontier_relax` dispatches one
-step:
+tensors placed on the session's device; `BlockedGraph.apply_updates`
+re-blocks only the tiles an edge batch touches. `frontier_relax`
+dispatches one step:
 
   * 'cuda'  -- the hand-written kernel (`frontier.frontier_relax_cuda`)
     on CUDA tensors. It tests the packet-trigger rule per (block, query)
@@ -55,6 +56,9 @@ class BlockedGraph:
     # positions dst_start[t]:dst_start[t+1] -- the segment one CUDA
     # thread block walks
     dst_start: torch.Tensor = None
+    version: int = 0            # Graph.version this layout was built from
+    graph_fp: str = None        # Graph.fingerprint() of that graph, so
+                                # caches can detect stale layouts
 
     def __post_init__(self):
         if self.dst_start is None:
@@ -112,6 +116,160 @@ class BlockedGraph:
             return flat[..., self.perm, :]
         flat = flat.reshape(flat.shape[:-2] + (-1,))
         return flat[..., self.perm]
+
+    # ------------------------------------------------------------------ #
+    # streaming mutations: rebuild only the touched tiles
+    # ------------------------------------------------------------------ #
+    def apply_updates(self, new_graph: Graph,
+                      updates) -> tuple["BlockedGraph", "UpdateDelta"]:
+        """Incremental re-block against `new_graph` (the post-update
+        Graph, ``graph.apply_updates(updates)``), reusing this layout's
+        vertex permutation and tiling; the reference's algorithm.
+
+        Only the tile pairs touched by `updates` are rebuilt, on the host
+        through the same semiring scatter as `build_blocks`; the old
+        values of those cells are gathered from the device by their
+        indices alone. When every touched pair keeps a non-empty block
+        the update is value-only: the new block tensor is a clone with
+        the dirty blocks copied in (this layout stays as it was -- a
+        session is an immutable snapshot) and `bsrc`, `bdst`,
+        `dst_start` are reused as they are. A batch that fills an empty
+        tile pair grows the block list, one that empties an off-diagonal
+        block drops it; the keep / insert / reorder then runs on the
+        device and `shape_changed` is set. Either way the layout equals
+        a from-scratch `build_blocks` of `new_graph`.
+
+        Returns ``(new_bg, delta)``: the warm-start verdict
+        (`Semiring.monotone_under` over the changed cells) and the
+        source vertices whose out-edge cells changed."""
+        alg, sr, t, ntiles = self.algebra, self.semiring, self.tile, \
+            self.ntiles
+        if new_graph.n != self.n:
+            raise ValueError(
+                f"apply_updates keeps the vertex set fixed: layout has "
+                f"n={self.n}, updated graph has n={new_graph.n}")
+        perm = self.perm
+
+        # dirty (u, v) pairs in every stored direction: the graph's own
+        # mirroring (undirected CSR) and the algebra's both-half-edges
+        # rule (WCC) each add the reverse pair
+        uu, vv = [], []
+        for upd in updates:
+            u, v = int(upd[0]), int(upd[1])
+            uu.append(u), vv.append(v)
+            if not new_graph.directed or alg.undirected:
+                uu.append(v), vv.append(u)
+        # degree-dependent ⊗ operands (delta-PageRank): a changed
+        # out-degree re-values every surviving out-edge of the source
+        if alg.weight_rule == "degree_damped":
+            for s in sorted(set(uu)):
+                for x in new_graph.neighbors(s):
+                    uu.append(s), vv.append(int(x))
+        pu = perm[np.asarray(uu, dtype=np.int64)]
+        pv = perm[np.asarray(vv, dtype=np.int64)]
+        dkeys = np.unique((pv // t) * ntiles + (pu // t))
+        fp = new_graph.fingerprint()
+        if dkeys.size == 0:                    # empty batch: version-only
+            return dataclasses.replace(
+                self, version=new_graph.version, graph_fp=fp), UpdateDelta(
+                monotone=sr.monotone_under([], []), shape_changed=False,
+                affected_src=np.zeros(0, dtype=np.int64),
+                n_blocks_rebuilt=0, version=new_graph.version)
+
+        # rebuild the dirty tiles from the new graph's edges
+        eu = new_graph.edge_sources()
+        ev = new_graph.indices.astype(np.int64)
+        w = alg.edge_values(eu, ev, new_graph.weights,
+                            new_graph.out_degree())
+        if alg.undirected:
+            eu, ev = np.concatenate([eu, ev]), np.concatenate([ev, eu])
+            w = np.concatenate([w, w])
+        peu, pev = perm[eu], perm[ev]
+        ekey = (pev // t) * ntiles + (peu // t)
+        kpos = np.searchsorted(dkeys, ekey)
+        sel = np.flatnonzero(
+            (kpos < dkeys.size)
+            & (dkeys[np.minimum(kpos, dkeys.size - 1)] == ekey))
+        fresh = np.full((dkeys.size, t, t), np.float32(sr.zero),
+                        dtype=np.float32)
+        lin = (kpos[sel] * t + peu[sel] % t) * t + pev[sel] % t
+        _scatter_edges(sr, fresh.reshape(-1), lin,
+                       w[sel].astype(np.float32))
+
+        # old values of the same cells (⊕-identity where no block exists
+        # yet): only the dirty blocks leave the device
+        old_keys = (self.bdst.cpu().numpy().astype(np.int64) * ntiles
+                    + self.bsrc.cpu().numpy().astype(np.int64))
+        nb = old_keys.size
+        opos = np.searchsorted(old_keys, dkeys)
+        exists = ((opos < nb)
+                  & (old_keys[np.minimum(opos, nb - 1)] == dkeys))
+        opos_e = torch.as_tensor(opos[exists], device=self.device)
+        old = np.full_like(fresh, np.float32(sr.zero))
+        if opos_e.numel():
+            old[exists] = self.blocks.index_select(0, opos_e).cpu().numpy()
+        monotone = sr.monotone_under(old, fresh)
+
+        # affected sources: original ids of the lanes whose out-edge
+        # cells changed -- the warm-start frontier seed
+        blk, row = np.nonzero((old != fresh).any(axis=2))
+        pos = (dkeys[blk] % ntiles) * t + row
+        affected = np.unique(self.inv_perm[pos[pos < self.n]]).astype(
+            np.int64)
+
+        # a from-scratch build keeps exactly the non-empty tile pairs and
+        # the diagonal (it initializes each destination's carry)
+        empty = ~(fresh != np.float32(sr.zero)).any(axis=(1, 2))
+        diag = (dkeys // ntiles) == (dkeys % ntiles)
+        grow = ~exists & ~empty
+        drop = exists & empty & ~diag
+        fresh_t = torch.from_numpy(fresh).to(self.device)
+        if not grow.any() and not drop.any():
+            blocks = self.blocks
+            if opos_e.numel():
+                blocks = blocks.clone()
+                blocks.index_copy_(0, opos_e, fresh_t[exists])
+            new_bg = dataclasses.replace(
+                self, blocks=blocks, version=new_graph.version, graph_fp=fp)
+            shape_changed = False
+        else:
+            keep = np.ones(nb, dtype=bool)
+            keep[opos[drop]] = False
+            keys2 = np.sort(np.concatenate([old_keys[keep], dkeys[grow]]))
+            # every new position gathers its old block (grown positions
+            # gather block 0 and are overwritten with their fresh block)
+            src = np.zeros(keys2.size, dtype=np.int64)
+            src[np.searchsorted(keys2, old_keys[keep])] = np.flatnonzero(keep)
+            blocks = self.blocks.index_select(
+                0, torch.as_tensor(src, device=self.device))
+            put = (exists & ~drop) | grow
+            blocks[torch.as_tensor(np.searchsorted(keys2, dkeys[put]),
+                                   device=self.device)] = fresh_t[put]
+            new_bg = dataclasses.replace(
+                self, blocks=blocks,
+                bsrc=torch.from_numpy((keys2 % ntiles).astype(np.int32))
+                .to(self.device),
+                bdst=torch.from_numpy((keys2 // ntiles).astype(np.int32))
+                .to(self.device),
+                dst_start=None, version=new_graph.version, graph_fp=fp)
+            shape_changed = True
+        return new_bg, UpdateDelta(
+            monotone=monotone, shape_changed=shape_changed,
+            affected_src=affected, n_blocks_rebuilt=int(dkeys.size),
+            version=new_graph.version)
+
+
+@dataclasses.dataclass(frozen=True)
+class UpdateDelta:
+    """What one `BlockedGraph.apply_updates` batch did, and whether the
+    previous fixpoint may warm-start the recompute."""
+    monotone: bool            # every changed cell ⊕-improved under an
+                              # idempotent ⊕: resume from the old fixpoint
+    shape_changed: bool       # the block list grew or shrank
+    affected_src: np.ndarray  # original ids of sources whose out-edge
+                              # cells changed -- the warm frontier seed
+    n_blocks_rebuilt: int     # dirty tiles recomputed by this batch
+    version: int              # Graph.version the new layout tracks
 
 
 def _scatter_edges(sr: Semiring, flat: np.ndarray, lin: np.ndarray,
@@ -171,7 +329,8 @@ def build_blocks(graph: Graph, algo: str | VertexAlgebra = "sssp",
                         bsrc=torch.from_numpy(bsrc).to(device),
                         bdst=torch.from_numpy(bdst).to(device),
                         perm=perm, inv_perm=np.asarray(order),
-                        algebra=alg)
+                        algebra=alg, version=graph.version,
+                        graph_fp=graph.fingerprint())
 
 
 def blocked_graph_from_numpy(arrays: Mapping, algebra: VertexAlgebra,

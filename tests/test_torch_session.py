@@ -119,10 +119,10 @@ def test_invalid_requests():
                dict(deadline_s=0.0), dict(max_steps=1.5)):
         with pytest.raises(flip_torch.InvalidRequest):
             port.query(SRCS8, **kw)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="QueryResult or WarmStart"):
         port.query(0, warm=object())
-    with pytest.raises(NotImplementedError):
-        port.query(0, trace=True)
+    with pytest.raises(ValueError, match="no update delta"):
+        port.query(0, warm=port.query(0))
     empty = port.query([])
     assert empty.attrs.shape == (0, port.graph.n) and empty.dispatches == 0
 
@@ -234,8 +234,10 @@ def test_graph_run_self_check(argv, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--engine", "sim"], ["--engine", "dist"],
-                                   ["--autotune"], ["--trace", "x.json"],
-                                   ["--updates", "u.json"]])
+                                   ["--autotune"],
+                                   ["--engine", "sim", "--trace", "x.json"],
+                                   ["--engine", "dist", "--updates",
+                                    "u.json"]])
 def test_graph_run_rejects_unported(flags):
     from repro_torch.launch import graph_run
     with pytest.raises(SystemExit, match="not ported yet"):
