@@ -19,9 +19,11 @@ Phases (every failure raises and exits nonzero):
                 `frontier_relax_torch`, on the card: 4 semirings x dense /
                 frontier-masked / empty states x B in {1, 8} x d in {1, 8},
                 a destination tile with no block, a ragged vertex count,
-                and full-size states of the main path's graph. min_plus,
-                max_min and or_and must be bit-equal; plus_times within
-                atol 1e-5 (summation order differs). Times the kernel and
+                and full-size states of the main path's graph; NaN in a
+                weight block, a source lane and a carry lane for min_plus,
+                max_min and or_and at B in {1, 8}. min_plus, max_min and
+                or_and must be bit-equal, NaN positions included; plus_times
+                within atol 1e-5 (summation order differs). Times the kernel and
                 the plain version at the main path's shapes and computes
                 the card's bound for the same work;
   4. main path -- a 262,144-vertex road network (the repo's generator at
@@ -90,9 +92,37 @@ Phases (every failure raises and exits nonzero):
                 queries/s, latency and queue-wait quantiles, occupancy,
                 cache hit rate, and a profiled 16-request burst.
 
-In phases 4, 5 and 9-11 every fixpoint step is one launch of the
+ 12. mapping -- the FLIP mapping compiler and cycle simulator on the Table-4
+                LRN graph (seed 0) for bfs, sssp and wcc: `compile_mapping`
+                (effort 1), then `simulate` from vertex 0, which must match
+                the oracle; logs simulated FLIP cycles at 100 MHz (a model
+                of the CGRA fabric computed on the host, never a time on
+                the card), parallelism, and the MCU and op-centric CGRA
+                speedups. Then `flip_torch.compile(g, algo, plan,
+                mapping=m)` on the card at tile 128 and 32 over 8 sources:
+                bit-equal to the id-order session, `check()` passes, block
+                counts logged under both orders; and `graph_run.main` with
+                `--engine sim` and `--engine jax` on SRN, each printing
+                `correct vs reference: True`;
+ 13. bucket server -- `GraphServer(batch=8)` over bfs + sssp on phase 4's
+                network with a started `HeartbeatMonitor(timeout_s=0.5)`
+                and `FaultInjector.random(seed=0, rate=0.25, stall_s=1.0)`
+                plus one pinned NaN and one pinned stall: a Zipf stream of
+                48 requests with a monotone update in the middle. Every
+                request is ok and equals one batched query per algebra and
+                graph version bit for bit; `faults_fired` equals the
+                schedule, every raise and NaN is served by rung 1 (the
+                finite guard trips on the NaN), the heartbeat flags every
+                stall, and the ladder is [cuda+compact, cuda+dense]. Then
+                the 6-vertex NaN graph (card == CPU, NaN positions
+                included) and a copy of the network with one NaN weight
+                go through servers where every rung trips the finite
+                guard and every request carries a typed BackendFailure.
+
+In phases 4, 5 and 9-13 every fixpoint step is one launch of the
 frontier-relax kernel: each path resets the launch count before it runs
-and requires launches = iterations after it.
+and requires launches = iterations after it (for the bucket servers, the
+iterations of every dispatch, retries included).
 
 The last lines are one JSON object describing each kernel and then
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; without one it
@@ -100,7 +130,9 @@ exits 2 and prints no result. Imports nothing of JAX or of `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import subprocess
 import sys
@@ -116,7 +148,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import flip_torch  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.algebra import ALGEBRAS  # noqa: E402
-from repro_torch.graphs import make_road_network  # noqa: E402
+from repro_torch.core import (baselines, compile_mapping,  # noqa: E402
+                              mapping_order, simulate)
+from repro_torch.distributed.health import HeartbeatMonitor  # noqa: E402
+from repro_torch.graphs import (Graph, make_dataset,  # noqa: E402
+                                make_road_network, reference)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.attention import flash  # noqa: E402
 from repro_torch.kernels.attention.ref import attention_ref  # noqa: E402
@@ -127,10 +163,13 @@ from repro_torch.kernels.frontier.ops import (BlockedGraph,  # noqa: E402
 from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.kernels.ssd.ref import (chunk_inputs,  # noqa: E402
                                          ssd_intra_ref, ssd_ref)
-from repro_torch.launch import serve  # noqa: E402
-from repro_torch.launch import steps  # noqa: E402
+from repro_torch.launch import graph_run, serve, steps  # noqa: E402
+from repro_torch.launch.serve_graph import GraphServer  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.obs import write_chrome_trace  # noqa: E402
+from repro_torch.resilience import (BackendFailure,  # noqa: E402
+                                    FaultInjector, FaultSpec,
+                                    fallback_chain)
 from repro_torch.serving import AsyncGraphServer  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory rate
@@ -216,19 +255,27 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(label: str, bg: BlockedGraph, sv, carry, d: int) -> float:
+def compare(label: str, bg: BlockedGraph, sv, carry, d: int,
+            blocks: torch.Tensor | None = None) -> float:
     """One kernel call against the plain version on the same inputs;
-    raises unless bit-equal (idempotent ⊕) or within atol (plus_times)."""
+    raises unless bit-equal (idempotent ⊕; NaN positions equal and the
+    rest equal) or within atol (plus_times). `blocks` replaces the
+    layout's weight blocks (the NaN cases)."""
     sr = bg.semiring
-    out = relax.frontier_relax_cuda(sv, carry, bg.blocks, bg.bsrc,
-                                    bg.dst_start, sr, feature_dim=d)
+    w = bg.blocks if blocks is None else blocks
+    out = relax.frontier_relax_cuda(sv, carry, w, bg.bsrc, bg.dst_start, sr,
+                                    feature_dim=d)
     torch.cuda.synchronize()
-    ref = frontier_relax_torch(sv, carry, bg.blocks, bg.bsrc, bg.bdst, sr,
+    ref = frontier_relax_torch(sv, carry, w, bg.bsrc, bg.bdst, sr,
                                feature_dim=d)
-    err = max_abs_err(out, ref)
+    nan = torch.isnan(ref)
+    err = max_abs_err(out[~nan], ref[~nan])
     if sr.idempotent:
-        ok = torch.equal(out, ref)
+        ok = torch.equal(torch.isnan(out), nan) and torch.equal(
+            out[~nan], ref[~nan])
         rule = "bit-equal"
+        if bool(nan.any()):
+            rule += f", {int(nan.sum())} NaN at equal positions"
     else:
         ok = err <= PLUS_TIMES_ATOL
         rule = f"atol {PLUS_TIMES_ATOL:g}"
@@ -380,6 +427,42 @@ def phase_kernel_small(rng) -> float:
                                         empty.dst_start, empty.semiring)
         require(torch.equal(out[:, 1:], carry[:, 1:]),
                 "a destination with no block lost its carry")
+    errs.append(nan_cases(g))
+    return max(errs)
+
+
+def nan_cases(g) -> float:
+    """NaN must propagate through the kernel as through the plain version
+    (torch.minimum/maximum): a NaN weight, a NaN source lane and a NaN
+    carry lane, for the three min/max semirings at B in {1, 8}. The NaN
+    weight sits in a block every query relaxes (all lanes active): the
+    kernel skips an inactive source tile per query, the dense plain
+    version does not, and a NaN weight is the one operand for which
+    ``zero ⊗ w != zero``. Draws from a generator of its own, so the
+    later phases' seeded draws are those of earlier PRs."""
+    rng = np.random.default_rng(1)
+    errs = []
+    for algo in ("sssp", "widest", "reach"):
+        bg = build_blocks(g, algo, tile=128, device="cuda")
+        name = bg.semiring.name
+        for b in (1, 8):
+            sv, carry = state(bg, b, 1, "all", rng)
+            w = bg.blocks.clone()
+            i = int(rng.integers(w.shape[0]))
+            w[i, int(rng.integers(bg.tile)), int(rng.integers(bg.tile))] = \
+                float("nan")
+            errs.append(compare(f"{name} NaN weight B={b}", bg, sv, carry,
+                                1, blocks=w))
+            sv, carry = state(bg, b, 1, "sparse", rng)
+            q, t = int(rng.integers(b)), int(rng.integers(bg.ntiles))
+            sv[q, t, int(rng.integers(bg.tile))] = float("nan")
+            errs.append(compare(f"{name} NaN source lane B={b}", bg, sv,
+                                carry, 1))
+            sv, carry = state(bg, b, 1, "sparse", rng)
+            carry[int(rng.integers(b)), int(rng.integers(bg.ntiles)),
+                  int(rng.integers(bg.tile))] = float("nan")
+            errs.append(compare(f"{name} NaN carry lane B={b}", bg, sv,
+                                carry, 1))
     return max(errs)
 
 
@@ -717,6 +800,274 @@ def phase_serving(g, rng) -> int:
             f"device ops/window, {wall_ms / nwin:.3f} ms/window")
     else:
         log("serving profile: device time not measured (no device events)")
+    return launches
+
+
+# ------------------------------------------------------------------ #
+# the FLIP mapping and cycle simulator (12), the bucket server (13)
+# ------------------------------------------------------------------ #
+def graph_run_main(argv: list[str]) -> str:
+    """`graph_run.main(argv)` with its stdout captured and logged."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        graph_run.main(argv)
+    out = buf.getvalue()
+    for ln in out.splitlines():
+        log(f"  {ln}")
+    return out
+
+
+def phase_mapping(rng) -> int:
+    """Phase 12 (module docstring). Returns the kernel's launches."""
+    g = next(make_dataset("LRN", 1, seed0=0))
+    srcs = np.sort(rng.choice(g.n, size=8, replace=False))
+    launches = 0
+    for algo in ("bfs", "sssp", "wcc"):
+        alg = ALGEBRAS[algo]
+        t0 = time.perf_counter()
+        m = compile_mapping(g, effort=1, program=alg)
+        map_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        r = simulate(m, alg, src=0)
+        sim_s = time.perf_counter() - t0
+        ref, _ = reference.run(algo, g, 0)
+        require(alg.results_match(r.attrs, ref),
+                f"sim {algo}: the simulated result disagrees with the oracle")
+        t_f = r.cycles / m.arch.freq_mhz
+        mcu = baselines.mcu_cycles(algo, g, 0)
+        cgra = baselines.cgra_cycles(algo, g, 0)
+        log(f"sim {algo} LRN |V|={g.n} |E|={g.m}: mapping (effort 1) "
+            f"{map_s:.1f} s on the host, avg routing length "
+            f"{m.avg_routing_length():.3f}; simulated FLIP fabric at "
+            f"{m.arch.freq_mhz:.0f} MHz, computed on the host (not card "
+            f"time): {r.cycles} cycles = {t_f:.2f} us, parallelism avg "
+            f"{r.avg_parallelism:.2f} max {r.max_parallelism}, "
+            f"{g.m / t_f:.1f} MTEPS, pkt wait {r.avg_pkt_wait:.2f} cycles, "
+            f"swaps {r.swaps}; simulated speedup vs MCU "
+            f"{mcu.time_us / t_f:.1f}x, vs op-centric CGRA "
+            f"{cgra.time_us / t_f:.1f}x; oracle match (sim {sim_s:.2f} s)")
+        order = mapping_order(m)
+        for tile in (128, 32):
+            plan = flip_torch.ExecutionPlan(tile=tile)
+            ido = flip_torch.compile(g, algo, plan)
+            mo = flip_torch.compile(g, algo, plan, mapping=m)
+            require(np.array_equal(mo.engine.bg.inv_perm, order),
+                    f"{algo} T={tile}: the session is not in mapping order")
+            label = f"{algo} x{len(srcs)} T={tile}"
+            a, a_wall, n1 = counted_query(ido, srcs, f"{label} id order")
+            b, b_wall, n2 = counted_query(mo, srcs,
+                                          f"{label} mapping order")
+            launches += n1 + n2
+            require(np.array_equal(a.attrs, b.attrs)
+                    and np.array_equal(a.steps, b.steps),
+                    f"{label}: mapping order differs from id order")
+            check(b, f"{label} mapping order")
+            log(f"{label}: blocks id order {ido.engine.bg.bsrc.numel()}, "
+                f"mapping order {mo.engine.bg.bsrc.numel()} "
+                f"({mo.engine.bg.ntiles} tiles); steps "
+                f"{np.asarray(b.steps).tolist()}, bit-equal to id order; "
+                f"launches = iterations ({n2}); wall {b_wall * 1e3:.1f} ms "
+                f"(id order {a_wall * 1e3:.1f} ms)")
+    for engine in ("sim", "jax"):
+        relax.frontier_relax_cuda.launches = 0
+        out = graph_run_main(["--engine", engine, "--dataset", "SRN"])
+        require("[graph] correct vs reference: True" in out,
+                f"graph_run --engine {engine}: no correct self-check")
+        n = relax.frontier_relax_cuda.launches
+        if engine == "jax":
+            steps = int(out.split("fixpoint in ", 1)[1].split()[0])
+            require(n == steps, f"graph_run --engine jax: {n} launches for "
+                    f"{steps} iterations")
+        else:
+            require(n == 0, "graph_run --engine sim launched the kernel")
+        launches += n
+    return launches
+
+
+def bucket_dispatches(items, b: int) -> int:
+    """Bucket dispatches a `GraphServer(batch=b)` makes for a stream:
+    one per full bucket, and one per non-empty bucket at each update
+    (which drains first) and at the end."""
+    n, pending = 0, {}
+    for algo, _ in items + [("update", None)]:
+        if algo == "update":
+            n += sum(1 for k in pending.values() if k)
+            pending = {}
+            continue
+        pending[algo] = pending.get(algo, 0) + 1
+        if pending[algo] == b:
+            n += 1
+            pending[algo] = 0
+    return n
+
+
+def served_launches(srv, label: str) -> int:
+    """The kernel's launches since the count was set to 0, held equal to
+    the server's engine iterations (every dispatch, retries included)."""
+    launches = relax.frontier_relax_cuda.launches
+    iters = int(srv.metrics.histogram("dispatch_iters").total)
+    require(launches == iters, f"{label}: {launches} kernel launches for "
+            f"{iters} dispatch iterations")
+    return launches
+
+
+def nan_road_copy(g, src: int):
+    """`g` with one NaN weight, on an out-edge of `src` (so every query
+    from `src` relaxes it in its first step)."""
+    w = g.weights.copy()
+    w[int(g.indptr[src])] = np.float32("nan")
+    return dataclasses.replace(g, weights=w)
+
+
+def phase_bucket_server(g, rng) -> int:
+    """Phase 13 (module docstring). Returns the kernel's launches."""
+    for algo in ("bfs", "sssp"):
+        chain = fallback_chain(flip_torch.ExecutionPlan(batch=8),
+                               ALGEBRAS[algo])
+        rungs = [(p.relax_mode, p.compact) for p in chain]
+        require(rungs == [("cuda", True), ("cuda", False)],
+                f"{algo}: the card's ladder is {rungs}")
+    log("ladder on the card: [cuda+compact, cuda+dense] for bfs and sssp")
+    pool = rng.choice(g.n, size=24, replace=False)
+    stream = zipf_stream(rng, pool, 48)
+    items = stream[:24] + [("update", monotone_batch(g, rng))] + stream[24:]
+    n_disp = bucket_dispatches(items, 8)
+    specs = FaultInjector.random(seed=0, dispatches=n_disp, rate=0.25,
+                                 stall_s=1.0).specs
+    # the seeded schedule, plus one NaN and one stall pinned where it left
+    # room, so every fault kind runs (as the reference's chaos test does)
+    free = [d for d in range(n_disp) if d not in {f.dispatch for f in specs}]
+    specs += [FaultSpec(kind="nan", dispatch=free[0]),
+              FaultSpec(kind="stall", dispatch=free[1], stall_s=1.0)]
+    inj = FaultInjector(specs=specs, seed=0)
+    flagged = []                  # dispatch ordinal at each stall flag
+    hb = HeartbeatMonitor(
+        timeout_s=0.5,
+        on_stall=lambda: flagged.append(srv._dispatch_seq - 1))
+    srv = GraphServer(g, batch=8, fault_injector=inj, heartbeat=hb)
+    for algo in ("bfs", "sssp"):
+        srv.session(algo)                  # build both layouts up front
+    hb.beat()
+    hb.start()
+    relax.frontier_relax_cuda.launches = 0
+    versions, reqs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        for algo, arg in items:
+            if algo == "update":
+                versions.append(({a: srv.session(a) for a in ("bfs", "sssp")},
+                                 reqs))
+                srv.update(arg)
+                reqs = []
+            else:
+                reqs.append(srv.submit(algo, arg))
+        srv.drain()
+        torch.cuda.synchronize()
+    finally:
+        hb.stop()
+    wall = time.perf_counter() - t0
+    versions.append(({a: srv.session(a) for a in ("bfs", "sssp")}, reqs))
+    launches = served_launches(srv, "bucket server")
+    st = srv.stats()
+    allreq = [r for _, rs in versions for r in rs]
+    bad = [(r.req_id, r.error) for r in allreq if not r.ok]
+    require(len(allreq) == 48 and not bad,
+            f"bucket server: {len(bad)} requests not ok: {bad[:3]}")
+    require(srv._dispatch_seq == n_disp,
+            f"bucket server: {srv._dispatch_seq} dispatches, expected "
+            f"{n_disp}")
+    fired = sorted((f["dispatch"], f["kind"]) for f in inj.fired)
+    require(fired == sorted((f.dispatch, f.kind) for f in specs)
+            and st["resilience"]["faults_fired"] == len(specs),
+            f"bucket server: faults fired {fired}, schedule "
+            f"{[(f.dispatch, f.kind) for f in specs]}")
+    n_err = sum(f.kind in ("raise", "nan") for f in specs)
+    snap = st["metrics"]["counters"]
+    require(snap.get("dispatch_errors.backend_failure", 0) == n_err
+            and snap.get("fallback_rung.1", 0) == n_err
+            and st["resilience"]["fallbacks"] == n_err,
+            f"bucket server: {n_err} raise/nan faults but counters {snap}")
+    stalls = sorted(f.dispatch for f in specs if f.kind == "stall")
+    require(set(stalls) <= set(flagged) and hb.stall_count >= len(stalls),
+            f"bucket server: stalls at {stalls}, heartbeat flagged "
+            f"{flagged}")
+    served_by = sorted({r.rung for r in allreq})
+    require(served_by == [0, 1], f"bucket server: rungs {served_by}")
+
+    # every result against one batched query per algebra and version
+    # (comparison launches, outside the count above)
+    for sessions, rs in versions:
+        for algo, cq in sessions.items():
+            mine = [r for r in rs if r.algo == algo]
+            distinct = sorted({r.src for r in mine})
+            ref = cq.query(distinct)
+            row = {s: i for i, s in enumerate(distinct)}
+            for r in mine:
+                require(np.array_equal(r.result, ref.attrs[row[r.src]])
+                        and r.steps == int(ref.steps[row[r.src]]),
+                        f"bucket server: request {r.req_id} ({algo}, src "
+                        f"{r.src}) differs from the batched query")
+            require(cq.program.check(cq.graph, mine[0].src, mine[0].result),
+                    f"bucket server: {algo} src {mine[0].src} fails check()")
+    h = st["metrics"]["histograms"]
+    log(f"bucket server: 48 requests + 1 update in {wall:.3f} s "
+        f"({48 / wall:.2f} queries/s, stalls included) over {n_disp} "
+        f"dispatches of B=8; faults fired {fired}; "
+        f"{n_err} served by rung 1, {len(stalls)} stall(s) flagged by the "
+        f"heartbeat (flags at dispatches {flagged}); launches = dispatch "
+        f"iterations = {launches}; latency p50/p95 "
+        f"{h['latency_s.sssp']['p50'] * 1e3:.1f}/"
+        f"{h['latency_s.sssp']['p95'] * 1e3:.1f} ms (sssp), "
+        f"{h['latency_s.bfs']['p50'] * 1e3:.1f}/"
+        f"{h['latency_s.bfs']['p95'] * 1e3:.1f} ms (bfs); every request "
+        "equals its batched query bit for bit")
+
+    # NaN weights: every rung trips the finite guard on the card
+    with np.errstate(invalid="ignore"):    # numpy's ⊕.at over a NaN weight
+        return launches + nan_servers(g, pool)
+
+
+def nan_servers(g, pool) -> int:
+    """Phase 13's NaN part: the 6-vertex NaN graph on the card against
+    the CPU, then servers over it and over a copy of `g` with one NaN
+    weight, where every rung trips the finite guard. Returns the
+    kernel's launches."""
+    launches = 0
+    nan = float("nan")
+    g6 = Graph.from_edges(6, [(0, 1), (1, 2), (2, 3), (0, 4), (4, 3),
+                              (3, 5)], [1, nan, 1, 5, 1, 1])
+    for algo in ("sssp", "widest"):
+        card = flip_torch.compile(g6, algo).query(0)
+        cpu = flip_torch.compile(g6, algo, device="cpu").query(0)
+        require(np.array_equal(card.attrs, cpu.attrs, equal_nan=True)
+                and card.steps == cpu.steps,
+                f"6-vertex NaN graph {algo}: card {card.attrs} != cpu "
+                f"{cpu.attrs}")
+        log(f"6-vertex NaN graph {algo}: card == cpu, NaN positions "
+            f"included: {card.attrs.tolist()}")
+    src = int(pool[0])
+    for label, graph, algos, srcs in (
+            ("6-vertex", g6, ("sssp", "widest"), [0, 3]),
+            ("road NaN copy", nan_road_copy(g, src), ("sssp",),
+             [src] + [int(x) for x in pool[1:8]])):
+        srv = GraphServer(graph, batch=len(srcs))
+        relax.frontier_relax_cuda.launches = 0
+        reqs = [srv.submit(a, s) for a in algos for s in srcs]
+        srv.drain()
+        torch.cuda.synchronize()
+        n = served_launches(srv, f"{label} server")
+        launches += n
+        runs = srv.metrics.histogram("dispatch_iters").count
+        require(all(r.done and isinstance(r.error, BackendFailure)
+                    and r.result is None for r in reqs)
+                and srv.failed == len(reqs)
+                and runs == 2 * len(algos),
+                f"{label} server: not every request failed typed after "
+                f"both rungs ({runs} runs)")
+        log(f"{label} server: {len(reqs)} requests, {runs} runs (every "
+            f"rung tripped finite_guard), all carry BackendFailure "
+            f"('{reqs[0].error}'), none lost; launches = iterations = {n}")
     return launches
 
 
@@ -1163,7 +1514,10 @@ def main() -> None:
     # the graph-serving surface on phase 4's network and sessions
     for phase, fn in (("9 updates", lambda: phase_updates(sssp, srcs, rng)),
                       ("10 trace", lambda: phase_trace(sssp, bfs, srcs)),
-                      ("11 serving", lambda: phase_serving(g, rng))):
+                      ("11 serving", lambda: phase_serving(g, rng)),
+                      ("12 mapping", lambda: phase_mapping(rng)),
+                      ("13 bucket server",
+                       lambda: phase_bucket_server(g, rng))):
         t0 = time.perf_counter()
         launches += fn()
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")

@@ -13,15 +13,23 @@ Layers ported so far:
                             plain PyTorch version: frontier relax, flash
                             attention, the SSD intra-chunk form
   repro_torch.core       -- FlipEngine: the host-driven fixpoint, warm
-                            starts, tracing, the segment surface
-  repro_torch.api        -- compile(graph, program, plan).query(srcs),
-                            update(batch) (alias: `import flip_torch`)
-  repro_torch.obs        -- step traces, metrics, Chrome-trace export
-  repro_torch.resilience -- typed errors, classify, finite_guard
+                            starts, tracing, the segment surface; the
+                            FLIP mapping compiler, routing tables, the
+                            cycle simulator and the baseline models
+  repro_torch.api        -- compile(graph, program, plan, mapping=)
+                            .query(srcs), update(batch) (alias:
+                            `import flip_torch`)
+  repro_torch.obs        -- step traces, metrics, Chrome-trace export,
+                            the simulator bridge `from_sim`
+  repro_torch.resilience -- typed errors, classify, finite_guard, the
+                            degradation ladder, fault injection
+  repro_torch.distributed -- HeartbeatMonitor
   repro_torch.serving    -- AsyncGraphServer: continuous batching
   repro_torch.models     -- the LM stack for inference (no MoE yet)
   repro_torch.configs    -- qwen3-0.6b and mamba2-370m
-  repro_torch.launch     -- graph_run, serve, prefill/decode steps
+  repro_torch.launch     -- graph_run (--engine jax | sim), serve_graph
+                            (the bucket GraphServer), serve,
+                            prefill/decode steps
 """
 
 __version__ = "0.1.0"

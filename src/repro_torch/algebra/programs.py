@@ -2,9 +2,10 @@
 on the port's engine (PyTorch state hooks, CUDA relax kernel).
 
 The port of `repro.algebra.programs`: the numpy parts (`landmarks`,
-`edge_values`, `initial_attrs/frontier`, `results_match`) are carried over
-verbatim, the engine hooks (`scatter_carry`, `post_step`, `finalize`) are
-written in torch.
+`edge_value(s)`, `initial_attrs/frontier`, the cycle simulator's scalar
+hooks `source_value`/`message`/`merge`/`improved_np`/`exe_cycles`,
+`results_match`) are carried over verbatim, the engine hooks
+(`scatter_carry`, `post_step`, `finalize`) are written in torch.
 
 A `VertexAlgebra` is the generalized vertex program (paper Fig. 5): the
 message along edge (u, v) is `attr_u ⊗ W[u, v]`, destinations merge with
@@ -100,6 +101,16 @@ class VertexAlgebra:
     # ------------------------------------------------------------------ #
     # edge materialization (blocks, routing tables)
     # ------------------------------------------------------------------ #
+    def edge_value(self, u: int, v: int, w: float,
+                   outdeg: np.ndarray) -> float:
+        """The ⊗ operand stored for edge (u, v) of raw weight w (scalar
+        view of `edge_values`, used by the routing tables). The
+        simulator casts through float32 in `message`, so the f32
+        production here loses nothing."""
+        return float(self.edge_values(np.asarray([u]), np.asarray([v]),
+                                      np.asarray([w], dtype=np.float32),
+                                      outdeg)[0])
+
     def edge_values(self, u: np.ndarray, v: np.ndarray, w: np.ndarray,
                     outdeg: np.ndarray) -> np.ndarray:
         """Vectorized ⊗ operands over whole edge arrays (the block-build
@@ -172,6 +183,29 @@ class VertexAlgebra:
             f = np.zeros((b, n), dtype=bool)
             f[np.arange(b), srcs] = True
         return f if np.ndim(src) else f[0]
+
+    # ------------------------------------------------------------------ #
+    # simulator-side scalar ops (numpy)
+    # ------------------------------------------------------------------ #
+    @property
+    def source_value(self) -> float:
+        """Bootstrap packet value installed at the source vertex."""
+        return float(self.semiring.one)
+
+    def message(self, attr_u, w):
+        """Value carried by a packet along edge (u, v) with stored w."""
+        return self.semiring.mul_np(np.float32(attr_u), np.float32(w))
+
+    def merge(self, attr_v, msg):
+        return self.semiring.add_np(attr_v, msg)
+
+    def improved_np(self, new, old):
+        """Strict ⊕-improvement (direction-free: works for min and max)."""
+        return np.logical_and(self.semiring.add_np(new, old) == new,
+                              new != old)
+
+    def exe_cycles(self, updated: bool) -> int:
+        return self.exe_update if updated else self.exe_noupdate
 
     # ------------------------------------------------------------------ #
     # engine-side step hooks (torch)

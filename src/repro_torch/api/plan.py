@@ -64,6 +64,12 @@ class ExecutionPlan:
     deadline_s: float | None = None
     tuned: bool = False
 
+    def key(self) -> tuple:
+        """Hashable cache key (session caches key on fingerprint+plan)."""
+        return (self.mode, self.relax_mode, self.compact, self.tile,
+                self.batch, self.warm, self.feature_dim, self.max_steps,
+                self.deadline_s, self.tuned)
+
     @classmethod
     def auto(cls, **overrides) -> "ExecutionPlan":
         """The default plan (every knob on 'auto'), with overrides."""
@@ -171,15 +177,20 @@ def plan_from_cli(engine: str, mode: str, compact: bool | str = "auto",
                   tile: int = 128, batch: int = 0,
                   feature_dim: int = 0) -> ExecutionPlan:
     """One ExecutionPlan from the graph_run CLI surface. `engine` keeps
-    the reference's spelling: 'jax' is the local engine; 'dist' (the
-    distributed fixpoint) and 'sim' (the cycle simulator) are not
+    the reference's spelling: 'jax' is the local engine ('op' the
+    deprecated spelling of 'jax' in op mode). The cycle simulator
+    ('sim') takes no plan, and 'dist' (the distributed fixpoint) is not
     ported yet."""
     if engine == "op":
         engine, mode = "jax", "op"
+    if engine == "dist":
+        raise ValueError(
+            "engine 'dist' is not ported yet: it waits for ROADMAP Queue 1 "
+            "item 10 (distributed fixpoint); use --engine jax or sim")
     if engine != "jax":
         raise ValueError(
-            f"engine {engine!r} is not ported yet: 'dist' waits for ROADMAP "
-            "Queue 1 item 10 (distributed fixpoint), 'sim' for item 9 "
-            "(cycle simulator and mapping); use --engine jax")
+            f"engine {engine!r} takes no ExecutionPlan: the plan surface "
+            "is the local engine's ('jax'); the cycle simulator ('sim') "
+            "runs from a mapping alone")
     return ExecutionPlan(mode=mode, compact=compact, tile=tile,
                          batch=batch, feature_dim=feature_dim)

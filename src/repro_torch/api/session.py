@@ -401,7 +401,8 @@ class CompiledQuery:
 # the front door
 # ------------------------------------------------------------------ #
 def compile(graph: Graph, program, plan: ExecutionPlan | None = None, *,
-            device=None, order: np.ndarray | None = None) -> CompiledQuery:
+            mapping=None, device=None,
+            order: np.ndarray | None = None) -> CompiledQuery:
     """Compile a (graph, program, plan) triple into a query session.
 
     graph   -- a `repro_torch.graphs.Graph`.
@@ -409,16 +410,21 @@ def compile(graph: Graph, program, plan: ExecutionPlan | None = None, *,
                `VertexAlgebra`, or a `Program`.
     plan    -- an `ExecutionPlan` (default `ExecutionPlan()`), validated
                and resolved here for the device.
+    mapping -- optional FLIP `Mapping` (`repro_torch.core.
+               compile_mapping`): the placement-induced vertex ordering
+               becomes block sparsity, exactly as in `FlipEngine.build`.
     device  -- where the blocks and the state live: the CUDA device by
                default; pass "cpu" to run the plain version on the CPU.
     order   -- optional precomputed vertex order (order[k] = original id
-               at tiled position k), e.g. from a FLIP mapping.
+               at tiled position k); a `mapping` takes its place, and
+               passing both raises.
     """
     prog = Program.of(program)
     plan = plan if plan is not None else ExecutionPlan()
     dev = resolve_device(device, "flip_torch.compile")
     rplan = plan.resolve(prog.algebra, dev)
-    engine = FlipEngine.build(graph, prog.algebra, order=order,
+    engine = FlipEngine.build(graph, prog.algebra, mapping=mapping,
+                              order=order,
                               tile=rplan.tile, mode=rplan.mode,
                               relax_mode=rplan.relax_mode,
                               compact=rplan.compact,

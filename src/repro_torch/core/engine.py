@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.algebra import VertexAlgebra
+from repro_torch.core.mapping import Mapping
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph
 from repro_torch.kernels.frontier.ops import (BlockedGraph, UpdateDelta,
@@ -91,6 +92,15 @@ class ExecutionDetail:
     telemetry: DispatchTelemetry | None = None
 
 
+def mapping_order(mapping: Mapping) -> np.ndarray:
+    """Vertex ordering induced by the FLIP placement: vertices co-located
+    on a (copy, PE) become adjacent tile positions, so the compiled
+    placement's locality becomes block sparsity."""
+    keys = [(int(mapping.copy_of[v]), int(mapping.pe_of[v]), v)
+            for v in range(mapping.graph.n)]
+    return np.asarray([v for _, _, v in sorted(keys)], dtype=np.int64)
+
+
 @dataclasses.dataclass
 class FlipEngine:
     """Compiled graph + algorithm on one device."""
@@ -107,15 +117,24 @@ class FlipEngine:
     # -------------------------------------------------------------- #
     @staticmethod
     def build(graph: Graph, algo: str | VertexAlgebra,
+              mapping: Mapping | None = None,
               order: np.ndarray | None = None, tile: int = 128,
               mode: str = "data", relax_mode: str = "auto",
               compact: bool | str = "auto",
               feature_dim: int | None = None,
               device: str | torch.device | None = None) -> "FlipEngine":
         """Block `graph` for `algo` on `device` (default: the CUDA
-        device; raises without one). `order` is an optional precomputed
-        vertex order (order[k] = original id at tiled position k), e.g.
-        from the reference's FLIP mapping compiler."""
+        device; raises without one). The tiled vertex order comes from a
+        FLIP `mapping` (`mapping_order`: the placement's locality becomes
+        block sparsity) or from a precomputed `order` (order[k] =
+        original id at tiled position k); passing both raises. Neither
+        means id order."""
+        if mapping is not None:
+            if order is not None:
+                raise ValueError(
+                    "FlipEngine.build: pass a mapping or an order, not "
+                    "both (the mapping induces its own order)")
+            order = mapping_order(mapping)
         bg = build_blocks(graph, algo=algo, tile=tile, order=order,
                           device=resolve_device(device, "FlipEngine.build"))
         d = bg.algebra.feature_dim if feature_dim is None else feature_dim

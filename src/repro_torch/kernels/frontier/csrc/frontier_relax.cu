@@ -34,6 +34,13 @@
 //   * The accumulators live in registers; the semiring is a template
 //     parameter. No fast-math: min/max results are bit-equal to the
 //     plain PyTorch version, (+, x) differs only in summation order.
+//   * ⊕ and ⊗ of the min/max semirings are the PTX `min.NaN.f32` /
+//     `max.NaN.f32` (one instruction each, sm_80+), which return NaN
+//     when either operand is NaN, as torch.minimum / jnp.minimum do.
+//     fminf/fmaxf would drop a NaN operand, so a poisoned weight block
+//     would read as a missing edge and the serving layer's NaN guard
+//     would never trip. The packet trigger `x != zero` counts a NaN
+//     lane as active, as the plain version does.
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -41,24 +48,37 @@ namespace {
 
 enum Op { kMinPlus = 0, kMaxMin = 1, kOrAnd = 2, kPlusTimes = 3 };
 
+// IEEE min/max that propagate NaN (fminf/fmaxf return the other operand)
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 template <int OP> struct Semiring;
 
 template <> struct Semiring<kMinPlus> {
   static __device__ __forceinline__ float zero() { return __int_as_float(0x7f800000); }
-  static __device__ __forceinline__ float add(float a, float b) { return fminf(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return min_nan(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return a + b; }
 };
 
 template <> struct Semiring<kMaxMin> {
   static __device__ __forceinline__ float zero() { return __int_as_float(0xff800000); }
-  static __device__ __forceinline__ float add(float a, float b) { return fmaxf(a, b); }
-  static __device__ __forceinline__ float mul(float a, float b) { return fminf(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return max_nan(a, b); }
+  static __device__ __forceinline__ float mul(float a, float b) { return min_nan(a, b); }
 };
 
 template <> struct Semiring<kOrAnd> {
   static __device__ __forceinline__ float zero() { return 0.0f; }
-  static __device__ __forceinline__ float add(float a, float b) { return fmaxf(a, b); }
-  static __device__ __forceinline__ float mul(float a, float b) { return fminf(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return max_nan(a, b); }
+  static __device__ __forceinline__ float mul(float a, float b) { return min_nan(a, b); }
 };
 
 template <> struct Semiring<kPlusTimes> {

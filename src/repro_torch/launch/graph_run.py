@@ -2,28 +2,41 @@
 
 The counterpart of `repro.launch.graph_run`, with the same flags and the
 same ``[graph] ... correct vs reference: True`` self-check line. It runs
-any registered program on a Table-4 dataset through
-`flip_torch.compile(graph, algo, plan).query(...)`, on the CUDA device
-unless ``--device cpu`` asks for the CPU:
+any registered program on a Table-4 dataset, compiling a FLIP mapping
+(`repro_torch.core.compile_mapping`, ``--effort``) on every run as the
+reference does, through one of two execution layers:
 
   --engine jax     the local frontier engine (the flag keeps the
-                   reference's spelling; here it is the port's engine)
+                   reference's spelling), through
+                   `flip_torch.compile(graph, algo, plan, mapping=)`:
+                   the mapping's vertex order becomes the tiling
+  --engine sim     the cycle-level FLIP simulator (`core.simulate`) on
+                   the host: simulated cycles, parallelism, MTEPS at
+                   100 MHz and the speedups against the MCU and
+                   op-centric CGRA baselines. Scalar programs with an
+                   idempotent merge only (no pagerank), one --src
   --mode data|op   FLIP packet-triggered vs classic-CGRA full sweep
+  --srcs / --batch a batched multi-query run; --batch B dispatches
+                   through the bucket `serve_graph.GraphServer` in
+                   buckets of B, as the reference does
   --updates FILE   replay JSON edge-mutation batches after the base
                    query, each re-solved warm (monotone batch) or from
                    scratch, with a single --src
-  --trace FILE     write a Chrome-trace JSON of the query's per-step
-                   frontier spans
+  --trace FILE     write a Chrome-trace JSON: per-step frontier spans
+                   for jax, the simulated per-cycle parallelism (through
+                   `obs.from_sim`) for sim
 
-Not ported yet, and rejected with the ROADMAP item that brings them:
-``--engine sim`` and the FLIP mapping compiler (Queue 1 item 9; the port
-tiles vertices in id order), ``--engine dist`` (item 10), ``--autotune``
-(item 8). ``--batch`` dispatches through the session's buckets; the
-reference's bucket `GraphServer` is not ported yet (item 5).
+The default engine is ``jax`` on the CUDA device, where the reference's
+is ``sim``: the port's entry points run on the card unless asked
+otherwise (``--device cpu``). Not ported yet, and rejected with the
+ROADMAP item that brings them: ``--engine dist`` (Queue 1 item 10) and
+``--autotune`` (item 8).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.graph_run --algo sssp \\
       --dataset LRN --engine jax --src 5
+  PYTHONPATH=src python -m repro_torch.launch.graph_run --algo sssp \\
+      --dataset SRN --engine sim --src 5
   PYTHONPATH=src python -m repro_torch.launch.graph_run --algo bfs \\
       --dataset LRN --engine jax --srcs 0,5,9,12 --mode op --device cpu
   echo '[[0, 5, 0.5], [1, 40, 2.0]]' > upd.json
@@ -40,8 +53,9 @@ import numpy as np
 
 from repro_torch import api as flip
 from repro_torch.algebra import ALGEBRAS
+from repro_torch.core import baselines, compile_mapping, simulate
 from repro_torch.graphs import make_dataset, reference
-from repro_torch.obs import write_chrome_trace
+from repro_torch.obs import from_sim, write_chrome_trace
 
 
 def main(argv=None):
@@ -52,14 +66,16 @@ def main(argv=None):
     ap.add_argument("--engine", default="jax",
                     choices=["sim", "jax", "dist", "op"])
     ap.add_argument("--mode", default="data", choices=["data", "op"],
-                    help="fabric mode of the engine")
+                    help="fabric mode of the jax engine")
     ap.add_argument("--graph-seed", type=int, default=0)
     ap.add_argument("--src", type=int, default=0)
     ap.add_argument("--srcs", default=None,
-                    help="comma list of sources: batched multi-query run")
+                    help="comma list of sources: batched multi-query run "
+                         "(jax engine)")
     ap.add_argument("--batch", type=int, default=0,
-                    help="with --srcs: dispatch in fixed-size buckets of "
-                         "this many queries (0 = one fixpoint over all "
+                    help="with --srcs: dispatch through the bucket "
+                         "serving front-end in fixed-size buckets of this "
+                         "many queries (0 = one fixpoint over all "
                          "sources)")
     ap.add_argument("--compact", default="auto",
                     choices=["auto", "on", "off"],
@@ -68,78 +84,152 @@ def main(argv=None):
                          "kernel always skips inactive blocks")
     ap.add_argument("--feature-dim", type=int, default=0,
                     help="feature width d of the vertex state: 0 adopts "
-                         "the program's native width")
+                         "the program's native width. jax engine only")
     ap.add_argument("--updates", default=None, metavar="FILE",
                     help="JSON file of streaming edge mutations: a list "
                          "of [u, v, w] entries (w = null deletes, "
                          "omitted w inserts with weight 1) or a list of "
                          "such batches, each re-solved incrementally "
-                         "after the base query")
+                         "after the base query. jax engine only")
     ap.add_argument("--autotune", action="store_true")
     ap.add_argument("--effort", type=int, default=1,
-                    help="mapping effort of the reference; unused until "
-                         "the mapping compiler is ported")
+                    help="FLIP mapping effort: 0 = beam search only, 1 = "
+                         "+ annealing, 2 = heavy")
     ap.add_argument("--trace", default=None, metavar="FILE",
                     help="write a Chrome-trace JSON (chrome://tracing / "
-                         "Perfetto) of the query's per-step frontier "
-                         "spans")
+                         "Perfetto) of the run: per-step frontier spans "
+                         "for the jax engine, simulated per-cycle "
+                         "parallelism for sim")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: the CUDA device; 'cpu' "
-                         "runs the plain PyTorch version)")
+                    help="torch device of the jax engine (default: the "
+                         "CUDA device; 'cpu' runs the plain PyTorch "
+                         "version)")
     args = ap.parse_args(argv)
-    compact = {"auto": "auto", "on": True, "off": False}[args.compact]
+    args.compact = {"auto": "auto", "on": True, "off": False}[args.compact]
+    if args.engine == "op":                # deprecated spelling
+        args.engine, args.mode = "jax", "op"
+    if args.engine == "dist":
+        raise SystemExit("--engine dist (the distributed fixpoint: ROADMAP "
+                         "Queue 1 item 10) is not ported yet")
     if args.autotune:
         raise SystemExit("--autotune (the autotuner: ROADMAP Queue 1 item "
                          "8) is not ported yet")
-    try:
-        plan = flip.plan_from_cli(args.engine, args.mode, compact=compact,
-                                  batch=args.batch,
-                                  feature_dim=args.feature_dim)
-    except ValueError as e:                # --engine sim / dist
-        raise SystemExit(str(e)) from None
-    if args.updates and args.srcs:
+    srcs = ([int(s) for s in args.srcs.split(",")]
+            if args.srcs else None)
+    if srcs is not None and args.engine == "sim":
+        raise SystemExit("--srcs needs --engine jax (the cycle simulator "
+                         "runs one query per sweep)")
+    if args.batch and args.engine != "jax":
+        raise SystemExit("--batch dispatches through the single-device "
+                         "serving front-end; use it with --engine jax")
+    if args.updates and (args.engine != "jax" or srcs is not None):
         raise SystemExit("--updates replays mutations through the "
-                         "incremental engine; use it with a single --src")
+                         "incremental engine; use it with --engine jax "
+                         "and a single --src")
     if args.trace and args.batch:
-        raise SystemExit("--trace traces one query/fixpoint; drop --batch")
+        raise SystemExit("--trace traces one query/fixpoint; drop --batch "
+                         "(use serve_graph --stats for serving telemetry)")
+    if args.engine == "sim" and (args.feature_dim > 1
+                                 or ALGEBRAS[args.algo].feature_dim > 1):
+        raise SystemExit("--engine sim runs scalar vertex state only; "
+                         "vector programs / --feature-dim > 1 need "
+                         "--engine jax")
 
     g = next(make_dataset(args.dataset, 1, seed0=args.graph_seed))
     print(f"[graph] {args.dataset}: |V|={g.n} |E|={g.m}")
-    t0 = time.time()
-    cq = flip.compile(g, args.algo, plan, device=args.device)
-    print(f"[graph] compiled on {cq.device} in {time.time() - t0:.2f}s "
-          f"({cq.engine.bg.bsrc.numel()} blocks of tile {plan.tile})")
     alg = ALGEBRAS[args.algo]
+    t0 = time.time()
+    mapping = compile_mapping(g, effort=args.effort, program=alg)
+    print(f"[graph] FLIP compile {time.time() - t0:.2f}s  "
+          f"avg routing length {mapping.avg_routing_length():.2f}")
 
-    if args.srcs:
-        srcs = [int(s) for s in args.srcs.split(",")]
-        t0 = time.time()
-        res = cq.query(np.asarray(srcs), trace=bool(args.trace))
-        how = (f"{res.dispatches} dispatches of B={args.batch}"
-               if args.batch else f"one batch of B={len(srcs)}")
-        print(f"[graph] jax/{plan.mode}: {len(srcs)} queries via {how}, "
-              f"per-query steps {list(map(int, res.steps))} "
-              f"({time.time() - t0:.2f}s wall)")
-        if args.trace:
-            _write_trace(args.trace, res, args.algo)
-        ok = True
-        for s, out in zip(srcs, res.attrs):
-            ref, _ = reference.run(args.algo, g, s)
-            ok &= bool(alg.results_match(out, ref))
+    if srcs is not None:
+        ok = _run_batched(args, g, mapping, srcs)
         print(f"[graph] correct vs reference: {ok}")
         return
 
-    t0 = time.time()
-    res = cq.query(args.src, trace=bool(args.trace))
-    print(f"[graph] jax/{plan.mode}: fixpoint in {res.steps} relaxation "
-          f"steps ({time.time() - t0:.2f}s wall)")
-    if args.trace:
-        _write_trace(args.trace, res, args.algo)
-    if args.updates:
-        cq, res = _replay_updates(args, cq, res)
-    ref, _ = reference.run(args.algo, cq.graph, args.src)
+    if args.engine == "sim":
+        if not alg.sim_ok:
+            raise SystemExit(
+                f"--engine sim cannot run {args.algo} (non-idempotent "
+                "merge); use --engine jax")
+        r = simulate(mapping, alg, src=args.src)
+        attrs = r.attrs
+        if args.trace:
+            tele = from_sim(r, freq_mhz=mapping.arch.freq_mhz)
+            write_chrome_trace(args.trace, tele, name=f"sim:{args.algo}")
+            print(f"[graph] trace: {len(tele.dispatches[0].trace)} "
+                  f"cycle spans -> {args.trace}")
+        mteps = g.m / (r.cycles / mapping.arch.freq_mhz)
+        print(f"[graph] sim: {r.cycles} cycles "
+              f"({r.cycles / mapping.arch.freq_mhz:.1f}us @100MHz), "
+              f"parallelism avg={r.avg_parallelism:.1f} "
+              f"max={r.max_parallelism}, {mteps:.0f} MTEPS, "
+              f"pkt wait {r.avg_pkt_wait:.2f}cyc, swaps={r.swaps}")
+        if args.algo in ("bfs", "sssp", "wcc"):   # calibrated baselines
+            mcu = baselines.mcu_cycles(args.algo, g, args.src)
+            cgra = baselines.cgra_cycles(args.algo, g, args.src)
+            t_f = r.cycles / mapping.arch.freq_mhz
+            print(f"[graph] speedup vs MCU {mcu.time_us / t_f:.1f}x, "
+                  f"vs op-centric CGRA {cgra.time_us / t_f:.1f}x")
+    else:
+        plan = _cli_plan(args)
+        t0 = time.time()
+        cq = flip.compile(g, args.algo, plan, mapping=mapping,
+                          device=args.device)
+        print(f"[graph] compiled on {cq.device} in {time.time() - t0:.2f}s "
+              f"({cq.engine.bg.bsrc.numel()} blocks of tile {plan.tile}, "
+              "mapping order)")
+        t0 = time.time()
+        res = cq.query(args.src, trace=bool(args.trace))
+        attrs = res.attrs
+        print(f"[graph] jax/{plan.mode}: fixpoint in {res.steps} "
+              f"relaxation steps ({time.time() - t0:.2f}s wall)")
+        if args.trace:
+            _write_trace(args.trace, res, args.algo)
+        if args.updates:
+            cq, res = _replay_updates(args, cq, res)
+            g, attrs = cq.graph, res.attrs
+
+    ref, _ = reference.run(args.algo, g, args.src)
     print(f"[graph] correct vs reference: "
-          f"{alg.results_match(res.attrs, ref)}")
+          f"{alg.results_match(attrs, ref)}")
+
+
+def _cli_plan(args, **kw):
+    """Fold the CLI knobs into one plan."""
+    return flip.plan_from_cli(args.engine, args.mode, compact=args.compact,
+                              feature_dim=args.feature_dim, **kw)
+
+
+def _run_batched(args, g, mapping, srcs) -> bool:
+    """--srcs path: one batched fixpoint, or bucket-server dispatch."""
+    t0 = time.time()
+    if args.batch:
+        from repro_torch.launch.serve_graph import GraphServer
+        plan = _cli_plan(args, batch=args.batch)
+        srv = GraphServer(g, plan=plan, mapping=mapping, device=args.device)
+        reqs = srv.serve((args.algo, s) for s in srcs)
+        outs = [r.result for r in reqs]
+        steps = [r.steps for r in reqs]
+        how = f"{srv.dispatches} serving dispatches of B={args.batch}"
+    else:
+        plan = _cli_plan(args)
+        res = flip.compile(g, args.algo, plan, mapping=mapping,
+                           device=args.device).query(
+            np.asarray(srcs), trace=bool(args.trace))
+        outs, steps = res.attrs, res.steps
+        how = f"one batch of B={len(srcs)}"
+        if args.trace:
+            _write_trace(args.trace, res, args.algo)
+    print(f"[graph] jax/{args.mode}: {len(srcs)} queries via {how}, "
+          f"per-query steps {list(map(int, steps))} "
+          f"({time.time() - t0:.2f}s wall)")
+    ok = True
+    for s, out in zip(srcs, outs):
+        ref, _ = reference.run(args.algo, g, s)
+        ok &= bool(ALGEBRAS[args.algo].results_match(out, ref))
+    return ok
 
 
 def _write_trace(path, res, algo):

@@ -23,8 +23,12 @@ extra outputs that the step never reads, so attrs and step counts are
 bit-identical with tracing on.
 
 `backend` names the relax route: 'cuda' (the kernel) or 'torch' (the
-plain version). The reference's `from_sim` bridge waits for the cycle
-simulator (ROADMAP Queue 1 item 9) and is not here.
+plain version), or 'sim' for the cycle simulator.
+
+The cycle simulator re-emits its per-cycle parallelism trace through
+the same schema (`from_sim`), so simulator and engine runs are
+comparable row for row: busy PEs play the role of active vertices and
+one simulated cycle plays the role of one step.
 """
 from __future__ import annotations
 
@@ -63,7 +67,7 @@ class StepTrace:
 class DispatchTelemetry:
     """One engine fixpoint's telemetry: where it ran, its static sizes,
     per-query step counts, and the per-step trace."""
-    backend: str            # 'cuda' | 'torch'
+    backend: str            # 'cuda' | 'torch' | 'sim'
     mode: str               # 'data' | 'op'
     compact: bool
     batch: int              # B of this dispatch (padded serving size)
@@ -74,7 +78,7 @@ class DispatchTelemetry:
     trace: StepTrace
     wall_s: float = 0.0
     truncated: bool = False   # fixpoint outran the trace row capacity
-    tile: int = 0           # T
+    tile: int = 0           # T (0 when unknown, e.g. the sim bridge)
     feature_dim: int = 1    # feature width d of the vertex state
     meta: dict = dataclasses.field(default_factory=dict)
 
@@ -189,3 +193,41 @@ class QueryTelemetry:
         return {"wall_s": self.wall_s, "compile_s": self.compile_s,
                 "summary": self.summary(),
                 "dispatches": [d.to_json() for d in self.dispatches]}
+
+
+# ------------------------------------------------------------------ #
+# cycle-sim bridge: one schema for both evaluation vehicles
+# ------------------------------------------------------------------ #
+def from_sim(sim_result, freq_mhz: float = 100.0,
+             mode: str = "data") -> QueryTelemetry:
+    """Re-emit a `SimResult`'s per-cycle parallelism trace through the
+    query-telemetry schema: one simulated cycle = one step, busy PEs =
+    active vertices (the sim relaxes one vertex per busy PE per cycle),
+    and wall time = simulated time at `freq_mhz` (a model of the FLIP
+    fabric, not a time measured on any device). Packet/swap counters
+    ride in `meta`."""
+    trace = np.asarray(sim_result.parallelism_trace, dtype=np.int32)
+    cycles = int(trace.shape[0])
+    zeros = np.zeros(cycles, dtype=np.int32)
+    steps = np.asarray([sim_result.cycles], dtype=np.int32)
+    st = StepTrace(
+        active_vertices=trace.reshape(cycles, 1),
+        active_tiles=trace.copy(),           # busy PEs ~ active tiles
+        blocks_fetched=zeros,
+        blocks_skipped=zeros,
+        converged=(trace == 0).reshape(cycles, 1),
+        step_wall_s=np.full(cycles, 1e-6 / freq_mhz),
+    )
+    wall = sim_result.cycles * 1e-6 / freq_mhz
+    disp = DispatchTelemetry(
+        backend="sim", mode=mode, compact=True, batch=1,
+        n=int(np.asarray(sim_result.attrs).shape[0]), ntiles=0,
+        n_blocks=0, steps=steps, trace=st, wall_s=wall,
+        meta={"cycles": sim_result.cycles,
+              "packets_delivered": sim_result.packets_delivered,
+              "edges_relaxed": sim_result.edges_relaxed,
+              "avg_parallelism": sim_result.avg_parallelism,
+              "max_parallelism": sim_result.max_parallelism,
+              "swaps": sim_result.swaps,
+              "freq_mhz": freq_mhz})
+    return QueryTelemetry(dispatches=[disp], wall_s=wall)

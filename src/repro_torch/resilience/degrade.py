@@ -1,22 +1,67 @@
-"""Dispatch failure classification and the per-dispatch NaN guard.
+"""Degradation ladder: validated fallback plans + failure classification.
 
-The part of `repro.resilience.degrade` the continuous-batching scheduler
-needs. `classify` maps an arbitrary dispatch exception onto the typed
+The port of `repro.resilience.degrade`. When a dispatch raises (a CUDA
+error, OOM, a failed kernel build) or returns NaN, the bucket server
+(`repro_torch.launch.serve_graph.GraphServer`) does not lose the bucket:
+it retries once per rung down a validated chain of simpler plans, built
+as the reference builds it over the port's knobs:
+
+    rung 0   the session's own plan
+    rung 1   relax_mode -> 'torch'   (the plain PyTorch version)
+    rung 2   compact    -> False     (dense block streaming)
+
+Each rung is resolved for the session's device, and a rung whose
+`resolve` raises `ValueError` is skipped: later knob changes then apply
+to the last rung that resolved. `ExecutionPlan.resolve` refuses
+'torch' on a CUDA device, so
+
+  * on the card the chain is [cuda + compact, cuda + dense]: both rungs
+    launch the frontier-relax kernel (it always skips inactive blocks,
+    so `compact` does not change what it computes) and rung 1 is an
+    exact retry of the same kernel. No rung reaches the plain version
+    on the card;
+  * on the CPU the chain is [torch + compact, torch + dense], the shape
+    of the reference's [jnp + compact, jnp + dense].
+
+Every rung is EXACT: a degraded response is bit-for-bit the primary
+one. `classify` maps an arbitrary dispatch exception onto the typed
 taxonomy (`repro_torch.resilience.errors`), and `finite_guard` is the
 cheap result check: a NaN anywhere in the attrs means poisoned weights
 or a broken kernel, never a legitimate algebra value (the semirings use
-±inf sentinels, not NaN).
-
-The reference's `fallback_chain` (its exact degradation ladder) is not
-ported here: on the card its rung 1 would be the plain version on CUDA
-tensors, which the port forbids. What the port's rungs are on the card
-is decided with the bucket server (ROADMAP Queue 1 item 5).
+±inf sentinels, not NaN). The kernel propagates NaN as the plain
+version does, so the guard trips on the card too.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
 from repro_torch.resilience.errors import BackendFailure, FlipError
+
+
+def fallback_chain(plan, algebra=None, device=None) -> list:
+    """The validated degradation ladder for `plan` on `device` (default:
+    the CUDA device): rung 0 is the plan itself, each later rung swaps
+    one knob for its simplest exact equivalent (relax_mode -> 'torch',
+    then compact -> False). Every rung is `resolve()`d for the device; a
+    rung that does not resolve is skipped and the next knob change
+    applies to the last rung that did. Rungs equal to an earlier rung
+    are dropped, so a plan already at the bottom gets a one-rung chain.
+    The ladder can never trade one failure for a plan-validation
+    error."""
+    out, seen, cur = [], set(), plan
+    for change in ({}, {"relax_mode": "torch"}, {"compact": False}):
+        cand = dataclasses.replace(cur, **change)
+        try:
+            rung = cand.resolve(algebra, device)
+        except ValueError:
+            continue                      # never ladder onto a bad plan
+        cur = cand
+        if rung.key() not in seen:
+            seen.add(rung.key())
+            out.append(rung)
+    return out
 
 
 def classify(exc: BaseException, rung: int = 0) -> FlipError:

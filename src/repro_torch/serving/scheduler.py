@@ -34,8 +34,10 @@ system, not a static schedule:
 / `drain` / `serve` / `stats`). On the card every window's steps are
 launches of the frontier-relax kernel. A window that raises fails its
 occupied lanes with typed errors (`classify`) and the stream keeps
-serving; the port has no degradation ladder yet, so nothing falls back
-to the plain version.
+serving. As in the reference, this scheduler retries nothing: the
+degradation ladder (`resilience.fallback_chain`) belongs to the bucket
+server (`repro_torch.launch.serve_graph.GraphServer`), and on the card
+its rungs all launch the kernel.
 """
 from __future__ import annotations
 

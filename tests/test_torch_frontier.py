@@ -298,3 +298,62 @@ def test_kernel_build_recipe():
     assert "frontier_relax_pallas" in src          # names what it replaces
     for name, code in kernel.SEMIRING_IDS.items():
         assert f"= {code}" in src.split("enum Op")[1].split("}")[0]
+
+
+# ------------------------------------------------------------------ #
+# NaN propagates as in the reference (torch/jnp minimum and maximum)
+# ------------------------------------------------------------------ #
+NAN_EDGES = [(0, 1), (1, 2), (2, 3), (0, 4), (4, 3), (3, 5)]
+NAN_WEIGHTS = [1, float("nan"), 1, 5, 1, 1]
+
+
+def assert_equal_nan(got, want):
+    """Equal NaN masks, and equal values everywhere else."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[~np.isnan(got)],
+                                  want[~np.isnan(want)])
+
+
+@pytest.mark.parametrize("algo", ["sssp", "widest"])
+def test_nan_weight_propagates_like_reference(algo):
+    """A NaN weight on 1 -> 2: one relax step of the plain version and a
+    whole query agree with the reference, NaN positions included. The
+    kernel's ⊕/⊗ are `min.NaN`/`max.NaN`, never fminf/fmaxf, so it
+    propagates NaN the same way on the card (held there by
+    chip_smoke.py)."""
+    import flip
+    import flip_torch
+    from repro.graphs import Graph as RefGraph
+    from repro_torch.graphs import Graph
+    with np.errstate(invalid="ignore"):
+        gr = RefGraph.from_edges(6, NAN_EDGES, NAN_WEIGHTS)
+        g = Graph.from_edges(6, NAN_EDGES, NAN_WEIGHTS)
+        ref = ref_build_blocks(gr, algo, tile=8)
+        bg = carried(ref, algo)
+        for srcs in (0, [0, 3]):
+            want = flip.compile(gr, algo).query(srcs)
+            got = flip_torch.compile(g, algo, device="cpu").query(srcs)
+            assert_equal_nan(got.attrs, want.attrs)
+            np.testing.assert_array_equal(got.steps, want.steps)
+            assert np.isnan(np.asarray(got.attrs)[..., 2]).all()
+        alg = ALGEBRAS[algo]
+        attrs = bg.to_tiled(alg.initial_attrs(6, 0))
+        front = bg.to_tiled(alg.initial_frontier(6, 0).astype(np.float32),
+                            fill=0.0) > 0
+        sv, carry = alg.scatter_carry(attrs, front, False)
+        for compact in (False, True):
+            one = frontier_relax_torch(sv, carry, bg.blocks, bg.bsrc,
+                                       bg.bdst, bg.semiring,
+                                       compact=compact)
+            want = _relax_jnp(jnp.asarray(sv.numpy()),
+                              jnp.asarray(carry.numpy()), ref.blocks,
+                              ref.bsrc, ref.bdst, semiring=ref.semiring)
+            assert_equal_nan(one.numpy(), want)
+            assert bool(torch.isnan(one).any())
+    src = kernel.SOURCE.read_text()
+    ops = src.split("template <> struct Semiring<kMinPlus>")[1] \
+        .split("template <> struct Semiring<kPlusTimes>")[0]
+    assert "min_nan" in ops and "max_nan" in ops
+    assert "fminf" not in ops and "fmaxf" not in ops
+    assert "min.NaN.f32" in src and "max.NaN.f32" in src

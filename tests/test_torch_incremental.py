@@ -290,7 +290,8 @@ def test_graph_run_updates(tmp_path, capsys):
     path.write_text(json.dumps([[[0, 5, 0.5], [1, 40, 2.0]],
                                 [[0, 5, None]]]))
     graph_run.main(["--algo", "sssp", "--dataset", "SRN", "--src", "3",
-                    "--updates", str(path), "--device", "cpu"])
+                    "--updates", str(path), "--device", "cpu",
+                    "--effort", "0"])
     out = capsys.readouterr().out
     assert "update[0]" in out and "warm recompute" in out
     assert "update[1]" in out and "full recompute" in out

@@ -196,7 +196,7 @@ def test_graph_run_trace(tmp_path, capsys):
     from repro_torch.launch import graph_run
     path = tmp_path / "t.json"
     graph_run.main(["--algo", "bfs", "--dataset", "SRN", "--src", "2",
-                    "--trace", str(path), "--device", "cpu"])
+                    "--trace", str(path), "--device", "cpu", "--effort", "0"])
     out = capsys.readouterr().out
     assert "[graph] trace:" in out
     assert "[graph] correct vs reference: True" in out

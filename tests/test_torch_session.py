@@ -9,6 +9,7 @@ with steps not compared ((+, ×) is not bit-stable even inside the
 reference). Also: budgets and deadlines, source validation, the device
 rule, and that the port imports neither jax nor `repro`.
 """
+import json
 import os
 import subprocess
 import sys
@@ -207,7 +208,10 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro', 'flip'))\n"
         "assert not bad, bad\n"
-        "assert 'repro_torch.launch.graph_run' in sys.modules\n"
+        "for name in ('launch.graph_run', 'launch.serve_graph', 'core.arch',"
+        " 'core.vertex_program', 'core.mapping', 'core.tables', 'core.sim',"
+        " 'core.baselines', 'distributed.health', 'resilience.faults'):\n"
+        "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     out = subprocess.run([sys.executable, "-c", code], env=env,
@@ -228,17 +232,34 @@ def test_port_imports_neither_jax_nor_repro():
 ])
 def test_graph_run_self_check(argv, capsys):
     from repro_torch.launch import graph_run
-    graph_run.main(argv + ["--engine", "jax", "--device", "cpu"])
+    graph_run.main(argv + ["--engine", "jax", "--device", "cpu",
+                           "--effort", "0"])
     out = capsys.readouterr().out
     assert "[graph] correct vs reference: True" in out
 
 
-@pytest.mark.parametrize("flags", [["--engine", "sim"], ["--engine", "dist"],
-                                   ["--autotune"],
-                                   ["--engine", "sim", "--trace", "x.json"],
+@pytest.mark.parametrize("flags", [["--engine", "dist"], ["--autotune"],
                                    ["--engine", "dist", "--updates",
                                     "u.json"]])
 def test_graph_run_rejects_unported(flags):
     from repro_torch.launch import graph_run
     with pytest.raises(SystemExit, match="not ported yet"):
         graph_run.main(["--dataset", "SRN", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("trace", [False, True], ids=["sim", "sim-trace"])
+def test_graph_run_sim(tmp_path, capsys, trace):
+    """`--engine sim` (the cycle simulator over a FLIP mapping) runs on
+    SRN and self-checks; with --trace it writes the simulated cycles
+    through `from_sim` as a Chrome trace."""
+    from repro_torch.launch import graph_run
+    path = tmp_path / "sim.json"
+    graph_run.main(["--algo", "sssp", "--dataset", "SRN", "--engine", "sim",
+                    "--effort", "0"]
+                   + (["--trace", str(path)] if trace else []))
+    out = capsys.readouterr().out
+    assert "[graph] sim:" in out
+    assert "[graph] correct vs reference: True" in out
+    if trace:
+        assert "cycle spans" in out
+        assert json.loads(path.read_text())["traceEvents"]
