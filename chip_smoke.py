@@ -18,6 +18,9 @@ Phases (every failure raises and exits nonzero):
   3. kernel  -- hold the kernel against its plain PyTorch version,
                 `frontier_relax_torch`, on the card: 4 semirings x dense /
                 frontier-masked / empty states x B in {1, 8} x d in {1, 8},
+                min_plus, max_min and or_and at the tuner's tiles 64 and
+                256 (dense and masked, B in {1, 8}, d in {1, 8}; T=256
+                with d=8 needs 64 KiB of shared memory, past the default),
                 a destination tile with no block, a ragged vertex count,
                 and full-size states of the main path's graph; NaN in a
                 weight block, a source lane and a carry lane for min_plus,
@@ -118,11 +121,27 @@ Phases (every failure raises and exits nonzero):
                 included) and a copy of the network with one NaN weight
                 go through servers where every rung trips the finite
                 guard and every request carries a typed BackendFailure.
+ 14. autotune -- the plan autotuner on phase 4's network, with a tuning
+                store in a fresh temporary directory: `autotune(g, "sssp",
+                budget_s=None)` measures all three candidates (tile 64 /
+                128 / 256 on the cuda route) by timing capped segments
+                through the kernel; its chosen plan answers phase 4's
+                sssp x8 bit for bit, steps included, and passes `check()`.
+                `compile(g, "bfs", ExecutionPlan.auto(tuned=True,
+                batch=8))` tunes under the default budget (logs which
+                candidates the gate measured), answers 8 sources as the
+                untuned session does, traced too, with `meta["autotune"]`
+                on every dispatch record; a second compile is a store hit
+                with no kernel launch. Then `graph_run --autotune` on SRN
+                prints `correct vs reference: True`. Logs each candidate's
+                us/step, best segment wall, blocks and the gate's estimate.
 
-In phases 4, 5 and 9-13 every fixpoint step is one launch of the
+In phases 4, 5 and 9-14 every fixpoint step is one launch of the
 frontier-relax kernel: each path resets the launch count before it runs
 and requires launches = iterations after it (for the bucket servers, the
-iterations of every dispatch, retries included).
+iterations of every dispatch, retries included; for a tuning sweep, one
+warm-up and three timed segments per measured engine, which prices
+every bucket width on it).
 
 The last lines are one JSON object describing each kernel and then
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; without one it
@@ -134,11 +153,13 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -148,6 +169,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import flip_torch  # noqa: E402
 from repro_torch import configs  # noqa: E402
 from repro_torch.algebra import ALGEBRAS  # noqa: E402
+from repro_torch.autotune import (TuningStore, autotune,  # noqa: E402
+                                  profile_graph)
+from repro_torch.autotune import measure as at_measure  # noqa: E402
+from repro_torch.autotune.tuner import DEFAULT_BUDGET_S  # noqa: E402
 from repro_torch.core import (baselines, compile_mapping,  # noqa: E402
                               mapping_order, simulate)
 from repro_torch.distributed.health import HeartbeatMonitor  # noqa: E402
@@ -427,7 +452,31 @@ def phase_kernel_small(rng) -> float:
                                         empty.dst_start, empty.semiring)
         require(torch.equal(out[:, 1:], carry[:, 1:]),
                 "a destination with no block lost its carry")
+    errs.append(tile_cases(g))
     errs.append(nan_cases(g))
+    return max(errs)
+
+
+def tile_cases(g) -> float:
+    """The autotuner's other tiles (phase 14 runs the kernel at 64 and
+    256 too): min_plus, max_min and or_and at T in {64, 256}, dense and
+    frontier-masked, B in {1, 8}, d in {1, 8}. At T=256 and d=8 a block
+    stages 8 queries x 256 lanes x 8 features, 64 KiB, which is past the
+    48 KiB default and takes the opt-in to more shared memory. Draws
+    from a generator of its own, so the later phases' seeded draws are
+    those of earlier PRs."""
+    rng = np.random.default_rng(2)
+    errs = []
+    for tile in (64, 256):
+        for algo in ("sssp", "widest", "reach"):
+            bg = build_blocks(g, algo, tile=tile, device="cuda")
+            for density in ("all", "sparse"):
+                for b in (1, 8):
+                    for d in (1, 8):
+                        sv, carry = state(bg, b, d, density, rng)
+                        errs.append(compare(
+                            f"{bg.semiring.name} n=3000 T={tile} {density} "
+                            f"B={b} d={d}", bg, sv, carry, d))
     return max(errs)
 
 
@@ -519,9 +568,10 @@ def check(r, label: str) -> None:
     log(f"{label}: check() passed ({time.perf_counter() - t0:.1f} s)")
 
 
-def run_query(cq, srcs, label: str) -> int:
+def run_query(cq, srcs, label: str):
     """One query on the card; checks it against the oracle and that the
-    kernel ran once per fixpoint iteration. Returns the launches."""
+    kernel ran once per fixpoint iteration. Returns ``(launches,
+    result)``."""
     r, wall, launches = counted_query(cq, srcs, label)
     steps = np.atleast_1d(r.steps)
     iters = int(steps.max())
@@ -531,7 +581,7 @@ def run_query(cq, srcs, label: str) -> int:
         f"queries/s, {wall / max(iters, 1) * 1e3:.4f} ms/step, "
         f"launches {launches}")
     check(r, label)
-    return launches
+    return launches, r
 
 
 def profile_query(cq, srcs, label: str) -> None:
@@ -1072,6 +1122,174 @@ def nan_servers(g, pool) -> int:
 
 
 # ------------------------------------------------------------------ #
+# the plan autotuner (14)
+# ------------------------------------------------------------------ #
+def id_order_blocks(g, tile: int) -> int:
+    """Weight blocks of `g` at `tile` in id order, as `build_blocks`
+    counts them: the distinct (destination, source) tile pairs of the
+    edges plus the diagonal."""
+    nt = max(1, -(-g.n // tile))
+    key = (g.indices.astype(np.int64) // tile) * nt \
+        + g.edge_sources() // tile
+    return int(np.union1d(key, np.arange(nt, dtype=np.int64) * (nt + 1))
+               .size)
+
+
+def segment_iters(cq, graph) -> tuple[int, int]:
+    """(iterations, summed query steps) of one capped tuning segment on
+    `graph`: the tuner's probe sources (seed 0) for `SEGMENT_STEPS` steps
+    through `cq`. The fixpoint's steps do not depend on the plan, so
+    every candidate's segments run these. Launches outside any count."""
+    probe = at_measure.probe_sources(graph, 0, at_measure.PROBE_SOURCES)
+    r = cq.query(probe, max_steps=at_measure.SEGMENT_STEPS)
+    return int(np.max(r.steps)), int(np.sum(r.steps))
+
+
+def bucket_iters(steps, b: int) -> int:
+    """Fixpoint iterations of a query dispatched in buckets of `b` (0 =
+    one dispatch): the sum of each bucket's longest query."""
+    steps = np.atleast_1d(steps)
+    b = b or steps.size
+    return int(sum(steps[i:i + b].max() for i in range(0, steps.size, b)))
+
+
+def tuned_launches(label: str, samples, seg: tuple[int, int]) -> int:
+    """The kernel's launches since the count was set to 0, held equal to
+    the sweep's: one warm-up and `REPEATS` timed segments per measured
+    engine (bucket widths on one engine share its segments), `seg[0]`
+    iterations each."""
+    engines = len({at_measure.engine_key(s.plan) for s in samples
+                   if s.source == "measured"})
+    want = engines * (1 + at_measure.REPEATS) * seg[0]
+    n = relax.frontier_relax_cuda.launches
+    require(n == want, f"{label}: {n} kernel launches for {want} segment "
+            f"iterations ({engines} engines x {1 + at_measure.REPEATS} "
+            f"segments x {seg[0]})")
+    return n
+
+
+def phase_autotune(g, srcs, sssp, bfs, sssp_r) -> int:
+    """Phase 14 (module docstring). Returns the kernel's launches."""
+    prof = profile_graph(g, feature_dim=1)
+    launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        store = TuningStore(str(Path(tmp) / "autotune_torch.json"))
+        # a fully measured sweep: sssp over tiles 64 / 128 / 256
+        seg = segment_iters(sssp, g)
+        relax.frontier_relax_cuda.launches = 0
+        t0 = time.perf_counter()
+        rep = autotune(g, "sssp", flip_torch.ExecutionPlan(), store=store,
+                       budget_s=None, seed=0)
+        tune_s = time.perf_counter() - t0
+        launches += tuned_launches("tune sssp", rep.samples, seg)
+        require(sorted(s.plan.tile for s in rep.samples) == [64, 128, 256]
+                and all(s.source == "measured" and s.plan.relax_mode == "cuda"
+                        and s.steps == seg[1] for s in rep.samples),
+                f"tune sssp: not three measured cuda candidates of "
+                f"{seg[1]} steps: {[s.to_json() for s in rep.samples]}")
+        log(f"tune sssp (road-262k, budget none): {tune_s:.3f} s, "
+            f"{len(rep.samples)} candidates, each {1 + at_measure.REPEATS} "
+            f"segments of {seg[0]} iterations ({seg[1]} query steps); "
+            f"launches = segment iterations ({relax.frontier_relax_cuda.launches})")
+        for s in rep.samples:
+            t = s.plan.tile
+            log(f"  tile {t:3d} compact {s.plan.compact}: {s.step_us:.3f} "
+                f"us/step, best segment {s.wall_s * 1e3:.3f} ms, "
+                f"{id_order_blocks(g, t)} blocks (analytic model "
+                f"{at_measure.expected_blocks(g.n, g.m, t):.0f}; gate "
+                f"estimate {at_measure.estimated_measure_s(prof, s.plan):.3f}"
+                f" s) [{s.source}]")
+        log(f"tune sssp: {rep.why}")
+
+        # the chosen plan answers as the default: phase 4's sssp x8
+        cq = flip_torch.compile(g, "sssp", rep.chosen)
+        r, wall, n = counted_query(cq, srcs, f"tuned sssp x{len(srcs)}")
+        launches += n
+        require(np.array_equal(r.attrs, sssp_r.attrs)
+                and np.array_equal(r.steps, sssp_r.steps),
+                "tuned sssp: the chosen plan's result differs from phase 4's")
+        log(f"tuned sssp x{len(srcs)} (tile {cq.plan.tile}): bit-equal to "
+            f"phase 4, steps included; wall {wall:.3f} s, launches {n}")
+        check(r, "tuned sssp")
+        del cq
+
+        # the session surface: bfs, tuned=True, batch=8, default budget
+        plan = flip_torch.ExecutionPlan.auto(tuned=True, batch=8)
+        seg = segment_iters(bfs, g)
+        want = bfs.query(srcs)               # comparison, outside the count
+        relax.frontier_relax_cuda.launches = 0
+        t0 = time.perf_counter()
+        cq = flip_torch.compile(g, "bfs", plan, store=store)
+        compile_s = time.perf_counter() - t0
+        tune = cq.tune
+        require(not tune.cached, "tune bfs: a store hit in a fresh store")
+        launches += tuned_launches("tune bfs", tune.samples, seg)
+        log(f"tune bfs (tuned=True, batch=8, budget "
+            f"{DEFAULT_BUDGET_S} s): compile {compile_s:.3f} s; "
+            + ", ".join(f"T={s.plan.tile}/B={s.plan.batch} {s.source} "
+                        f"{s.step_us:.3f} us (gate "
+                        f"{at_measure.estimated_measure_s(prof, s.plan):.3f} s)"
+                        for s in tune.samples))
+        log(f"tune bfs: {tune.why}")
+        for trace in (False, True):
+            relax.frontier_relax_cuda.launches = 0
+            r = cq.query(srcs, trace=trace)
+            torch.cuda.synchronize()
+            n = relax.frontier_relax_cuda.launches
+            iters = bucket_iters(r.steps, cq.plan.batch)
+            require(n == iters, f"tuned bfs (trace={trace}): {n} launches "
+                    f"for {iters} iterations")
+            launches += n
+            require(np.array_equal(r.attrs, want.attrs)
+                    and np.array_equal(r.steps, want.steps),
+                    f"tuned bfs (trace={trace}): differs from the untuned "
+                    "session")
+            if trace:
+                metas = [d.meta.get("autotune")
+                         for d in r.telemetry.dispatches]
+                require(all(m is not None and m["chosen"]["tile"]
+                            == cq.plan.tile and m["why"] == tune.why
+                            for m in metas),
+                        "tuned bfs: a traced dispatch lacks its autotune "
+                        "stamp")
+        log(f"tuned bfs x{len(srcs)} (tile {cq.plan.tile}, batch "
+            f"{cq.plan.batch}): bit-equal to the untuned session, steps "
+            f"included, traced too; {len(metas)} dispatch records carry "
+            "meta['autotune']")
+        check(r, "tuned bfs")
+        del cq
+        relax.frontier_relax_cuda.launches = 0
+        t0 = time.perf_counter()
+        cq = flip_torch.compile(g, "bfs", plan, store=store)
+        hit_s = time.perf_counter() - t0
+        require(cq.tune.cached and relax.frontier_relax_cuda.launches == 0,
+                f"tune bfs again: cached {cq.tune.cached}, "
+                f"{relax.frontier_relax_cuda.launches} launches")
+        log(f"tune bfs again: store hit in {hit_s:.3f} s (layout build "
+            "included), no kernel launch")
+        del cq
+
+        # the CLI, its store in the same temporary directory
+        srn = next(make_dataset("SRN", 1, seed0=0))
+        seg = segment_iters(flip_torch.compile(srn, "sssp"), srn)
+        relax.frontier_relax_cuda.launches = 0
+        with mock.patch.dict(os.environ, FLIP_TORCH_AUTOTUNE_DB=str(
+                Path(tmp) / "cli.json")):
+            out = graph_run_main(["--dataset", "SRN", "--algo", "sssp",
+                                  "--autotune", "--effort", "0"])
+        require("[graph] correct vs reference: True" in out
+                and "[graph] autotune: measured sweep over 3 candidates"
+                in out, "graph_run --autotune: no tuned, correct run")
+        steps = int(out.split("fixpoint in ", 1)[1].split()[0])
+        n = relax.frontier_relax_cuda.launches
+        want_n = 3 * (1 + at_measure.REPEATS) * seg[0] + steps
+        require(n == want_n, f"graph_run --autotune: {n} launches for "
+                f"{want_n} iterations (sweep and query)")
+        launches += n
+    return launches
+
+
+# ------------------------------------------------------------------ #
 # the LM kernels: flash attention (K2) and the SSD intra-chunk form (K3)
 # ------------------------------------------------------------------ #
 ATTN_ATOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -1488,18 +1706,18 @@ def main() -> None:
     # the main path: counts start at 0 here
     srcs = np.sort(rng.choice(g.n, size=8, replace=False))
     bfs = flip_torch.compile(g, "bfs")
-    launches = run_query(sssp, srcs, "sssp x8")
-    launches += run_query(bfs, 0, "bfs")
+    launches, sssp_r = run_query(sssp, srcs, "sssp x8")
+    launches += run_query(bfs, 0, "bfs")[0]
     launches += run_query(
         flip_torch.compile(g, "bfs", flip_torch.ExecutionPlan(mode="op")),
-        0, "bfs/op")
+        0, "bfs/op")[0]
     profile_query(sssp, srcs, "sssp x8")
     profile_query(bfs, 0, "bfs")
 
     g2 = make_road_network(PROGRAM_N, seed=0, delete_frac=0.56)
     for algo in ("pagerank", "wcc", "widest", "reach", "multi_bfs",
                  "labelprop"):
-        launches += run_query(flip_torch.compile(g2, algo), 0, algo)
+        launches += run_query(flip_torch.compile(g2, algo), 0, algo)[0]
     del g2
 
     # the LM kernels, then the LM paths (each resets its kernel's count)
@@ -1517,10 +1735,14 @@ def main() -> None:
                       ("11 serving", lambda: phase_serving(g, rng)),
                       ("12 mapping", lambda: phase_mapping(rng)),
                       ("13 bucket server",
-                       lambda: phase_bucket_server(g, rng))):
+                       lambda: phase_bucket_server(g, rng)),
+                      ("14 autotune",
+                       lambda: phase_autotune(g, srcs, sssp, bfs, sssp_r))):
         t0 = time.perf_counter()
-        launches += fn()
-        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+        n = fn()
+        launches += n
+        log(f"phase {phase}: {time.perf_counter() - t0:.1f} s, {n} kernel "
+            "launches")
 
     print(json.dumps({"kernels": [
         kernel_row("frontier_relax",

@@ -25,11 +25,14 @@ Layers ported so far:
                             degradation ladder, fault injection
   repro_torch.distributed -- HeartbeatMonitor
   repro_torch.serving    -- AsyncGraphServer: continuous batching
+  repro_torch.autotune   -- the plan autotuner: profile, candidate space,
+                            measured pricing through the kernel, cost
+                            model, tuning store (ExecutionPlan(tuned=True))
   repro_torch.models     -- the LM stack for inference (no MoE yet)
   repro_torch.configs    -- qwen3-0.6b and mamba2-370m
-  repro_torch.launch     -- graph_run (--engine jax | sim), serve_graph
-                            (the bucket GraphServer), serve,
-                            prefill/decode steps
+  repro_torch.launch     -- graph_run (--engine jax | sim, --autotune),
+                            serve_graph (the bucket GraphServer), autotune
+                            (the sweep CLI), serve, prefill/decode steps
 """
 
 __version__ = "0.1.0"

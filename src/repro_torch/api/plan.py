@@ -6,8 +6,7 @@ meanings; `relax_mode` names the port's routes ('auto' | 'cuda' |
 'torch'). `resolve(algebra, device)` validates every combination up
 front and collapses every ``"auto"``, so a resolved plan is a complete
 record of how a query ran. The reference's mesh knobs (the distributed
-fixpoint, ROADMAP Queue 1 item 10) are absent; `tuned` is rejected with
-the ROADMAP item that brings the autotuner.
+fixpoint, ROADMAP Queue 1 item 10) are absent.
 """
 from __future__ import annotations
 
@@ -49,8 +48,14 @@ class ExecutionPlan:
     max_steps   -- fixpoint safety valve.
     deadline_s  -- default per-request wall-clock budget in seconds
                    (None = unbounded), enforced at step boundaries.
-    tuned       -- the plan autotuner; not ported yet (ROADMAP Queue 1
-                   item 8), rejected.
+    tuned       -- ask the plan autotuner (`repro_torch.autotune`) to
+                   pick the performance knobs (tile / relax_mode /
+                   compact / batch) for this (graph, program, device) at
+                   compile time, consulting the tuning store first. Pure
+                   policy: a tuned plan answers as the default does.
+                   `resolve()` alone leaves the flag in place -- it has
+                   no graph to tune against; `compile` is where it
+                   collapses.
     """
 
     mode: str = "data"
@@ -76,9 +81,9 @@ class ExecutionPlan:
         return cls(**overrides)
 
     def validate(self, algebra: VertexAlgebra | None = None) -> None:
-        """Reject inconsistent or unported knob combinations with one
-        clear error. With `algebra`, also the algebra-dependent ones
-        (warm='always' needs a monotone algebra)."""
+        """Reject inconsistent knob combinations with one clear error.
+        With `algebra`, also the algebra-dependent ones (warm='always'
+        needs a monotone algebra)."""
         if self.mode not in MODES:
             raise ValueError(
                 f"plan.mode must be one of {MODES}, got {self.mode!r}")
@@ -129,10 +134,6 @@ class ExecutionPlan:
         if not isinstance(self.tuned, bool):
             raise ValueError(
                 f"plan.tuned must be a bool, got {self.tuned!r}")
-        if self.tuned:
-            raise ValueError(
-                "plan.tuned is not ported yet (ROADMAP Queue 1 item 8, "
-                "the autotuner); set the knobs by hand")
         if algebra is not None and self.warm == "always" \
                 and algebra.kind != "monotone":
             raise ValueError(

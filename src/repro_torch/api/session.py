@@ -112,6 +112,9 @@ class CompiledQuery:
     program: Program
     plan: ExecutionPlan
     engine: FlipEngine
+    tune: object = None                # TuneReport when compiled with a
+                                       # tuned=True plan (why the knobs
+                                       # are what they are)
     delta: UpdateDelta | None = None   # set by update(): the last batch
     prev_fp: str | None = None         # fingerprint of the pre-update
                                        # graph the delta resumes from
@@ -196,9 +199,24 @@ class CompiledQuery:
                     np.atleast_1d(np.asarray(srcs, dtype=np.int64)),
                     ws, trace, budgets, deadline_abs)
         wall_s = time.perf_counter() - t0
-        telemetry = (QueryTelemetry(dispatches=teles, wall_s=wall_s,
-                                    compile_s=compile_s)
-                     if trace else None)
+        telemetry = None
+        if trace:
+            if self.tune is not None:
+                # tuned sessions stamp their provenance on every
+                # dispatch record: which knobs the tuner chose and why
+                stamp = {
+                    "chosen": {"tile": self.plan.tile,
+                               "relax_mode": self.plan.relax_mode,
+                               "compact": self.plan.compact,
+                               "batch": self.plan.batch},
+                    "why": self.tune.why,
+                    "cached": self.tune.cached,
+                    "fingerprint": self.tune.profile.fingerprint(),
+                }
+                for t in teles:
+                    t.meta["autotune"] = stamp
+            telemetry = QueryTelemetry(dispatches=teles, wall_s=wall_s,
+                                       compile_s=compile_s)
         return QueryResult(attrs=out, steps=steps,
                            srcs=(np.asarray(srcs) if batched
                                  else int(srcs)),
@@ -402,14 +420,20 @@ class CompiledQuery:
 # ------------------------------------------------------------------ #
 def compile(graph: Graph, program, plan: ExecutionPlan | None = None, *,
             mapping=None, device=None,
-            order: np.ndarray | None = None) -> CompiledQuery:
+            order: np.ndarray | None = None, store=None) -> CompiledQuery:
     """Compile a (graph, program, plan) triple into a query session.
 
     graph   -- a `repro_torch.graphs.Graph`.
     program -- a registered algorithm name ('bfs', 'sssp', ...), a
                `VertexAlgebra`, or a `Program`.
     plan    -- an `ExecutionPlan` (default `ExecutionPlan()`), validated
-               and resolved here for the device.
+               and resolved here for the device. With ``plan.tuned`` set
+               (e.g. `ExecutionPlan.auto(tuned=True)`), the plan
+               autotuner picks the performance knobs for this (graph,
+               program, device) -- consulting the tuning store first, so
+               repeat compiles of the same shape are instant -- and the
+               session's `tune` holds the `TuneReport`. Tuning is policy
+               only: the answers are the default plan's.
     mapping -- optional FLIP `Mapping` (`repro_torch.core.
                compile_mapping`): the placement-induced vertex ordering
                becomes block sparsity, exactly as in `FlipEngine.build`.
@@ -418,11 +442,22 @@ def compile(graph: Graph, program, plan: ExecutionPlan | None = None, *,
     order   -- optional precomputed vertex order (order[k] = original id
                at tiled position k); a `mapping` takes its place, and
                passing both raises.
+    store   -- optional `repro_torch.autotune.TuningStore` for tuned
+               plans (default: the `FLIP_TORCH_AUTOTUNE_DB` / user-cache
+               store). The tuner prices candidates in id order; a
+               `mapping` or `order` applies to the session it returns.
     """
     prog = Program.of(program)
     plan = plan if plan is not None else ExecutionPlan()
     dev = resolve_device(device, "flip_torch.compile")
-    rplan = plan.resolve(prog.algebra, dev)
+    tune = None
+    if plan.tuned:
+        plan.validate(prog.algebra)
+        from repro_torch.autotune import resolve_tuned
+        rplan, tune = resolve_tuned(graph, prog, plan, store=store,
+                                    device=dev)
+    else:
+        rplan = plan.resolve(prog.algebra, dev)
     engine = FlipEngine.build(graph, prog.algebra, mapping=mapping,
                               order=order,
                               tile=rplan.tile, mode=rplan.mode,
@@ -431,4 +466,4 @@ def compile(graph: Graph, program, plan: ExecutionPlan | None = None, *,
                               feature_dim=rplan.feature_dim, device=dev)
     engine = dataclasses.replace(engine, max_steps=rplan.max_steps)
     return CompiledQuery(graph=graph, program=prog, plan=rplan,
-                         engine=engine)
+                         engine=engine, tune=tune)

@@ -25,18 +25,23 @@ reference does, through one of two execution layers:
   --trace FILE     write a Chrome-trace JSON: per-step frontier spans
                    for jax, the simulated per-cycle parallelism (through
                    `obs.from_sim`) for sim
+  --autotune       let the plan autotuner pick tile / route / compaction
+                   / bucket for this graph on this device (jax engine
+                   only), consulting the tuning store
+                   ($FLIP_TORCH_AUTOTUNE_DB); prints the tuner's choice
 
 The default engine is ``jax`` on the CUDA device, where the reference's
 is ``sim``: the port's entry points run on the card unless asked
 otherwise (``--device cpu``). Not ported yet, and rejected with the
-ROADMAP item that brings them: ``--engine dist`` (Queue 1 item 10) and
-``--autotune`` (item 8).
+ROADMAP item that brings it: ``--engine dist`` (Queue 1 item 10).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.graph_run --algo sssp \\
       --dataset LRN --engine jax --src 5
   PYTHONPATH=src python -m repro_torch.launch.graph_run --algo sssp \\
       --dataset SRN --engine sim --src 5
+  PYTHONPATH=src python -m repro_torch.launch.graph_run --algo sssp \\
+      --dataset SRN --engine jax --autotune --device cpu
   PYTHONPATH=src python -m repro_torch.launch.graph_run --algo bfs \\
       --dataset LRN --engine jax --srcs 0,5,9,12 --mode op --device cpu
   echo '[[0, 5, 0.5], [1, 40, 2.0]]' > upd.json
@@ -46,6 +51,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -91,7 +97,12 @@ def main(argv=None):
                          "omitted w inserts with weight 1) or a list of "
                          "such batches, each re-solved incrementally "
                          "after the base query. jax engine only")
-    ap.add_argument("--autotune", action="store_true")
+    ap.add_argument("--autotune", action="store_true",
+                    help="let the plan autotuner pick the performance "
+                         "knobs (tile / route / compaction / bucket) for "
+                         "this graph on this device, consulting the "
+                         "tuning store (FLIP_TORCH_AUTOTUNE_DB). jax "
+                         "engine only; answers as the untuned plan does")
     ap.add_argument("--effort", type=int, default=1,
                     help="FLIP mapping effort: 0 = beam search only, 1 = "
                          "+ annealing, 2 = heavy")
@@ -111,9 +122,6 @@ def main(argv=None):
     if args.engine == "dist":
         raise SystemExit("--engine dist (the distributed fixpoint: ROADMAP "
                          "Queue 1 item 10) is not ported yet")
-    if args.autotune:
-        raise SystemExit("--autotune (the autotuner: ROADMAP Queue 1 item "
-                         "8) is not ported yet")
     srcs = ([int(s) for s in args.srcs.split(",")]
             if args.srcs else None)
     if srcs is not None and args.engine == "sim":
@@ -129,6 +137,10 @@ def main(argv=None):
     if args.trace and args.batch:
         raise SystemExit("--trace traces one query/fixpoint; drop --batch "
                          "(use serve_graph --stats for serving telemetry)")
+    if args.autotune and args.engine != "jax":
+        raise SystemExit("--autotune tunes the single-device jax plan "
+                         "(sim has no ExecutionPlan; the distributed "
+                         "fixpoint is not tunable) -- use --engine jax")
     if args.engine == "sim" and (args.feature_dim > 1
                                  or ALGEBRAS[args.algo].feature_dim > 1):
         raise SystemExit("--engine sim runs scalar vertex state only; "
@@ -180,6 +192,10 @@ def main(argv=None):
         print(f"[graph] compiled on {cq.device} in {time.time() - t0:.2f}s "
               f"({cq.engine.bg.bsrc.numel()} blocks of tile {plan.tile}, "
               "mapping order)")
+        if cq.tune is not None:
+            print(f"[graph] autotune"
+                  f"{' (store hit)' if cq.tune.cached else ''}: "
+                  f"{cq.tune.why}")
         t0 = time.time()
         res = cq.query(args.src, trace=bool(args.trace))
         attrs = res.attrs
@@ -197,9 +213,13 @@ def main(argv=None):
 
 
 def _cli_plan(args, **kw):
-    """Fold the CLI knobs into one plan."""
-    return flip.plan_from_cli(args.engine, args.mode, compact=args.compact,
+    """Fold the CLI knobs into one plan; --autotune sets the tuned flag
+    so `compile` routes through the plan autotuner."""
+    plan = flip.plan_from_cli(args.engine, args.mode, compact=args.compact,
                               feature_dim=args.feature_dim, **kw)
+    if args.autotune:
+        plan = dataclasses.replace(plan, tuned=True)
+    return plan
 
 
 def _run_batched(args, g, mapping, srcs) -> bool:

@@ -133,7 +133,7 @@ def test_plan_validation():
     plan = flip_torch.ExecutionPlan
     for bad in (plan(mode="fast"), plan(relax_mode="pallas"),
                 plan(compact=True, mode="op"), plan(tile=0),
-                plan(batch=-1), plan(tuned=True), plan(max_steps=0),
+                plan(batch=-1), plan(tuned="yes"), plan(max_steps=0),
                 plan(feature_dim=3), plan(deadline_s=-1.0),
                 plan(relax_mode="cuda")):
         with pytest.raises(ValueError):
@@ -210,7 +210,10 @@ def test_port_imports_neither_jax_nor_repro():
         "assert not bad, bad\n"
         "for name in ('launch.graph_run', 'launch.serve_graph', 'core.arch',"
         " 'core.vertex_program', 'core.mapping', 'core.tables', 'core.sim',"
-        " 'core.baselines', 'distributed.health', 'resilience.faults'):\n"
+        " 'core.baselines', 'distributed.health', 'resilience.faults',"
+        " 'autotune.profile', 'autotune.space', 'autotune.measure',"
+        " 'autotune.model', 'autotune.store', 'autotune.tuner',"
+        " 'launch.autotune'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
@@ -238,7 +241,7 @@ def test_graph_run_self_check(argv, capsys):
     assert "[graph] correct vs reference: True" in out
 
 
-@pytest.mark.parametrize("flags", [["--engine", "dist"], ["--autotune"],
+@pytest.mark.parametrize("flags", [["--engine", "dist"],
                                    ["--engine", "dist", "--updates",
                                     "u.json"]])
 def test_graph_run_rejects_unported(flags):
