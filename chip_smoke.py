@@ -42,9 +42,10 @@ Phases (every failure raises and exits nonzero):
   6. attention kernel -- flash attention against `attention_ref` on the
                 card: causal x window {None, 128} x GQA ratio {1, 2, 8} x
                 {f32, bf16} x hd {64, 128, 256}, ragged lengths (S=200 and
-                S=5, shorter than one tile), and
-                qwen3-0.6b's layer at B=1, S=4096 (f32 atol 2e-5, bf16 atol
-                2e-2 against the f32 reference, and at that layer also a
+                S=5, shorter than one tile), and the layers of
+                qwen3-0.6b (GQA 2, hd 128) and granite-moe-3b-a800m (H 24,
+                KH 8: GQA 3, hd 64) at B=1, S=4096 (f32 atol 2e-5, bf16 atol
+                2e-2 against the f32 reference, and at those layers also a
                 relative Frobenius error of 1e-2); each case logs its route
                 ("wgmma": bf16 at hd 64-256 on the tensor cores; "fma": the
                 CUDA cores) and must have taken `flash.route`'s. Timed at
@@ -136,14 +137,41 @@ Phases (every failure raises and exits nonzero):
                 prints `correct vs reference: True`. Logs each candidate's
                 us/step, best segment wall, blocks and the gate's estimate.
 
-In phases 4, 5 and 9-14 every fixpoint step is one launch of the
+ 15. distributed -- the distributed fixpoint at road-262k through
+                `ExecutionPlan(distributed=True)`. (a) One rank over NCCL
+                (world 1, a FileStore in a temporary directory): sssp x8,
+                bfs and bfs/op bit-equal to phase 4's results, steps
+                included, K1 launches = iterations, ms/step beside phase
+                4's; K1 on a rank's slab (the replicated state of every
+                tile, the carry of the rank's tiles) against its plain
+                version at world 2 (both ranks, B=8) and world 3 (the
+                last rank's slab ends in a padding tile). (b) Two ranks on
+                the one card over gloo (NCCL refuses two ranks on one
+                device), spawned: the same three queries on each rank,
+                bit-equal to phase 4's, K1 launches = iterations on each
+                rank;
+ 16. granite -- granite-moe-3b-a800m at full width in bf16, random
+                weights from seed 0, through phase 8's path: the B=4 x
+                4,096 prefill (64 K2 launches, all wgmma; (token, choice)
+                pairs dropped at capacity logged; device time of K2, the
+                dispatch scatter, the expert products and the combine
+                gather), the float32 prefill of an 8-token prompt against
+                an 8-step decode replay (at T <= 8 the capacity, 8, drops
+                nothing; at 256 tokens prefill drops pairs and decode does
+                not, so the replay would be no identity), `launch.serve`
+                with 16 requests; then `moe.apply(dispatch="all_to_all")`
+                over phase 15's NCCL group against the one-group path at
+                the prefill's layer shape (bf16, 1e-2 x max|y|).
+
+In phases 4, 5, 9-15 every fixpoint step is one launch of the
 frontier-relax kernel: each path resets the launch count before it runs
 and requires launches = iterations after it (for the bucket servers, the
 iterations of every dispatch, retries included; for a tuning sweep, one
 warm-up and three timed segments per measured engine, which prices
-every bucket width on it).
+every bucket width on it; for phase 15b, on each rank).
 
-The last lines are one JSON object describing each kernel and then
+The last lines are one JSON object describing each kernel -- K2 once per
+route, every row with its launches by phase -- and then
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; without one it
 exits 2 and prints no result. Imports nothing of JAX or of `repro`.
 """
@@ -163,6 +191,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -190,7 +219,9 @@ from repro_torch.kernels.ssd.ref import (chunk_inputs,  # noqa: E402
                                          ssd_intra_ref, ssd_ref)
 from repro_torch.launch import graph_run, serve, steps  # noqa: E402
 from repro_torch.launch.serve_graph import GraphServer  # noqa: E402
+from repro_torch.models import attention, moe  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
+from repro_torch.models.layers import DeclModule, init_module  # noqa: E402
 from repro_torch.obs import write_chrome_trace  # noqa: E402
 from repro_torch.resilience import (BackendFailure,  # noqa: E402
                                     FaultInjector, FaultSpec,
@@ -1299,6 +1330,13 @@ LM_BATCH, LM_SEQ = 4, 4_096   # the prefill cell (prefill_32k cut to fit)
 KERNELS = (relax.frontier_relax_cuda, flash.flash_attention_cuda,
            ssd.ssd_intra_cuda)
 REPLAY_LEN = 256              # float32 prefill-vs-decode prompt
+# an MoE's replay prompt: at T <= 8 tokens the capacity (8) holds every
+# (token, choice) pair, so prefill drops none, as decode (one token a
+# step) never does; at 256 tokens C = 64 against a mean load of 51.2 per
+# expert, prefill drops pairs and the replay is no identity
+MOE_REPLAY_LEN = 8
+GRANITE = "granite_moe_3b_a800m"
+MOE_EP_TOL = 1e-2             # bf16, relative to max|y|
 
 
 def randn(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
@@ -1384,13 +1422,19 @@ def phase_attention(gen) -> tuple[float, dict]:
     # at S=4096 a row's output is ~0.03, under the bf16 atol: the f32
     # case at atol 2e-5 holds the long causal range on the CUDA cores, and
     # the relative error holds it on the tensor cores
-    for dtype in (torch.float32, torch.bfloat16):
-        q = randn(gen, (1, LM_SEQ, shape[0], shape[2]), dtype)
-        k = randn(gen, (1, LM_SEQ, shape[1], shape[2]), dtype)
-        v = randn(gen, (1, LM_SEQ, shape[1], shape[2]), dtype)
-        errs.append(attention_check(
-            f"qwen3 layer {str(dtype)[6:]} B=1 S={LM_SEQ}", q, k, v, True,
-            None, rel_tol=ATTN_REL_TOL if dtype == torch.bfloat16 else None))
+    gcfg = configs.get(GRANITE)
+    for name, (h, kh, hd) in (
+            ("qwen3", shape),
+            # GQA ratio 3 at hd 64: granite-moe-3b-a800m's layer
+            ("granite", (gcfg.num_heads, gcfg.num_kv_heads, gcfg.head_dim))):
+        for dtype in (torch.float32, torch.bfloat16):
+            q = randn(gen, (1, LM_SEQ, h, hd), dtype)
+            k = randn(gen, (1, LM_SEQ, kh, hd), dtype)
+            v = randn(gen, (1, LM_SEQ, kh, hd), dtype)
+            errs.append(attention_check(
+                f"{name} layer {str(dtype)[6:]} B=1 S={LM_SEQ} H={h} "
+                f"KH={kh} hd={hd}", q, k, v, True, None,
+                rel_tol=ATTN_REL_TOL if dtype == torch.bfloat16 else None))
 
     # timing at the main path's shape: the qwen3 prefill's layer
     b, s = LM_BATCH, LM_SEQ
@@ -1415,7 +1459,7 @@ def phase_attention(gen) -> tuple[float, dict]:
         f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
         f"{w['bound_ms']:.4f} ms ({w['bound_by']}; {w['ops']:.4g} ops, "
         f"{w['bytes']} B)")
-    return max(errs), dict(w, ms=ms, plain_ms=plain_ms,
+    return max(errs), dict(w, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
                            library_ms=library_ms)
 
 
@@ -1579,11 +1623,51 @@ def profile_decode(params, cfg, label: str) -> None:
     profile_call(lambda: decode(params, cache, tokens, pos), label)
 
 
-def lm_path(arch: str, kernel, rng) -> int:
+def profile_shares(fn, label: str, spans: dict) -> None:
+    """Device time of named parts of one call: each (module, function)
+    in `spans` runs inside a `torch.profiler.record_function` range for
+    this profiled call only, and its range's device time is logged as a
+    share of the call's device busy time."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def spanned(name, f):
+        def g(*a, **kw):
+            with record_function(name):
+                return f(*a, **kw)
+        return g
+
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr) in spans.items():
+            stack.enter_context(mock.patch.object(
+                mod, attr, spanned(name, getattr(mod, attr))))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    events = prof.key_averages()
+    # the ranges' own device-side annotations repeat their kernels' time
+    busy = sum(e.self_device_time_total for e in events
+               if str(e.device_type).endswith("CUDA")
+               and e.key not in spans) / 1e3
+    parts = {e.key: e.device_time_total / 1e3 for e in events
+             if e.key in spans}
+    if not busy:
+        log(f"profile {label}: device time not measured (no device events)")
+        return
+    log(f"profile {label}: device busy {busy:.1f} ms; " + ", ".join(
+        f"{name} {parts.get(name, 0.0):.1f} ms "
+        f"({parts.get(name, 0.0) / busy:.1%})" for name in spans))
+
+
+def lm_path(arch: str, kernel, rng) -> tuple[int, dict]:
     """One architecture's serving path at full width (see the module
-    docstring, phase 8). `kernel` is the wrapper the path must launch.
-    Returns its launches in the bf16 prefills."""
+    docstring, phases 8 and 16). `kernel` is the wrapper the path must
+    launch. Returns its launches in the two bf16 prefills and, for flash
+    attention, the launches by route: the bf16 prefills' (wgmma) and the
+    float32 prefill's (fma); the profiled calls are not counted."""
     cfg = configs.get(arch)
+    is_moe = bool(cfg.num_experts)
     t0 = time.perf_counter()
     params = M.init_params(cfg, seed=0)
     torch.cuda.synchronize()
@@ -1603,11 +1687,21 @@ def lm_path(arch: str, kernel, rng) -> int:
     routes = flash.flash_attention_cuda.route_launches
     for name in routes:
         routes[name] = 0
+    drops = []                 # MoE: dropped (token, choice) pairs per layer
+    dispatch = moe.dispatch_buffer
+
+    def counting(xt, ids, cap, e):
+        out = dispatch(xt, ids, cap, e)
+        drops.append((~out[2]).sum())
+        return out
+
     walls = []
-    for _ in range(2):
+    for i in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        logits = prefill(params, batch)
+        with (mock.patch.object(moe, "dispatch_buffer", counting)
+              if is_moe and i == 0 else contextlib.nullcontext()):
+            logits = prefill(params, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     launches = kernel.launches
@@ -1615,6 +1709,7 @@ def lm_path(arch: str, kernel, rng) -> int:
             f"{arch}: {launches} kernel launches for 2 prefills of "
             f"{cfg.num_layers} layers -- the path did not go through the "
             "kernel")
+    path_routes = dict(routes)
     if kernel is flash.flash_attention_cuda:
         require(routes == {"wgmma": launches, "fma": 0},
                 f"{arch}: bf16 prefill routes {routes}; every launch must "
@@ -1629,24 +1724,46 @@ def lm_path(arch: str, kernel, rng) -> int:
     log(f"{arch} prefill B={LM_BATCH} S={LM_SEQ}: wall {walls[0]:.3f} / "
         f"{walls[1]:.3f} s, {ntok / walls[1]:.1f} tokens/s (second call), "
         f"launches {launches}{by_route}")
+    if is_moe:
+        require(len(drops) == cfg.num_layers,
+                f"{arch}: {len(drops)} MoE dispatches in one prefill of "
+                f"{cfg.num_layers} layers")
+        per_layer = [int(d) for d in drops]
+        pairs = ntok * cfg.top_k
+        cap = moe._capacity(ntok, cfg.num_experts, cfg.top_k,
+                            cfg.capacity_factor)
+        total = pairs * cfg.num_layers
+        log(f"{arch} prefill MoE: capacity {cap} per expert, "
+            f"{sum(per_layer)} of {total} (token, choice) pairs dropped "
+            f"({sum(per_layer) / total:.4%}); per layer min "
+            f"{min(per_layer)} max {max(per_layer)}")
+        profile_shares(lambda: prefill(params, batch), f"{arch} prefill",
+                       {"attention (K2)": (attention, "attend"),
+                        "moe dispatch scatter": (moe, "dispatch_buffer"),
+                        "moe expert products": (moe, "expert_ffn"),
+                        "moe combine gather": (moe, "combine")})
     profile_call(lambda: prefill(params, batch), f"{arch} prefill")
     profile_decode(params, cfg, f"{arch} decode step B=8")
     del params, logits
 
     # float32: prefill through the kernels == token-by-token decode replay
+    replay = MOE_REPLAY_LEN if is_moe else REPLAY_LEN
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 activation_dtype="float32")
     params = M.init_params(cfg32, seed=1)
     prompt = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (1, REPLAY_LEN))).cuda()
+        0, cfg.vocab_size, (1, replay))).cuda()
     before = kernel.launches
+    fma_before = routes.get("fma", 0)
     full = steps.make_prefill_step(cfg32)(params, {"tokens": prompt})
     require(kernel.launches == before + cfg.num_layers,
             f"{arch}: the f32 prefill did not go through the kernel")
+    if kernel is flash.flash_attention_cuda:
+        path_routes["fma"] = routes["fma"] - fma_before
     decode = steps.make_decode_step(cfg32)
-    cache = M.init_cache(cfg32, 1, REPLAY_LEN)
+    cache = M.init_cache(cfg32, 1, replay)
     t0 = time.perf_counter()
-    for t in range(REPLAY_LEN):
+    for t in range(replay):
         logits, cache = decode(params, cache, prompt[:, t:t + 1],
                                torch.full((1,), t, device="cuda"))
     torch.cuda.synchronize()
@@ -1654,7 +1771,9 @@ def lm_path(arch: str, kernel, rng) -> int:
             f"{arch}: decode launched the prefill kernel")
     diff = (logits - full).abs()
     tol = 2e-3 + 2e-2 * full.abs()
-    log(f"{arch} f32 prefill vs {REPLAY_LEN}-step decode replay "
+    note = (f" (an MoE at T={replay} <= capacity 8: no pair dropped)"
+            if is_moe else "")
+    log(f"{arch} f32 prefill vs {replay}-step decode replay{note} "
         f"({time.perf_counter() - t0:.1f} s): max|diff| "
         f"{float(diff.max()):.3e}, max|logit| {float(full.abs().max()):.3e}, "
         f"worst diff/tol {float((diff / tol).max()):.3f}")
@@ -1673,15 +1792,189 @@ def lm_path(arch: str, kernel, rng) -> int:
         f"{out['steps']} steps, {out['seconds']:.3f} s, "
         f"{out['tokens'] / out['seconds']:.1f} decode tokens/s")
     torch.cuda.empty_cache()
-    return launches
+    return launches, path_routes
 
 
-def kernel_row(name, source, replaces, launches, err, t) -> dict:
-    return {"name": name, "route": "cuda", "source": source,
+# ------------------------------------------------------------------ #
+# the distributed fixpoint (15) and granite-moe-3b-a800m (16)
+# ------------------------------------------------------------------ #
+DIST_WORLD = 2                # ranks of the one-card gloo run (15b)
+DIST_CASES = (("sssp x8", "sssp", "data"), ("bfs", "bfs", "data"),
+              ("bfs/op", "bfs", "op"))
+
+
+def slab_checks(eng, bg, rng) -> float:
+    """K1 on a rank's slab -- the replicated state of every tile, the
+    carry of the rank's own tiles -- against its plain version, bit for
+    bit: both ranks at world 2, and the last rank at world 3, whose slab
+    ends in a padding tile."""
+    errs = []
+    for world, rank, b in ((2, 0, 8), (2, 1, 8), (3, 2, 1)):
+        slab = eng._rank_slab(rank, world)
+        sv, carry = state(bg, b, 1, "sparse", rng)
+        pad = slab.ntiles * world - bg.ntiles
+        if pad:
+            sv = torch.nn.functional.pad(sv, (0, 0, 0, pad),
+                                         value=float(bg.semiring.zero))
+            carry = torch.nn.functional.pad(carry, (0, 0, 0, pad),
+                                            value=float(bg.semiring.zero))
+        t0 = rank * slab.ntiles
+        carry_l = carry[:, t0:t0 + slab.ntiles].contiguous()
+        errs.append(compare(
+            f"slab rank {rank}/{world} ({slab.bsrc.numel()} blocks, tiles "
+            f"{t0}..{t0 + slab.ntiles - 1}) B={b}", slab, sv, carry_l, 1))
+    return max(errs)
+
+
+def dist_rank(rank: int, world: int, store: str, g, srcs, q) -> None:
+    """One rank of the one-card gloo run (a spawned process): the phase's
+    three queries through `ExecutionPlan(distributed=True)` on the card,
+    each with K1's count set to 0 just before it."""
+    try:
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        out = {}
+        for label, algo, mode in DIST_CASES:
+            cq = flip_torch.compile(g, algo, flip_torch.ExecutionPlan(
+                distributed=True, mode=mode))
+            relax.frontier_relax_cuda.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = cq.query(srcs if label == "sssp x8" else 0)
+            torch.cuda.synchronize()
+            out[label] = (r.attrs, np.atleast_1d(r.steps),
+                          relax.frontier_relax_cuda.launches,
+                          time.perf_counter() - t0,
+                          int(cq.engine._rank_slab(rank, world)
+                              .bsrc.numel()))
+        dist.destroy_process_group()
+        q.put((rank, out))
+    except BaseException as e:  # noqa: BLE001 -- reported to the parent
+        q.put((rank, repr(e)))
+        raise
+
+
+def phase_distributed(g, srcs, bg, phase4: dict, rng) -> tuple[int, dict]:
+    """Phase 15: (a) one rank through NCCL at world 1, (b) two ranks on
+    the one card over gloo. Every result bit-equal to phase 4's, steps
+    included, with K1 launches = iterations on every rank. Returns the
+    main process's launches and the launches by rank of (b)."""
+    require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+            "phase 15 runs over the NCCL group of world 1")
+    launches = 0
+    for label, algo, mode in DIST_CASES:
+        cq = flip_torch.compile(g, algo, flip_torch.ExecutionPlan(
+            distributed=True, mode=mode))
+        require(cq.plan.distributed and cq.engine.bg.device.type == "cpu"
+                and cq.device.type == "cuda",
+                f"dist {label}: layout on {cq.engine.bg.device}, state on "
+                f"{cq.device}")
+        s = srcs if label == "sssp x8" else 0
+        t0 = time.perf_counter()
+        cq.query(s)                     # copies the slab to the card
+        first = time.perf_counter() - t0
+        r, wall, n = counted_query(cq, s, f"dist {label}")
+        want = phase4[label]
+        require(np.array_equal(r.attrs, want.attrs)
+                and np.array_equal(np.atleast_1d(r.steps),
+                                   np.atleast_1d(want.steps)),
+                f"dist {label}: differs from phase 4's result")
+        iters = int(np.max(r.steps))
+        log(f"dist {label} (NCCL, world 1): bit-equal to phase 4, steps "
+            f"included; {iters} iterations, launches {n}; "
+            f"{wall / iters * 1e3:.4f} ms/step (phase 4: "
+            f"{want.wall_s / iters * 1e3:.4f}); first query with the slab "
+            f"copy {first:.3f} s")
+        launches += n
+        if label == "bfs":
+            profile_query(cq, s, "dist bfs (NCCL, world 1)")
+    err = slab_checks(cq.engine, bg, rng)
+    # the collective alone: one all-gather of bfs's (1, 2048, 128) state
+    x = torch.zeros((1, bg.ntiles, bg.tile), device="cuda")
+    buf = torch.empty_like(x)
+    for _ in range(10):
+        dist.all_gather_into_tensor(buf, x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        dist.all_gather_into_tensor(buf, x)
+        torch.cuda.synchronize()
+    log(f"NCCL all-gather of {x.numel() * 4} B at world 1: "
+        f"{(time.perf_counter() - t0) / 200 * 1e6:.1f} us per call with a "
+        "synchronize (host clock, 200 calls)")
+
+    # (b) two ranks on the one card, gloo (NCCL refuses two ranks on one
+    # device); the state crosses the host in gloo's own copies
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=dist_rank,
+                             args=(r, DIST_WORLD, os.path.join(tmp, "gloo"),
+                                   g, srcs, q))
+                 for r in range(DIST_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            got = dict(q.get(timeout=600) for _ in procs)
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+    by_rank = {}
+    for rank in range(DIST_WORLD):
+        res = got.get(rank)
+        require(isinstance(res, dict), f"gloo rank {rank} failed: {res}")
+        by_rank[rank] = 0
+        for label, _, _ in DIST_CASES:
+            attrs, steps, n, wall, nb = res[label]
+            want = phase4[label]
+            iters = int(steps.max())
+            require(np.array_equal(attrs, want.attrs)
+                    and np.array_equal(steps, np.atleast_1d(want.steps)),
+                    f"gloo rank {rank} {label}: differs from phase 4")
+            require(n == iters,
+                    f"gloo rank {rank} {label}: {n} K1 launches for "
+                    f"{iters} iterations")
+            log(f"dist {label} (gloo, rank {rank} of {DIST_WORLD}, one "
+                f"card): bit-equal to phase 4; {nb} blocks on this rank, "
+                f"launches {n} = iterations, {wall / iters * 1e3:.4f} "
+                f"ms/step (first query, slab copy included)")
+            by_rank[rank] += n
+    log(f"phase 15b: {time.perf_counter() - t0:.1f} s with the ranks' "
+        "start-up")
+    return launches, {"err": err, "by_rank": by_rank}
+
+
+def ep_check(cfg, group, gen) -> None:
+    """`moe.apply(dispatch="all_to_all")` over the phase-15 NCCL group
+    (world 1) against the one-group path, at the prefill's layer shape in
+    bf16."""
+    layer = DeclModule(moe.decls(cfg), torch.bfloat16, torch.device("cuda"))
+    init_module(layer, gen)
+    x = randn(gen, (LM_BATCH, LM_SEQ, cfg.d_model), torch.bfloat16)
+    y1, a1 = moe.apply(layer, x, cfg)
+    y2, a2 = moe.apply(layer, x, cfg, dispatch="all_to_all", group=group)
+    torch.cuda.synchronize()
+    err = float((y1.float() - y2.float()).abs().max())
+    scale = float(y1.float().abs().max())
+    ok = (err <= MOE_EP_TOL * scale and abs(float(a1) - float(a2)) <= 1e-5
+          and bool(torch.isfinite(y2).all()))
+    log(f"moe all_to_all (NCCL, world 1) vs one group at ({LM_BATCH}, "
+        f"{LM_SEQ}, {cfg.d_model}) bf16: max|diff| {err:.3e} (tol "
+        f"{MOE_EP_TOL:g} x max|y| = {MOE_EP_TOL * scale:.3e}), aux "
+        f"{float(a1):.6f} / {float(a2):.6f}: {ok}")
+    require(ok, "moe all_to_all disagrees with the one-group path")
+
+
+def kernel_row(name, source, replaces, launches, err, t, by_phase,
+               route="cuda") -> dict:
+    return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches, "max_abs_err": err,
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"]}
+            "library_ms": t["library_ms"], "launches_by_phase": by_phase}
 
 
 def main() -> None:
@@ -1706,19 +1999,24 @@ def main() -> None:
     # the main path: counts start at 0 here
     srcs = np.sort(rng.choice(g.n, size=8, replace=False))
     bfs = flip_torch.compile(g, "bfs")
-    launches, sssp_r = run_query(sssp, srcs, "sssp x8")
-    launches += run_query(bfs, 0, "bfs")[0]
-    launches += run_query(
+    phase4 = {}
+    n4, phase4["sssp x8"] = run_query(sssp, srcs, "sssp x8")
+    n, phase4["bfs"] = run_query(bfs, 0, "bfs")
+    n4 += n
+    n, phase4["bfs/op"] = run_query(
         flip_torch.compile(g, "bfs", flip_torch.ExecutionPlan(mode="op")),
-        0, "bfs/op")[0]
+        0, "bfs/op")
+    n4 += n
+    sssp_r = phase4["sssp x8"]
     profile_query(sssp, srcs, "sssp x8")
     profile_query(bfs, 0, "bfs")
 
     g2 = make_road_network(PROGRAM_N, seed=0, delete_frac=0.56)
     for algo in ("pagerank", "wcc", "widest", "reach", "multi_bfs",
                  "labelprop"):
-        launches += run_query(flip_torch.compile(g2, algo), 0, algo)[0]
+        n4 += run_query(flip_torch.compile(g2, algo), 0, algo)[0]
     del g2
+    k1_phases = {"4-5": n4}
 
     # the LM kernels, then the LM paths (each resets its kernel's count)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1726,8 +2024,9 @@ def main() -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     err_attn, t_attn = phase_attention(gen)
     err_ssd, t_ssd = phase_ssd(gen)
-    attn_launches = lm_path("qwen3_0_6b", flash.flash_attention_cuda, rng)
-    ssd_launches = lm_path("mamba2_370m", ssd.ssd_intra_cuda, rng)
+    attn_launches, qwen3_routes = lm_path(
+        "qwen3_0_6b", flash.flash_attention_cuda, rng)
+    ssd_launches, _ = lm_path("mamba2_370m", ssd.ssd_intra_cuda, rng)
 
     # the graph-serving surface on phase 4's network and sessions
     for phase, fn in (("9 updates", lambda: phase_updates(sssp, srcs, rng)),
@@ -1740,25 +2039,65 @@ def main() -> None:
                        lambda: phase_autotune(g, srcs, sssp, bfs, sssp_r))):
         t0 = time.perf_counter()
         n = fn()
-        launches += n
+        k1_phases[phase.split()[0]] = n
         log(f"phase {phase}: {time.perf_counter() - t0:.1f} s, {n} kernel "
             "launches")
 
+    # one process group for the distributed phases: NCCL at world 1
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            t0 = time.perf_counter()
+            n, d15 = phase_distributed(g, srcs, bg, phase4, rng)
+            k1_phases["15a"] = n
+            for rank, nr in d15["by_rank"].items():
+                k1_phases[f"15b rank {rank}"] = nr
+            log(f"phase 15 distributed: {time.perf_counter() - t0:.1f} s, "
+                f"{n} kernel launches in this process, "
+                f"{d15['by_rank']} by gloo rank")
+            del sssp, bfs, bg
+            torch.cuda.empty_cache()
+
+            t0 = time.perf_counter()
+            granite_launches, granite_routes = lm_path(
+                GRANITE, flash.flash_attention_cuda, rng)
+            ep_check(configs.get(GRANITE), dist.group.WORLD, gen)
+            log(f"phase 16 granite: {time.perf_counter() - t0:.1f} s, "
+                f"{granite_launches} K2 launches in the bf16 prefills")
+        finally:
+            dist.destroy_process_group()
+
+    k1_main = sum(v for k, v in k1_phases.items() if "rank" not in k)
+    wgmma_by_phase = {"8 qwen3": qwen3_routes["wgmma"],
+                      "16 granite": granite_routes["wgmma"]}
+    fma_by_phase = {"8 qwen3 f32 replay": qwen3_routes["fma"],
+                    "16 granite f32 replay": granite_routes["fma"]}
     print(json.dumps({"kernels": [
         kernel_row("frontier_relax",
                    "src/repro_torch/kernels/frontier/csrc/frontier_relax.cu",
-                   "src/repro/kernels/frontier/frontier.py:137", launches,
-                   max(err_small, err_full),
-                   dict(timing["all"], library_ms=None)),
+                   "src/repro/kernels/frontier/frontier.py:137", k1_main,
+                   max(err_small, err_full, d15["err"]),
+                   dict(timing["all"], library_ms=None), k1_phases),
         dict(kernel_row(
             "flash_attention",
             "src/repro_torch/kernels/attention/csrc/flash_attention_wgmma.cu",
-            "src/repro/kernels/attention/flash.py:84", attn_launches,
-            err_attn, t_attn), kernel_route="wgmma"),
+            "src/repro/kernels/attention/flash.py:84",
+            sum(wgmma_by_phase.values()), err_attn, t_attn, wgmma_by_phase),
+            kernel_route="wgmma"),
+        dict(kernel_row(
+            "flash_attention",
+            "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
+            "src/repro/kernels/attention/flash.py:84",
+            sum(fma_by_phase.values()), err_attn,
+            dict(t_attn, ms=t_attn["fma_ms"]), fma_by_phase),
+            kernel_route="fma"),
         dict(kernel_row("ssd_intra",
                         "src/repro_torch/kernels/ssd/csrc/ssd_intra.cu",
                         "src/repro/kernels/ssd/ssd.py:50", ssd_launches,
-                        err_ssd, t_ssd),
+                        err_ssd, t_ssd, {"8 mamba2": ssd_launches}),
              bound_rate=t_ssd["bound_rate"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)

@@ -12,10 +12,12 @@ Layers ported so far:
   repro_torch.kernels    -- hand-written CUDA kernels, each beside its
                             plain PyTorch version: frontier relax, flash
                             attention, the SSD intra-chunk form
-  repro_torch.core       -- FlipEngine: the host-driven fixpoint, warm
-                            starts, tracing, the segment surface; the
-                            FLIP mapping compiler, routing tables, the
-                            cycle simulator and the baseline models
+  repro_torch.core       -- FlipEngine: the host-driven fixpoint, the
+                            distributed fixpoint over a torch.distributed
+                            process group, warm starts, tracing, the
+                            segment surface; the FLIP mapping compiler,
+                            routing tables, the cycle simulator, the
+                            baseline models and MoE expert placement
   repro_torch.api        -- compile(graph, program, plan, mapping=)
                             .query(srcs), update(batch) (alias:
                             `import flip_torch`)
@@ -23,14 +25,16 @@ Layers ported so far:
                             the simulator bridge `from_sim`
   repro_torch.resilience -- typed errors, classify, finite_guard, the
                             degradation ladder, fault injection
-  repro_torch.distributed -- HeartbeatMonitor
+  repro_torch.distributed -- HeartbeatMonitor, expert-parallel MoE
+                            dispatch (all_to_all)
   repro_torch.serving    -- AsyncGraphServer: continuous batching
   repro_torch.autotune   -- the plan autotuner: profile, candidate space,
                             measured pricing through the kernel, cost
                             model, tuning store (ExecutionPlan(tuned=True))
-  repro_torch.models     -- the LM stack for inference (no MoE yet)
-  repro_torch.configs    -- qwen3-0.6b and mamba2-370m
-  repro_torch.launch     -- graph_run (--engine jax | sim, --autotune),
+  repro_torch.models     -- the LM stack for inference, MoE included
+  repro_torch.configs    -- qwen3-0.6b, mamba2-370m, granite-moe-3b-a800m
+  repro_torch.launch     -- graph_run (--engine jax | dist | sim,
+                            --autotune),
                             serve_graph (the bucket GraphServer), autotune
                             (the sweep CLI), serve, prefill/decode steps
 """

@@ -5,8 +5,9 @@ The port of `repro.api.plan`. The fields keep the reference's names and
 meanings; `relax_mode` names the port's routes ('auto' | 'cuda' |
 'torch'). `resolve(algebra, device)` validates every combination up
 front and collapses every ``"auto"``, so a resolved plan is a complete
-record of how a query ran. The reference's mesh knobs (the distributed
-fixpoint, ROADMAP Queue 1 item 10) are absent.
+record of how a query ran. The reference's `mesh` (a jax Mesh) is a
+`torch.distributed` process group here; a group is one axis, so the
+reference's `mesh_axis` has no counterpart.
 """
 from __future__ import annotations
 
@@ -38,6 +39,13 @@ class ExecutionPlan:
     batch       -- serving bucket size: 0 runs any source sequence as
                    one fixpoint; B > 0 dispatches fixed-size, padded
                    buckets of B.
+    distributed -- run the distributed fixpoint: destination tiles split
+                   over the ranks of `mesh`, queries replicated, one
+                   all-gather per step.
+    mesh        -- the `torch.distributed` process group of a
+                   distributed run (None = the default group when one is
+                   initialised, else one rank with no collective);
+                   supplying a group implies distributed=True.
     warm        -- incremental-recompute policy for `query(..., warm=)`:
                    'auto' resumes from the prior result whenever sound
                    (monotone algebra + monotone update delta) and
@@ -47,7 +55,8 @@ class ExecutionPlan:
                    vector programs only run at their native width.
     max_steps   -- fixpoint safety valve.
     deadline_s  -- default per-request wall-clock budget in seconds
-                   (None = unbounded), enforced at step boundaries.
+                   (None = unbounded), enforced at step boundaries. Not
+                   supported on distributed plans.
     tuned       -- ask the plan autotuner (`repro_torch.autotune`) to
                    pick the performance knobs (tile / relax_mode /
                    compact / batch) for this (graph, program, device) at
@@ -63,6 +72,8 @@ class ExecutionPlan:
     compact: bool | str = "auto"
     tile: int = 128
     batch: int = 0
+    distributed: bool = False
+    mesh: object = None          # torch.distributed ProcessGroup | None
     warm: str = "auto"
     feature_dim: int = 0
     max_steps: int = 100_000
@@ -70,10 +81,14 @@ class ExecutionPlan:
     tuned: bool = False
 
     def key(self) -> tuple:
-        """Hashable cache key (session caches key on fingerprint+plan)."""
+        """Hashable cache key (session caches key on fingerprint+plan).
+        The process group participates by identity: two plans over
+        different groups never share a session."""
         return (self.mode, self.relax_mode, self.compact, self.tile,
-                self.batch, self.warm, self.feature_dim, self.max_steps,
-                self.deadline_s, self.tuned)
+                self.batch, self.distributed,
+                None if self.mesh is None else id(self.mesh), self.warm,
+                self.feature_dim, self.max_steps, self.deadline_s,
+                self.tuned)
 
     @classmethod
     def auto(cls, **overrides) -> "ExecutionPlan":
@@ -131,9 +146,21 @@ class ExecutionPlan:
             raise ValueError(
                 f"plan.deadline_s must be None or a positive number of "
                 f"seconds, got {self.deadline_s!r}")
+        if self.deadline_s is not None and (
+                self.distributed or self.mesh is not None):
+            raise ValueError(
+                "plan.deadline_s is not supported on distributed plans: "
+                "the distributed fixpoint enforces no deadline at its "
+                "step boundaries -- use max_steps")
         if not isinstance(self.tuned, bool):
             raise ValueError(
                 f"plan.tuned must be a bool, got {self.tuned!r}")
+        if self.tuned and (self.distributed or self.mesh is not None):
+            raise ValueError(
+                "plan.tuned is not supported on distributed plans: the "
+                "tuning sweep measures local run_segment segments, "
+                "which say nothing about the distributed dispatch -- "
+                "tune a local plan, then add the process group")
         if algebra is not None and self.warm == "always" \
                 and algebra.kind != "monotone":
             raise ValueError(
@@ -148,8 +175,9 @@ class ExecutionPlan:
         """Validate and collapse every 'auto' for `device` (default: the
         CUDA device; raises without one): relax_mode
         picks the route (the kernel needs a CUDA device, the plain
-        version serves the CPU), compact follows the fabric mode, and
-        feature_dim adopts the program's width. Resolving again is the
+        version serves the CPU), compact follows the fabric mode,
+        feature_dim adopts the program's width, and a supplied process
+        group implies distributed execution. Resolving again is the
         identity."""
         self.validate(algebra)
         device = resolve_device(device, "ExecutionPlan.resolve")
@@ -168,8 +196,9 @@ class ExecutionPlan:
         d = self.feature_dim
         if d == 0:
             d = algebra.feature_dim if algebra is not None else 1
-        plan = dataclasses.replace(self, relax_mode=relax, compact=compact,
-                                   feature_dim=d)
+        plan = dataclasses.replace(
+            self, relax_mode=relax, compact=compact, feature_dim=d,
+            distributed=bool(self.distributed or self.mesh is not None))
         plan.validate(algebra)
         return plan
 
@@ -179,19 +208,16 @@ def plan_from_cli(engine: str, mode: str, compact: bool | str = "auto",
                   feature_dim: int = 0) -> ExecutionPlan:
     """One ExecutionPlan from the graph_run CLI surface. `engine` keeps
     the reference's spelling: 'jax' is the local engine ('op' the
-    deprecated spelling of 'jax' in op mode). The cycle simulator
-    ('sim') takes no plan, and 'dist' (the distributed fixpoint) is not
-    ported yet."""
+    deprecated spelling of 'jax' in op mode) and 'dist' the distributed
+    fixpoint over the default process group. The cycle simulator
+    ('sim') takes no plan."""
     if engine == "op":
         engine, mode = "jax", "op"
-    if engine == "dist":
-        raise ValueError(
-            "engine 'dist' is not ported yet: it waits for ROADMAP Queue 1 "
-            "item 10 (distributed fixpoint); use --engine jax or sim")
-    if engine != "jax":
+    if engine not in ("jax", "dist"):
         raise ValueError(
             f"engine {engine!r} takes no ExecutionPlan: the plan surface "
-            "is the local engine's ('jax'); the cycle simulator ('sim') "
+            "is the engines' ('jax', 'dist'); the cycle simulator ('sim') "
             "runs from a mapping alone")
     return ExecutionPlan(mode=mode, compact=compact, tile=tile,
-                         batch=batch, feature_dim=feature_dim)
+                         batch=batch, distributed=(engine == "dist"),
+                         feature_dim=feature_dim)

@@ -13,12 +13,13 @@ The port of `repro.api.session`:
     r2 = cq2.query(5, warm=r)                     # incremental recompute
     rt = cq.query(5, trace=True)                  # rt.telemetry: per step
 
-`query` handles scalar, batched, bucketed (plan.batch > 0), incremental
-(warm=) and traced (trace=) execution; the plan decides *how*, never
-*what*. A session runs on the CUDA device unless the caller passes
-``device="cpu"``; with no CUDA device and no explicit device, `compile`
-raises instead of quietly running on the CPU. Sessions are immutable
-snapshots of one graph version: `update` returns a new one.
+`query` handles scalar, batched, bucketed (plan.batch > 0), distributed
+(plan.distributed), incremental (warm=) and traced (trace=) execution;
+the plan decides *how*, never *what*. A session runs on the CUDA device
+unless the caller passes ``device="cpu"``; with no CUDA device and no
+explicit device, `compile` raises instead of quietly running on the
+CPU. Sessions are immutable snapshots of one graph version: `update`
+returns a new one.
 """
 from __future__ import annotations
 
@@ -154,6 +155,10 @@ class CompiledQuery:
                       stopped.
         """
         t0 = time.perf_counter()
+        if trace and self.plan.distributed:
+            raise ValueError(
+                "query(trace=...) is not supported on a distributed "
+                "plan yet; trace on a local plan")
         self._validate_srcs(srcs)
         if deadline_s is None:
             deadline_s = self.plan.deadline_s
@@ -286,14 +291,16 @@ class CompiledQuery:
         """One engine dispatch: returns ``(ExecutionDetail, wall_s,
         first)`` where `first` marks the first dispatch of this
         signature."""
-        sig = ("solo" if not np.ndim(srcs) else len(srcs), bool(trace))
+        sig = ("solo" if not np.ndim(srcs) else len(srcs),
+               self.plan.distributed, bool(trace))
         first = sig not in self._dispatched
         remaining = (None if deadline_abs is None
                      else np.asarray(deadline_abs) - time.monotonic())
         t0 = time.perf_counter()
-        det = self.engine.execute(srcs, warm=ws, trace=trace,
-                                  max_steps=budgets, deadline_s=remaining,
-                                  detail=True)
+        det = self.engine.execute(
+            srcs, warm=ws, distributed=self.plan.distributed,
+            mesh=self.plan.mesh, trace=trace, max_steps=budgets,
+            deadline_s=remaining, detail=True)
         wall = time.perf_counter() - t0
         self._dispatched.add(sig)
         if det.telemetry is not None:
@@ -439,6 +446,9 @@ def compile(graph: Graph, program, plan: ExecutionPlan | None = None, *,
                becomes block sparsity, exactly as in `FlipEngine.build`.
     device  -- where the blocks and the state live: the CUDA device by
                default; pass "cpu" to run the plain version on the CPU.
+               A distributed plan keeps the blocks in host memory and
+               copies each rank's slab to this device at its first
+               query.
     order   -- optional precomputed vertex order (order[k] = original id
                at tiled position k); a `mapping` takes its place, and
                passing both raises.
@@ -463,7 +473,8 @@ def compile(graph: Graph, program, plan: ExecutionPlan | None = None, *,
                               tile=rplan.tile, mode=rplan.mode,
                               relax_mode=rplan.relax_mode,
                               compact=rplan.compact,
-                              feature_dim=rplan.feature_dim, device=dev)
+                              feature_dim=rplan.feature_dim, device=dev,
+                              host_layout=rplan.distributed)
     engine = dataclasses.replace(engine, max_steps=rplan.max_steps)
     return CompiledQuery(graph=graph, program=prog, plan=rplan,
                          engine=engine, tune=tune)

@@ -23,7 +23,7 @@ ARCH_IDS = [
 ]
 
 # the architectures whose config (and model) the port has
-PORTED = ("qwen3_0_6b", "mamba2_370m")
+PORTED = ("qwen3_0_6b", "mamba2_370m", "granite_moe_3b_a800m")
 
 # assigned input shapes: name -> (seq_len, global_batch, step kind)
 SHAPES = {

@@ -21,6 +21,11 @@ flagged partial results. Each step is exactly one relax launch, so on
 the card the kernel's launch count equals the fixpoint's iterations.
 
 On top of that loop, as in the reference:
+  * the distributed fixpoint (`execute(distributed=True, mesh=)`): the
+    destination tiles split over the ranks of a `torch.distributed`
+    process group, queries replicated. Each rank relaxes its own slab of
+    blocks (K1 on the card) and one all-gather per step re-forms the
+    replicated state -- FLIP's NoC scatter;
   * warm starts (`WarmStart`, `resolve_warm`, `apply_updates`):
     incremental recompute after a monotone edge batch, seeded at the
     sources whose out-edges changed;
@@ -31,10 +36,10 @@ On top of that loop, as in the reference:
     `finalize_state`) that the continuous-batching scheduler
     (`repro_torch.serving`) drives.
 
-Not ported yet (ROADMAP Queue 1): the distributed fixpoint (item 10)
-and a captured (CUDA-graph) K-step loop. The reference proves its
-on-device while_loop bit-equal to this host loop, so the port keeps
-only the host loop.
+Not ported yet (ROADMAP Queue 1 item 3): a captured (CUDA-graph)
+K-step loop. The reference proves its on-device while_loop bit-equal to
+this host loop, so the port keeps only the host loop, for the
+distributed fixpoint too.
 """
 from __future__ import annotations
 
@@ -43,6 +48,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.algebra import VertexAlgebra
 from repro_torch.core.mapping import Mapping
@@ -113,6 +119,13 @@ class FlipEngine:
                                   # data mode (the kernel always skips)
     max_steps: int = 100_000
     feature_dim: int = 1        # feature width d of the vertex state
+    # where the fixpoint state lives when the layout stays on the host
+    # (a distributed plan: each rank copies only its slab to the device);
+    # None = the layout's device
+    state_device: torch.device | None = None
+    # (rank, world) -> the rank's slab of `bg` on the state's device
+    _slabs: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
 
     # -------------------------------------------------------------- #
     @staticmethod
@@ -122,21 +135,25 @@ class FlipEngine:
               mode: str = "data", relax_mode: str = "auto",
               compact: bool | str = "auto",
               feature_dim: int | None = None,
-              device: str | torch.device | None = None) -> "FlipEngine":
+              device: str | torch.device | None = None,
+              host_layout: bool = False) -> "FlipEngine":
         """Block `graph` for `algo` on `device` (default: the CUDA
         device; raises without one). The tiled vertex order comes from a
         FLIP `mapping` (`mapping_order`: the placement's locality becomes
         block sparsity) or from a precomputed `order` (order[k] =
         original id at tiled position k); passing both raises. Neither
-        means id order."""
+        means id order. `host_layout` keeps the blocks in host memory and
+        only the state on `device`: such an engine runs the distributed
+        fixpoint only, each rank copying its own slab to the device."""
         if mapping is not None:
             if order is not None:
                 raise ValueError(
                     "FlipEngine.build: pass a mapping or an order, not "
                     "both (the mapping induces its own order)")
             order = mapping_order(mapping)
+        device = resolve_device(device, "FlipEngine.build")
         bg = build_blocks(graph, algo=algo, tile=tile, order=order,
-                          device=resolve_device(device, "FlipEngine.build"))
+                          device="cpu" if host_layout else device)
         d = bg.algebra.feature_dim if feature_dim is None else feature_dim
         if bg.algebra.feature_dim > 1 and d != bg.algebra.feature_dim:
             raise ValueError(
@@ -145,7 +162,8 @@ class FlipEngine:
                 f"feature_dim {d}")
         return FlipEngine(bg=bg, algo=bg.algebra.name, mode=mode,
                           relax_mode=relax_mode, compact=compact,
-                          feature_dim=d)
+                          feature_dim=d,
+                          state_device=device if host_layout else None)
 
     @property
     def algebra(self) -> VertexAlgebra:
@@ -153,7 +171,8 @@ class FlipEngine:
 
     @property
     def device(self) -> torch.device:
-        return self.bg.device
+        """Where the fixpoint state lives."""
+        return self.state_device or self.bg.device
 
     @property
     def _features(self) -> bool:
@@ -208,6 +227,7 @@ class FlipEngine:
                                 features=features)
             frontier[:, bg.perm] = alg.initial_frontier(bg.n, srcs,
                                                         feature_dim=d)
+        attrs = attrs.to(self.device)
         aux = torch.zeros_like(attrs)
         frontier = torch.from_numpy(
             frontier.reshape(b, bg.ntiles, bg.tile)).to(self.device)
@@ -248,14 +268,17 @@ class FlipEngine:
         return active_v, active_tiles, fetched
 
     def _masked_step(self, attrs, aux, frontier, live: np.ndarray,
-                     with_stats: bool = False):
+                     with_stats: bool = False, step=None):
         """One relax step with the per-query freeze applied: queries not
         in `live` ((B,) bool) keep their state *and their frontier*, so
         a budget-frozen query still reads as non-converged while a
-        finished one stays finished. Returns the step's own new tensors,
-        or `torch.where` of them (a monotone algebra's aux, which no step
-        reads, passes through)."""
-        stepped = self._step(attrs, aux, frontier, with_stats=with_stats)
+        finished one stays finished. `step` replaces the local `_step`
+        (the distributed fixpoint's rank step). Returns the step's own
+        new tensors, or `torch.where` of them (a monotone algebra's aux,
+        which no step reads, passes through)."""
+        stepped = (step(attrs, aux, frontier) if step is not None
+                   else self._step(attrs, aux, frontier,
+                                   with_stats=with_stats))
         (attrs_n, aux_n, frontier_n), stats = \
             stepped if with_stats else (stepped, None)
         if not live.all():                # torch.where would be identity
@@ -269,11 +292,13 @@ class FlipEngine:
         return (out, stats) if with_stats else out
 
     def _fixpoint(self, attrs, aux, frontier, trace_cap: int = 0,
-                  budgets=None, deadlines_t=None):
+                  budgets=None, deadlines_t=None, step=None):
         """Host-driven fixpoint with per-query live masking, step
         budgets ((B,) ints, default `max_steps`) and absolute
         `time.monotonic` deadlines ((B,), +inf = none), enforced at step
-        boundaries.
+        boundaries. `step` is the distributed fixpoint's rank step
+        (untraced); None runs the local `_step`, which a host-layout
+        engine refuses.
 
         Returns ``(attrs, aux, frontier, steps, trace, converged,
         expired)``: (B,) numpy steps and masks; the final frontier, so a
@@ -281,6 +306,10 @@ class FlipEngine:
         a ``(StepTrace, truncated)`` pair when `trace_cap` > 0, else
         None. The trace rows stay on the device until the loop ends, and
         the per-step wall closes at the loop's one device->host read."""
+        if step is None and self.state_device is not None:
+            raise ValueError(
+                "this engine keeps its layout on the host for a "
+                "distributed plan; it runs execute(distributed=True) only")
         b = int(attrs.shape[0])
         if budgets is None:
             budgets = np.full(b, self.max_steps, dtype=np.int32)
@@ -315,8 +344,8 @@ class FlipEngine:
                 if n_iter < trace_cap:
                     rows.append(st + (~live,))
             else:
-                attrs, aux, frontier = self._masked_step(attrs, aux,
-                                                         frontier, live)
+                attrs, aux, frontier = self._masked_step(
+                    attrs, aux, frontier, live, step=step)
             steps = steps + live.astype(np.int32)
             n_iter += 1
         trace = None
@@ -348,12 +377,17 @@ class FlipEngine:
 
     # -------------------------------------------------------------- #
     def execute(self, srcs, *, warm: WarmStart | None = None,
+                distributed: bool = False, mesh=None,
                 trace: bool | int = False, max_steps=None,
                 deadline_s=None, detail: bool = False):
         """Run the fixpoint from `srcs`: a scalar source is a solo query
         (`(n,)` result, int steps), a sequence a batch (`(B, n)` /
         `(B,)`). `warm` resumes from a prior converged result (see
-        `WarmStart` / `resolve_warm`). `trace` (True = the default
+        `WarmStart` / `resolve_warm`). `distributed=True` runs the
+        distributed fixpoint over the process group `mesh` (see
+        `_execute_distributed`); it refuses `trace` and `deadline_s`, as
+        the reference's does. Results are bit-identical across batching,
+        distribution and warm starts. `trace` (True = the default
         `TRACE_CAP_DEFAULT` rows, an int = that capacity) records
         per-step stats and makes the call return ``(out, steps,
         DispatchTelemetry)``; results are bit-identical either way.
@@ -366,9 +400,23 @@ class FlipEngine:
         srcs = np.atleast_1d(np.asarray(srcs, dtype=np.int64))
         budgets = self._resolve_budgets(max_steps, len(srcs))
         deadlines_t = self._resolve_deadlines(deadline_s, len(srcs))
-        out, steps, tele, conv, expired = self._execute_local(
-            srcs, warm=warm, trace_cap=self._trace_cap(trace),
-            budgets=budgets, deadlines_t=deadlines_t)
+        if distributed:
+            if trace:
+                raise ValueError(
+                    "per-step tracing is not supported on the "
+                    "distributed fixpoint yet; run the trace on a local "
+                    "plan")
+            if deadlines_t is not None:
+                raise InvalidRequest(
+                    "deadline_s is not supported on the distributed "
+                    "fixpoint: use max_steps, or run on a local plan")
+            out, steps, conv = self._execute_distributed(
+                srcs, warm=warm, mesh=mesh, budgets=budgets)
+            tele, expired = None, np.zeros(len(srcs), dtype=bool)
+        else:
+            out, steps, tele, conv, expired = self._execute_local(
+                srcs, warm=warm, trace_cap=self._trace_cap(trace),
+                budgets=budgets, deadlines_t=deadlines_t)
         if detail:
             if batched:
                 return ExecutionDetail(attrs=out, steps=steps,
@@ -407,6 +455,122 @@ class FlipEngine:
                 tile=self.bg.tile, feature_dim=self.feature_dim)
         return out, steps, tele, converged, expired
 
+    # -------------------------------------------------------------- #
+    # the distributed fixpoint
+    # -------------------------------------------------------------- #
+    def _execute_distributed(self, srcs, warm: WarmStart | None = None,
+                             mesh=None, budgets=None):
+        """The fixpoint over a (B,) source array with the destination
+        tiles split over the ranks of a `torch.distributed` process
+        group and the queries replicated; always batched. The port of
+        the reference's shard_map fixpoint (`repro.core.engine`
+        `_execute_distributed`). `mesh` is the group; None means the
+        default group when one is initialised, else one rank on the
+        engine's device with no collective. A group is one axis, so the
+        reference's `mesh_axis` has no counterpart.
+
+        The tiles are padded to ``ntiles_p = ceil(ntiles / world) *
+        world``; rank r owns tiles ``[r*tpd, (r+1)*tpd)`` and, the blocks
+        being sorted by destination, one contiguous slab of them
+        (`_rank_slab`). Each step every rank computes `scatter_carry` on
+        the replicated state, relaxes its slab (K1 on the card, the plain
+        version on the CPU), all-gathers the new slabs -- one collective
+        per step whatever B, FLIP's NoC scatter -- and applies
+        `post_step`, the live mask and the budgets as the local loop
+        does. Every rank holds the same state, so every rank reads the
+        same `frontier.any()` and leaves on the same step.
+
+        Returns ``(out, steps, converged)``."""
+        group = mesh
+        if group is None and dist.is_available() and dist.is_initialized():
+            group = dist.group.WORLD
+        world = 1 if group is None else dist.get_world_size(group)
+        rank = 0 if group is None else dist.get_rank(group)
+        bg = self.bg
+        slab = self._rank_slab(rank, world)
+        tpd = slab.ntiles
+        attrs, aux, frontier = self.initial_state(srcs, warm=warm)
+        pad = tpd * world - bg.ntiles
+        if pad:
+            widths = (0, 0) * (attrs.ndim - 2) + (0, pad)
+            attrs = torch.nn.functional.pad(
+                attrs, widths, value=float(self.algebra.semiring.zero))
+            aux = torch.nn.functional.pad(aux, widths)
+            frontier = torch.nn.functional.pad(frontier, (0, 0, 0, pad))
+
+        def step(attrs, aux, frontier):
+            return self._rank_step(attrs, aux, frontier, slab, rank * tpd,
+                                   group, world)
+
+        attrs, aux, _, steps, _, converged, _ = self._fixpoint(
+            attrs, aux, frontier, 0, budgets=budgets, step=step)
+        out = self.finalize_state(attrs[:, :bg.ntiles], aux[:, :bg.ntiles])
+        return out, steps, converged
+
+    def _rank_slab(self, rank: int, world: int) -> BlockedGraph:
+        """Rank `rank`'s share of the layout, on the state's device: a
+        `BlockedGraph` of its `tpd` destination tiles (`ntiles` = tpd,
+        `bdst` and `dst_start` local to the slab, `bsrc` global tile
+        ids). Padding tiles own no block, so a rank whose tiles are all
+        padding gets an empty slab. Only the slab's blocks are copied;
+        built once per (rank, world) for this engine."""
+        slab = self._slabs.get((rank, world))
+        if slab is not None:
+            return slab
+        bg, dev = self.bg, self.device
+        tpd = -(-bg.ntiles // world)
+        ds = bg.dst_start.cpu().numpy().astype(np.int64)
+        t0 = min(rank * tpd, bg.ntiles)
+        t1 = min((rank + 1) * tpd, bg.ntiles)
+        s, e = int(ds[t0]), int(ds[t1])
+        local = np.concatenate([ds[t0:t1 + 1],
+                                np.full(tpd - (t1 - t0), ds[t1])]) - s
+        slab = BlockedGraph(
+            n=bg.n, tile=bg.tile, ntiles=tpd,
+            blocks=bg.blocks[s:e].to(dev), bsrc=bg.bsrc[s:e].to(dev),
+            bdst=(bg.bdst[s:e] - rank * tpd).to(dev), perm=bg.perm,
+            inv_perm=bg.inv_perm, algebra=bg.algebra,
+            dst_start=torch.from_numpy(local.astype(np.int32)).to(dev),
+            version=bg.version, graph_fp=bg.graph_fp)
+        self._slabs[(rank, world)] = slab
+        return slab
+
+    def _rank_step(self, attrs, aux, frontier, slab: BlockedGraph, t0: int,
+                   group, world: int):
+        """One distributed step on this rank: relax the slab's tiles
+        ``[t0, t0 + tpd)`` from the replicated state, then all-gather
+        the new slabs into the replicated (B, ntiles_p, T[, d]) state.
+
+        A rank with no block, and on the CPU in data mode a rank none of
+        whose blocks has an active source tile (the reference's idle
+        skip for a whole device), returns its carry without a relax; it
+        still joins the collective."""
+        alg, features = self.algebra, self._features
+        sv, carry = alg.scatter_carry(attrs, frontier,
+                                      op_mode=(self.mode == "op"),
+                                      features=features)
+        carry_l = carry[:, t0:t0 + slab.ntiles].contiguous()
+        nb = int(slab.bsrc.shape[0])
+        idle = nb == 0 or (
+            self._use_compact and not sv.is_cuda
+            and not bool(tile_activity(sv, slab.semiring, features)
+                         [slab.bsrc.long()].any()))
+        new_l = carry_l if idle else frontier_relax(
+            sv, carry_l, slab, mode=self.relax_mode,
+            compact=self._use_compact, feature_dim=self.feature_dim)
+        if group is not None:
+            # all_gather_into_tensor concatenates along dim 0: gather
+            # rank-major (world, B, tpd, ...) and move the rank axis next
+            # to the tile axis once per step -- one copy of the state,
+            # where a tile-major state would change every algebra hook
+            b = new_l.shape[0]
+            buf = new_l.new_empty((world * b,) + tuple(new_l.shape[1:]))
+            dist.all_gather_into_tensor(buf, new_l, group=group)
+            new_l = buf.view((world, b) + tuple(new_l.shape[1:])) \
+                .transpose(0, 1).reshape(
+                    (b, world * slab.ntiles) + tuple(new_l.shape[2:]))
+        return alg.post_step(attrs, aux, sv, new_l, features=features)
+
     def _trace_cap(self, trace: bool | int) -> int:
         """0 (off) or the per-step trace row capacity."""
         if not trace:
@@ -431,7 +595,7 @@ class FlipEngine:
         rebuilt (`BlockedGraph.apply_updates`). Returns ``(new_engine,
         delta)``; this engine is left untouched."""
         bg2, delta = self.bg.apply_updates(new_graph, updates)
-        return dataclasses.replace(self, bg=bg2), delta
+        return dataclasses.replace(self, bg=bg2, _slabs={}), delta
 
     # -------------------------------------------------------------- #
     # bounded-segment stepping: the continuous-batching yield surface

@@ -2,9 +2,13 @@
 
   * `health` -- `HeartbeatMonitor`, the watchdog the bucket graph server
     beats around every dispatch.
+  * `moe_ep` -- expert-parallel MoE dispatch over a `torch.distributed`
+    process group (two `all_to_all_single`s around each rank's experts).
 
-The rest (the distributed fixpoint, sharding, collectives, the trainer's
-`StepFailure`/`step_guard`) is still to be ported (ROADMAP Queue 1).
+The distributed graph fixpoint lives in `repro_torch.core.engine`
+(`FlipEngine.execute(distributed=True)`). Still to be ported (ROADMAP
+Queue 1 item 11): sharding rules, compression, the trainer's
+`StepFailure`/`step_guard`.
 """
 from repro_torch.distributed.health import HeartbeatMonitor
 

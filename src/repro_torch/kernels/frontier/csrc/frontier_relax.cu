@@ -87,8 +87,12 @@ template <> struct Semiring<kPlusTimes> {
   static __device__ __forceinline__ float mul(float a, float b) { return a * b; }
 };
 
-// sv, carry, out: (B, ntiles, T, d) f32, contiguous (d = 1 for scalar state)
-// blocks: (nb, T, T) f32; bsrc: (nb,) i32; dst_start: (ntiles + 1,) i32
+// sv: (B, nsrc, T, d) f32; carry, out: (B, ntiles, T, d) f32; all contiguous
+// (d = 1 for scalar state). nsrc = ntiles for a whole layout; a rank of the
+// distributed fixpoint relaxes its slab of ntiles destination tiles from
+// the replicated state of all nsrc tiles.
+// blocks: (nb, T, T) f32; bsrc: (nb,) i32 in [0, nsrc);
+// dst_start: (ntiles + 1,) i32
 // grid: (ntiles, ceil(B / QB), ceil(d / FD)); block: T rounded up to 32
 // dynamic shared memory: QB * T * FD floats
 template <int OP, int QB, int FD>
@@ -98,7 +102,7 @@ __global__ void relax_kernel(const float* __restrict__ sv,
                              const int* __restrict__ bsrc,
                              const int* __restrict__ dst_start,
                              float* __restrict__ out,
-                             int B, int ntiles, int T, int d) {
+                             int B, int nsrc, int ntiles, int T, int d) {
   using S = Semiring<OP>;
   extern __shared__ float slab[];  // [QB][T][FD] source values of one block
   __shared__ int active[QB];
@@ -126,7 +130,7 @@ __global__ void relax_kernel(const float* __restrict__ sv,
       const int q = e / (FD * T);
       float x = zero;
       if (f < nf)
-        x = sv[(((long long)(q0 + q) * ntiles + src_tile) * T + s) * d + f0 + f];
+        x = sv[(((long long)(q0 + q) * nsrc + src_tile) * T + s) * d + f0 + f];
       slab[e] = x;
       if (x != zero) active[q] = 1;  // packet trigger: any non-identity lane
     }
@@ -175,7 +179,7 @@ __global__ void relax_kernel(const float* __restrict__ sv,
 template <int OP, int QB, int FD>
 cudaError_t launch(const float* sv, const float* carry, const float* blocks,
                    const int* bsrc, const int* dst_start, float* out, int B,
-                   int ntiles, int T, int d, cudaStream_t stream) {
+                   int nsrc, int ntiles, int T, int d, cudaStream_t stream) {
   const dim3 grid(ntiles, (B + QB - 1) / QB, (d + FD - 1) / FD);
   const int threads = (T + 31) / 32 * 32;
   const size_t smem = (size_t)QB * T * FD * sizeof(float);
@@ -186,19 +190,19 @@ cudaError_t launch(const float* sv, const float* carry, const float* blocks,
     if (e != cudaSuccess) return e;
   }
   relax_kernel<OP, QB, FD><<<grid, threads, smem, stream>>>(
-      sv, carry, blocks, bsrc, dst_start, out, B, ntiles, T, d);
+      sv, carry, blocks, bsrc, dst_start, out, B, nsrc, ntiles, T, d);
   return cudaGetLastError();
 }
 
 template <int OP>
 cudaError_t launch_op(const float* sv, const float* carry, const float* blocks,
                       const int* bsrc, const int* dst_start, float* out, int B,
-                      int ntiles, int T, int d, cudaStream_t stream) {
+                      int nsrc, int ntiles, int T, int d, cudaStream_t stream) {
   if (d == 1)
-    return launch<OP, 8, 1>(sv, carry, blocks, bsrc, dst_start, out, B, ntiles,
-                            T, d, stream);
-  return launch<OP, 8, 8>(sv, carry, blocks, bsrc, dst_start, out, B, ntiles, T,
-                          d, stream);
+    return launch<OP, 8, 1>(sv, carry, blocks, bsrc, dst_start, out, B, nsrc,
+                            ntiles, T, d, stream);
+  return launch<OP, 8, 8>(sv, carry, blocks, bsrc, dst_start, out, B, nsrc,
+                          ntiles, T, d, stream);
 }
 
 }  // namespace
@@ -206,7 +210,7 @@ cudaError_t launch_op(const float* sv, const float* carry, const float* blocks,
 extern "C" int frontier_relax_launch(const void* sv, const void* carry,
                                      const void* blocks, const void* bsrc,
                                      const void* dst_start, void* out, int B,
-                                     int ntiles, int T, int d, int op,
+                                     int nsrc, int ntiles, int T, int d, int op,
                                      void* stream) {
   const float* s = static_cast<const float*>(sv);
   const float* c = static_cast<const float*>(carry);
@@ -216,10 +220,10 @@ extern "C" int frontier_relax_launch(const void* sv, const void* carry,
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (op) {
-    case kMinPlus: return launch_op<kMinPlus>(s, c, w, bs, ds, o, B, ntiles, T, d, st);
-    case kMaxMin: return launch_op<kMaxMin>(s, c, w, bs, ds, o, B, ntiles, T, d, st);
-    case kOrAnd: return launch_op<kOrAnd>(s, c, w, bs, ds, o, B, ntiles, T, d, st);
-    case kPlusTimes: return launch_op<kPlusTimes>(s, c, w, bs, ds, o, B, ntiles, T, d, st);
+    case kMinPlus: return launch_op<kMinPlus>(s, c, w, bs, ds, o, B, nsrc, ntiles, T, d, st);
+    case kMaxMin: return launch_op<kMaxMin>(s, c, w, bs, ds, o, B, nsrc, ntiles, T, d, st);
+    case kOrAnd: return launch_op<kOrAnd>(s, c, w, bs, ds, o, B, nsrc, ntiles, T, d, st);
+    case kPlusTimes: return launch_op<kPlusTimes>(s, c, w, bs, ds, o, B, nsrc, ntiles, T, d, st);
     default: return cudaErrorInvalidValue;
   }
 }

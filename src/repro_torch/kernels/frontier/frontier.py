@@ -30,7 +30,7 @@ FEATURE_SLAB = 8            # features per thread block at d > 1 (FD)
 def _library() -> ctypes.CDLL:
     lib = _build.load(SOURCE)
     lib.frontier_relax_launch.argtypes = (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.frontier_relax_launch.restype = ctypes.c_int
     lib.frontier_relax_error_string.argtypes = [ctypes.c_int]
     lib.frontier_relax_error_string.restype = ctypes.c_char_p
@@ -57,13 +57,16 @@ def frontier_relax_cuda(src_vals: torch.Tensor, carry: torch.Tensor,
     ``out[b, t] = carry[b, t] ⊕ ⊕_{i in dst_start[t]:dst_start[t+1]}
     src_vals[b, bsrc[i]] ⊗ blocks[i]``.
 
-    src_vals/carry: (B?, ntiles, T[, d]) f32 CUDA tensors (a leading
-    query axis is optional; d only when `feature_dim` > 1). blocks:
-    (nb, T, T) f32 sorted by (bdst, bsrc); bsrc: (nb,) i32;
-    dst_start: (ntiles + 1,) i32 segment starts per destination tile.
-    Blocks whose source tile is all ⊕-identity for a query are skipped
-    inside the kernel (exact). Raises on anything the kernel does not
-    take; never falls back to the plain version.
+    src_vals: (B?, nsrc, T[, d]) and carry: (B?, ntiles, T[, d]) f32 CUDA
+    tensors (a leading query axis is optional; d only when `feature_dim`
+    > 1). nsrc = ntiles for a whole layout; a rank of the distributed
+    fixpoint passes the replicated state of every tile and the carry of
+    its own slab of destination tiles. blocks: (nb, T, T) f32 sorted by
+    (bdst, bsrc); bsrc: (nb,) i32 source tiles in [0, nsrc); dst_start:
+    (ntiles + 1,) i32 segment starts per destination tile. The output
+    has carry's shape. Blocks whose source tile is all ⊕-identity for a
+    query are skipped inside the kernel (exact). Raises on anything the
+    kernel does not take; never falls back to the plain version.
     """
     if not src_vals.is_cuda:
         raise ValueError("frontier_relax_cuda needs CUDA tensors; the "
@@ -72,18 +75,23 @@ def frontier_relax_cuda(src_vals: torch.Tensor, carry: torch.Tensor,
         raise ValueError(f"frontier_relax_cuda: no kernel for semiring "
                          f"{semiring.name!r}")
     features = feature_dim > 1
-    if src_vals.shape != carry.shape:
-        raise ValueError(f"src_vals {tuple(src_vals.shape)} / carry "
-                         f"{tuple(carry.shape)} state shapes disagree")
     if src_vals.ndim not in (2 + features, 3 + features):
         raise ValueError(f"frontier_relax_cuda: state rank {src_vals.ndim} "
                          f"does not fit feature_dim {feature_dim}")
+    tax = src_vals.ndim - 2 - features             # the tile axis
+    if (carry.ndim != src_vals.ndim
+            or carry.shape[:tax] != src_vals.shape[:tax]
+            or carry.shape[tax + 1:] != src_vals.shape[tax + 1:]):
+        raise ValueError(f"src_vals {tuple(src_vals.shape)} / carry "
+                         f"{tuple(carry.shape)} state shapes disagree "
+                         "outside the tile axis")
     if features and src_vals.shape[-1] != feature_dim:
         raise ValueError(f"state carries feature_dim {src_vals.shape[-1]} "
                          f"but the kernel was asked for {feature_dim}")
-    squeeze = src_vals.ndim == 2 + features
+    squeeze = tax == 0
     sv, cv = (src_vals[None], carry[None]) if squeeze else (src_vals, carry)
-    b, ntiles, t = sv.shape[:3]
+    b, nsrc, t = sv.shape[:3]
+    ntiles = cv.shape[1]
     dev = sv.device
     for name, x, dt in (("src_vals", sv, torch.float32),
                         ("carry", cv, torch.float32),
@@ -99,7 +107,7 @@ def frontier_relax_cuda(src_vals: torch.Tensor, carry: torch.Tensor,
                          f"{blocks.shape[0]} blocks")
     if dst_start.shape != (ntiles + 1,):
         raise ValueError(f"dst_start {tuple(dst_start.shape)} does not "
-                         f"match {ntiles} tiles")
+                         f"match {ntiles} destination tiles")
     fd = FEATURE_SLAB if features else 1
     smem = QUERY_CHUNK * t * fd * 4
     if t > 1024 or smem > MAX_SMEM:
@@ -107,13 +115,13 @@ def frontier_relax_cuda(src_vals: torch.Tensor, carry: torch.Tensor,
                          f"{feature_dim} exceeds one thread block "
                          f"(T <= 1024 threads, {smem} B > {MAX_SMEM} B of "
                          "shared memory)")
-    out = torch.empty_like(sv)
+    out = torch.empty_like(cv)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.frontier_relax_launch(
             sv.data_ptr(), cv.data_ptr(), blocks.data_ptr(),
             bsrc.data_ptr(), dst_start.data_ptr(), out.data_ptr(),
-            b, ntiles, t, max(1, feature_dim),
+            b, nsrc, ntiles, t, max(1, feature_dim),
             SEMIRING_IDS[semiring.name],
             torch.cuda.current_stream(dev).cuda_stream)
     if err:

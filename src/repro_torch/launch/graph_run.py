@@ -4,12 +4,19 @@ The counterpart of `repro.launch.graph_run`, with the same flags and the
 same ``[graph] ... correct vs reference: True`` self-check line. It runs
 any registered program on a Table-4 dataset, compiling a FLIP mapping
 (`repro_torch.core.compile_mapping`, ``--effort``) on every run as the
-reference does, through one of two execution layers:
+reference does, through one of three execution layers:
 
   --engine jax     the local frontier engine (the flag keeps the
                    reference's spelling), through
                    `flip_torch.compile(graph, algo, plan, mapping=)`:
                    the mapping's vertex order becomes the tiling
+  --engine dist    the distributed fixpoint (`ExecutionPlan(
+                   distributed=True)`): destination tiles split over the
+                   ranks of the default process group, one all-gather
+                   per step. Run alone it is one rank; under `torchrun
+                   --nproc-per-node N` each process joins the group
+                   (NCCL on CUDA devices, one per local rank; gloo with
+                   --device cpu) and only rank 0 prints
   --engine sim     the cycle-level FLIP simulator (`core.simulate`) on
                    the host: simulated cycles, parallelism, MTEPS at
                    100 MHz and the speedups against the MCU and
@@ -21,10 +28,11 @@ reference does, through one of two execution layers:
                    buckets of B, as the reference does
   --updates FILE   replay JSON edge-mutation batches after the base
                    query, each re-solved warm (monotone batch) or from
-                   scratch, with a single --src
+                   scratch, with a single --src (jax and dist)
   --trace FILE     write a Chrome-trace JSON: per-step frontier spans
                    for jax, the simulated per-cycle parallelism (through
-                   `obs.from_sim`) for sim
+                   `obs.from_sim`) for sim; not on dist, as in the
+                   reference
   --autotune       let the plan autotuner pick tile / route / compaction
                    / bucket for this graph on this device (jax engine
                    only), consulting the tuning store
@@ -32,8 +40,7 @@ reference does, through one of two execution layers:
 
 The default engine is ``jax`` on the CUDA device, where the reference's
 is ``sim``: the port's entry points run on the card unless asked
-otherwise (``--device cpu``). Not ported yet, and rejected with the
-ROADMAP item that brings it: ``--engine dist`` (Queue 1 item 10).
+otherwise (``--device cpu``).
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.graph_run --algo sssp \\
@@ -44,6 +51,9 @@ Examples:
       --dataset SRN --engine jax --autotune --device cpu
   PYTHONPATH=src python -m repro_torch.launch.graph_run --algo bfs \\
       --dataset LRN --engine jax --srcs 0,5,9,12 --mode op --device cpu
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m \\
+      repro_torch.launch.graph_run --algo sssp --dataset LRN \\
+      --engine dist --src 5 --device cpu
   echo '[[0, 5, 0.5], [1, 40, 2.0]]' > upd.json
   PYTHONPATH=src python -m repro_torch.launch.graph_run --algo sssp \\
       --dataset SRN --src 3 --updates upd.json --trace trace.json
@@ -51,11 +61,16 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import io
 import json
+import os
 import time
 
 import numpy as np
+import torch
+import torch.distributed as dist
 
 from repro_torch import api as flip
 from repro_torch.algebra import ALGEBRAS
@@ -77,7 +92,7 @@ def main(argv=None):
     ap.add_argument("--src", type=int, default=0)
     ap.add_argument("--srcs", default=None,
                     help="comma list of sources: batched multi-query run "
-                         "(jax engine)")
+                         "(jax and dist engines)")
     ap.add_argument("--batch", type=int, default=0,
                     help="with --srcs: dispatch through the bucket "
                          "serving front-end in fixed-size buckets of this "
@@ -90,13 +105,14 @@ def main(argv=None):
                          "kernel always skips inactive blocks")
     ap.add_argument("--feature-dim", type=int, default=0,
                     help="feature width d of the vertex state: 0 adopts "
-                         "the program's native width. jax engine only")
+                         "the program's native width. jax and dist "
+                         "engines")
     ap.add_argument("--updates", default=None, metavar="FILE",
                     help="JSON file of streaming edge mutations: a list "
                          "of [u, v, w] entries (w = null deletes, "
                          "omitted w inserts with weight 1) or a list of "
                          "such batches, each re-solved incrementally "
-                         "after the base query. jax engine only")
+                         "after the base query. jax and dist engines")
     ap.add_argument("--autotune", action="store_true",
                     help="let the plan autotuner pick the performance "
                          "knobs (tile / route / compaction / bucket) for "
@@ -112,28 +128,30 @@ def main(argv=None):
                          "for the jax engine, simulated per-cycle "
                          "parallelism for sim")
     ap.add_argument("--device", default=None,
-                    help="torch device of the jax engine (default: the "
-                         "CUDA device; 'cpu' runs the plain PyTorch "
-                         "version)")
+                    help="torch device of the jax and dist engines "
+                         "(default: the CUDA device; 'cpu' runs the plain "
+                         "PyTorch version)")
     args = ap.parse_args(argv)
     args.compact = {"auto": "auto", "on": True, "off": False}[args.compact]
     if args.engine == "op":                # deprecated spelling
         args.engine, args.mode = "jax", "op"
-    if args.engine == "dist":
-        raise SystemExit("--engine dist (the distributed fixpoint: ROADMAP "
-                         "Queue 1 item 10) is not ported yet")
     srcs = ([int(s) for s in args.srcs.split(",")]
             if args.srcs else None)
     if srcs is not None and args.engine == "sim":
-        raise SystemExit("--srcs needs --engine jax (the cycle simulator "
-                         "runs one query per sweep)")
+        raise SystemExit("--srcs needs --engine jax/dist (the cycle "
+                         "simulator runs one query per sweep)")
     if args.batch and args.engine != "jax":
         raise SystemExit("--batch dispatches through the single-device "
                          "serving front-end; use it with --engine jax")
-    if args.updates and (args.engine != "jax" or srcs is not None):
+    if args.updates and (args.engine not in ("jax", "dist")
+                         or srcs is not None):
         raise SystemExit("--updates replays mutations through the "
-                         "incremental engine; use it with --engine jax "
-                         "and a single --src")
+                         "incremental engines; use it with --engine "
+                         "jax/dist and a single --src")
+    if args.trace and args.engine == "dist":
+        raise SystemExit("--trace needs --engine sim/jax (per-step "
+                         "tracing is not supported on the distributed "
+                         "fixpoint yet)")
     if args.trace and args.batch:
         raise SystemExit("--trace traces one query/fixpoint; drop --batch "
                          "(use serve_graph --stats for serving telemetry)")
@@ -145,8 +163,34 @@ def main(argv=None):
                                  or ALGEBRAS[args.algo].feature_dim > 1):
         raise SystemExit("--engine sim runs scalar vertex state only; "
                          "vector programs / --feature-dim > 1 need "
-                         "--engine jax")
+                         "--engine jax/dist")
+    joined = args.engine == "dist" and "WORLD_SIZE" in os.environ
+    if joined:
+        _join_process_group(args)
+    try:
+        # every rank runs the same program; only rank 0 speaks
+        with (contextlib.redirect_stdout(io.StringIO())
+              if joined and dist.get_rank() else contextlib.nullcontext()):
+            _run(args, srcs)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
+
+def _join_process_group(args) -> None:
+    """Join the default process group from torchrun's environment
+    (`env://`): NCCL with one CUDA device per local rank, gloo for
+    `--device cpu`."""
+    if args.device is not None and torch.device(args.device).type == "cpu":
+        dist.init_process_group("gloo")
+        return
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    torch.cuda.set_device(local)
+    args.device = f"cuda:{local}"
+    dist.init_process_group("nccl", device_id=torch.device(args.device))
+
+
+def _run(args, srcs) -> None:
     g = next(make_dataset(args.dataset, 1, seed0=args.graph_seed))
     print(f"[graph] {args.dataset}: |V|={g.n} |E|={g.m}")
     alg = ALGEBRAS[args.algo]
@@ -164,7 +208,7 @@ def main(argv=None):
         if not alg.sim_ok:
             raise SystemExit(
                 f"--engine sim cannot run {args.algo} (non-idempotent "
-                "merge); use --engine jax")
+                "merge); use --engine jax/dist")
         r = simulate(mapping, alg, src=args.src)
         attrs = r.attrs
         if args.trace:
@@ -199,8 +243,9 @@ def main(argv=None):
         t0 = time.time()
         res = cq.query(args.src, trace=bool(args.trace))
         attrs = res.attrs
-        print(f"[graph] jax/{plan.mode}: fixpoint in {res.steps} "
-              f"relaxation steps ({time.time() - t0:.2f}s wall)")
+        print(f"[graph] {args.engine}/{plan.mode}: fixpoint in "
+              f"{res.steps} relaxation steps ({time.time() - t0:.2f}s "
+              f"wall{_world()})")
         if args.trace:
             _write_trace(args.trace, res, args.algo)
         if args.updates:
@@ -210,6 +255,13 @@ def main(argv=None):
     ref, _ = reference.run(args.algo, g, args.src)
     print(f"[graph] correct vs reference: "
           f"{alg.results_match(attrs, ref)}")
+
+
+def _world() -> str:
+    """The distributed run's width, for the progress lines."""
+    if dist.is_available() and dist.is_initialized():
+        return f", {dist.get_world_size()} ranks"
+    return ""
 
 
 def _cli_plan(args, **kw):
@@ -242,7 +294,8 @@ def _run_batched(args, g, mapping, srcs) -> bool:
         how = f"one batch of B={len(srcs)}"
         if args.trace:
             _write_trace(args.trace, res, args.algo)
-    print(f"[graph] jax/{args.mode}: {len(srcs)} queries via {how}, "
+    print(f"[graph] {args.engine}/{args.mode}: {len(srcs)} queries via "
+          f"{how}{_world()}, "
           f"per-query steps {list(map(int, steps))} "
           f"({time.time() - t0:.2f}s wall)")
     ok = True

@@ -11,6 +11,8 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_0_6b \
       --preset full --slots 8 --requests 16 --max-new 32 --max-seq 4096
                                           # on the CUDA device (default)
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite_moe_3b_a800m --preset full   # the MoE (also mamba2_370m)
 """
 from __future__ import annotations
 

@@ -12,8 +12,11 @@ one module per layer (`convert.params_from_jax` splits the stacked axis).
   decode_step  -- one token against per-layer KV / SSM caches (no kernel);
   init_cache / cache_len -- the caches, ring-sized for windowed layers.
 
-Not ported yet (ROADMAP Queue 1 item 11): MoE FFN blocks, the `frames`
-frontend, and the training surface (`train_loss`, `chunked_ce`).
+An FFN is dense SwiGLU, or MoE (`models.moe`, one token group, as the
+reference runs without a mesh); serving drops the MoE's aux loss.
+
+Not ported yet (ROADMAP Queue 1 item 11): the `frames` frontend and the
+training surface (`train_loss`, `chunked_ce`).
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, mamba
+from repro_torch.models import attention, mamba, moe
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import (DTYPES, DeclModule, ParamDecl,
                                        init_module, rms_norm, swiglu)
@@ -42,13 +45,11 @@ def _ffn_decls(cfg: ModelConfig) -> dict:
 
 class Block(nn.Module):
     """One layer: norm1 -> attention or mamba -> residual, then (if the
-    pattern says so) norm2 -> SwiGLU FFN -> residual."""
+    pattern says so) norm2 -> SwiGLU or MoE FFN -> residual."""
 
     def __init__(self, cfg: ModelConfig, spec: BlockSpec,
                  dtype: torch.dtype, device: torch.device):
         super().__init__()
-        if spec.moe:
-            raise NotImplementedError(f"MoE FFN blocks are {NOT_PORTED}")
         self.spec = spec
         norm = {"norm1": ParamDecl((cfg.d_model,), (None,), init="zeros")}
         if spec.has_ffn:
@@ -59,7 +60,15 @@ class Block(nn.Module):
         else:
             self.mamba = mamba.Mamba(cfg, dtype, device)
         if spec.has_ffn:
-            self.ffn = DeclModule(_ffn_decls(cfg), dtype, device)
+            self.ffn = DeclModule(
+                moe.decls(cfg) if spec.moe else _ffn_decls(cfg), dtype,
+                device)
+
+
+def _ffn(blk: Block, h, cfg: ModelConfig):
+    if blk.spec.moe:
+        return moe.apply(blk.ffn, h, cfg)[0]
+    return swiglu(h, blk.ffn["w_gate"], blk.ffn["w_in"], blk.ffn["w_out"])
 
 
 class LM(nn.Module):
@@ -116,9 +125,7 @@ def _run_block(blk: Block, x, cfg: ModelConfig):
         a = mamba.apply(blk.mamba, h, cfg)
     x = x + a
     if spec.has_ffn:
-        h = rms_norm(x, blk.norms["norm2"], cfg.rms_eps)
-        x = x + swiglu(h, blk.ffn["w_gate"], blk.ffn["w_in"],
-                       blk.ffn["w_out"])
+        x = x + _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps), cfg)
     return x
 
 
@@ -196,8 +203,7 @@ def decode_step(params: LM, cache: list[dict], tokens, pos,
             new_cache.append(nc)
         x = x + a
         if spec.has_ffn:
-            h = rms_norm(x, blk.norms["norm2"], cfg.rms_eps)
-            x = x + swiglu(h, blk.ffn["w_gate"], blk.ffn["w_in"],
-                           blk.ffn["w_out"])
+            x = x + _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps),
+                         cfg)
     x = rms_norm(x, params.final["final_norm"], cfg.rms_eps)
     return (x @ params.head_weights().T).float(), new_cache

@@ -223,6 +223,11 @@ class AsyncGraphServer:
             self.batch = self.plan.batch
         else:
             self.plan = dataclasses.replace(self.plan, batch=self.batch)
+        if self.plan.distributed or self.plan.mesh is not None:
+            raise ValueError(
+                "continuous batching drives the local segment surface "
+                "(run_segment); the distributed fixpoint has none -- "
+                "serve distributed plans through the bucket GraphServer")
         if self.batch < 1:
             raise ValueError(
                 f"rotating batch needs >= 1 slot, got batch={self.batch}")

@@ -1,5 +1,5 @@
-"""The port's LM stack (qwen3-0.6b and mamba2-370m, smoke configs) held
-against the JAX package on the CPU.
+"""The port's LM stack (qwen3-0.6b, mamba2-370m and granite-moe-3b-a800m,
+smoke configs) held against the JAX package on the CPU.
 
 The reference's own parameters go through `params_from_jax`, so both
 packages compute with the same tensors. The port's `rms_norm`,
@@ -30,7 +30,7 @@ from repro_torch.models.config import BlockSpec
 from repro_torch.models.convert import params_from_jax, to_tensor
 from repro_torch.models.layers import rms_norm, rotary
 
-ARCHS = ["qwen3_0_6b", "mamba2_370m"]
+ARCHS = ["qwen3_0_6b", "mamba2_370m", "granite_moe_3b_a800m"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -216,7 +216,7 @@ def test_params_from_jax_takes_bf16():
                                   want.view(np.int16))
 
 
-@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "gemma3_12b",
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "gemma3_12b",
                                   "hubert_xlarge"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
@@ -226,9 +226,13 @@ def test_unported_archs_raise(arch):
 
 
 def test_moe_blocks_and_frames_frontend_raise():
-    cfg = configs.get_smoke("qwen3_0_6b")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        M.LM(dataclasses.replace(cfg, pattern=(BlockSpec(moe=True),)),
-             device="cpu")
+    """MoE blocks are ported (they carry `moe.decls`); the frames
+    frontend still raises."""
+    cfg = configs.get_smoke("granite_moe_3b_a800m")
+    blk = M.LM(cfg, device="cpu").blocks[0]
+    assert blk.spec.moe and set(blk.ffn.decls) == {"router", "w_gate",
+                                                   "w_in", "w_out"}
+    assert tuple(blk.ffn["w_gate"].shape) == (
+        cfg.num_experts, cfg.d_model, cfg.expert_d_ff)
     with pytest.raises(NotImplementedError, match="frames"):
         M.LM(dataclasses.replace(cfg, frontend="frames"), device="cpu")

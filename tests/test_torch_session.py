@@ -213,7 +213,8 @@ def test_port_imports_neither_jax_nor_repro():
         " 'core.baselines', 'distributed.health', 'resilience.faults',"
         " 'autotune.profile', 'autotune.space', 'autotune.measure',"
         " 'autotune.model', 'autotune.store', 'autotune.tuner',"
-        " 'launch.autotune'):\n"
+        " 'launch.autotune', 'models.moe', 'distributed.moe_ep',"
+        " 'core.placement', 'configs.granite_moe_3b_a800m'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
@@ -241,12 +242,15 @@ def test_graph_run_self_check(argv, capsys):
     assert "[graph] correct vs reference: True" in out
 
 
-@pytest.mark.parametrize("flags", [["--engine", "dist"],
-                                   ["--engine", "dist", "--updates",
-                                    "u.json"]])
+@pytest.mark.parametrize("flags", [["--engine", "dist", "--trace", "t.json"],
+                                   ["--engine", "dist", "--srcs", "0,1",
+                                    "--batch", "2"]])
 def test_graph_run_rejects_unported(flags):
+    """What the reference's `--engine dist` refuses, the port refuses:
+    per-step tracing (not supported on the distributed fixpoint yet) and
+    bucketed dispatch (single-device serving)."""
     from repro_torch.launch import graph_run
-    with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="not supported|single-device"):
         graph_run.main(["--dataset", "SRN", "--device", "cpu"] + flags)
 
 
