@@ -41,17 +41,23 @@ Phases (every failure raises and exits nonzero):
                 the 16,384-vertex Ext. LRN graph, each checked the same way;
   6. attention kernel -- flash attention against `attention_ref` on the
                 card: causal x window {None, 128} x GQA ratio {1, 2, 8} x
-                {f32, bf16} x hd {64, 128, 256}, ragged lengths (S=200 and
-                S=5, shorter than one tile), and the layers of
-                qwen3-0.6b (GQA 2, hd 128) and granite-moe-3b-a800m (H 24,
-                KH 8: GQA 3, hd 64) at B=1, S=4096 (f32 atol 2e-5, bf16 atol
-                2e-2 against the f32 reference, and at those layers also a
-                relative Frobenius error of 1e-2); each case logs its route
-                ("wgmma": bf16 at hd 64-256 on the tensor cores; "fma": the
-                CUDA cores) and must have taken `flash.route`'s. Timed at
-                the prefill shape: the wgmma kernel beside the CUDA-core
-                kernel at the same shape, the plain version and SDPA
-                (yardstick only);
+                {f32, bf16} x hd {64, 80, 128, 256}, ragged lengths (S=200
+                and S=5, shorter than one tile), and at B=1, S=4096 the
+                layer of every architecture with attention: qwen3-0.6b
+                (GQA 2, hd 128), granite-moe-3b-a800m (GQA 3, hd 64),
+                hubert-xlarge (MHA, hd 80, non-causal), phi3-medium-14b
+                (GQA 4), qwen3-moe-235b-a22b (GQA 16), gemma3-12b (hd 256,
+                window 1,024) and chameleon-34b (GQA 8) (f32 atol 2e-5,
+                bf16 atol 2e-2 against the f32 reference, and at those
+                layers also a relative Frobenius error of 1e-2); each case
+                logs its route ("wgmma": bf16 at hd 64/80/128/256 on the
+                tensor cores, hd 80 in the hd-128 tile; "fma": the CUDA
+                cores) and must have taken `flash.route`'s. Timed at the
+                prefill shape: the wgmma kernel beside the CUDA-core kernel
+                at the same shape, the plain version and SDPA (yardstick
+                only); and the same at hubert's bf16 (4, 4,096, 16, 80)
+                non-causal, beside the bound at hd 80 and the padded
+                tile's floor;
   7. SSD kernel -- logs the kernel's route (3xTF32 tensor-core products,
                 the head group sharing one G panel); holds the
                 intra-chunk kernel against `ssd_intra_ref` (and
@@ -61,10 +67,12 @@ Phases (every failure raises and exits nonzero):
                 chunk 48 (4-byte staging), P over 64 (two 64-column
                 slots per head: P=100, 70, 128), a strong-decay case (cums
                 below -500 inside a chunk, where a factored exp
-                overflows) and mamba2-370m's shape, at atol 1e-4 x
+                overflows), mamba2-370m's shape and jamba's (B=1 x 512,
+                H=128, P=128, N=128, chunk 256), at atol 1e-4 x
                 max(1, max|ref|); timed beside its plain version, with
                 the route's bound (3xTF32 tensor cores) and the f32
-                CUDA-core bound;
+                CUDA-core bound, at mamba2's and at jamba's layer in the
+                B=4 x 4,096 cell;
   8. LM paths -- for qwen3-0.6b and mamba2-370m at full width in bf16: a
                 B=4 x 4,096 prefill through `make_prefill_step` (kernel
                 launches = layers x prefills; for qwen3 every one on the
@@ -162,6 +170,30 @@ Phases (every failure raises and exits nonzero):
                 with 16 requests; then `moe.apply(dispatch="all_to_all")`
                 over phase 15's NCCL group against the one-group path at
                 the prefill's layer shape (bf16, 1e-2 x max|y|).
+ 17. configs -- the other seven architectures in bf16 with random weights
+                from seed 0, each model freed before the next, peak memory
+                logged. phi3-medium-14b, mistral-nemo-12b, gemma3-12b and
+                chameleon-34b at full depth through phase 8's path (two
+                B=4 x 4,096 prefills, K2 launches = 2 x layers, all wgmma;
+                the float32 replay at one pattern period, 4 layers for a
+                1-long pattern, gemma3's 6 over 1,088 tokens so its window-
+                1,024 rings wrap; serve 16 requests; one profiled prefill
+                and decode step for phi3 only). hubert-xlarge at full depth
+                on a (4, 4,096, 1,280) frames batch (96 K2 launches at hd
+                80, wgmma), its float32 prefill at B=1 through K2 (fma)
+                against the same prefill on `attention_ref`, and `serve`
+                refusing an encoder. qwen3-moe-235b-a22b at 12 of its 94
+                layers (a depth one card holds with room to spare; drops
+                at capacity 1,280 logged; the 8-token replay at 2 layers;
+                serve --layers 12).
+                jamba-1.5-large-398b, whose 8-layer period alone is 88 GB:
+                its three block kinds at full width, one at a time, over
+                (4, 4,096, 8,192) (one K2 and two K3 launches, each block's
+                device time, the MoE's drops), one full-width mamba layer
+                in float32 at B=1 x 512 against the plain intra-chunk
+                form; then the whole hybrid model at its smoke config on
+                the card (a prefill through K2 and K3, the 8-token replay,
+                `serve --preset tiny --device cuda`).
 
 In phases 4, 5, 9-15 every fixpoint step is one launch of the
 frontier-relax kernel: each path resets the launch count before it runs
@@ -171,7 +203,8 @@ warm-up and three timed segments per measured engine, which prices
 every bucket width on it; for phase 15b, on each rank).
 
 The last lines are one JSON object describing each kernel -- K2 once per
-route, every row with its launches by phase -- and then
+route, every row with its launches by phase, K2's rows also with their
+times at hubert's hd-80 shape -- and then
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; without one it
 exits 2 and prints no result. Imports nothing of JAX or of `repro`.
 """
@@ -219,7 +252,7 @@ from repro_torch.kernels.ssd.ref import (chunk_inputs,  # noqa: E402
                                          ssd_intra_ref, ssd_ref)
 from repro_torch.launch import graph_run, serve, steps  # noqa: E402
 from repro_torch.launch.serve_graph import GraphServer  # noqa: E402
-from repro_torch.models import attention, moe  # noqa: E402
+from repro_torch.models import attention, mamba, moe  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import DeclModule, init_module  # noqa: E402
 from repro_torch.obs import write_chrome_trace  # noqa: E402
@@ -1336,6 +1369,9 @@ REPLAY_LEN = 256              # float32 prefill-vs-decode prompt
 # expert, prefill drops pairs and the replay is no identity
 MOE_REPLAY_LEN = 8
 GRANITE = "granite_moe_3b_a800m"
+HUBERT = "hubert_xlarge"
+QWEN3_MOE = "qwen3_moe_235b_a22b"
+JAMBA = "jamba_1_5_large_398b"
 MOE_EP_TOL = 1e-2             # bf16, relative to max|y|
 
 
@@ -1374,12 +1410,12 @@ def attention_check(label: str, q, k, v, causal: bool,
     return err
 
 
-def attention_work(b, s, h, kh, hd, dtype) -> dict:
-    """Causal FLOPs 4*B*H*S^2/2*hd over the bf16 tensor-core rate, and
-    q, k, v, out bytes over the memory rate."""
+def attention_work(b, s, h, kh, hd, dtype, causal: bool = True) -> dict:
+    """FLOPs 4*B*H*S^2*hd (halved when causal) over the bf16 tensor-core
+    rate, and q, k, v, out bytes over the memory rate."""
     size = torch.tensor([], dtype=dtype).element_size()
     nbytes = (2 * b * s * h * hd + 2 * b * s * kh * hd) * size
-    ops = 4 * b * h * s * s / 2 * hd
+    ops = 4 * b * h * s * s * hd / (2 if causal else 1)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return {"bytes": nbytes, "ops": ops,
             "bound_ms": max(t_bytes, t_ops) * 1e3,
@@ -1389,7 +1425,7 @@ def attention_work(b, s, h, kh, hd, dtype) -> dict:
 def phase_attention(gen) -> tuple[float, dict]:
     errs = []
     for dtype in (torch.float32, torch.bfloat16):
-        for hd in (64, 128, 256):
+        for hd in (64, 80, 128, 256):
             group = []
             for kh in (8, 4, 1):                    # GQA ratio 1, 2, 8
                 q = randn(gen, (2, 320, 8, hd), dtype)
@@ -1419,22 +1455,27 @@ def phase_attention(gen) -> tuple[float, dict]:
             v, True, window))
     qcfg = configs.get("qwen3_0_6b")
     shape = (qcfg.num_heads, qcfg.num_kv_heads, qcfg.head_dim)
-    # at S=4096 a row's output is ~0.03, under the bf16 atol: the f32
-    # case at atol 2e-5 holds the long causal range on the CUDA cores, and
-    # the relative error holds it on the tensor cores
-    gcfg = configs.get(GRANITE)
-    for name, (h, kh, hd) in (
-            ("qwen3", shape),
-            # GQA ratio 3 at hd 64: granite-moe-3b-a800m's layer
-            ("granite", (gcfg.num_heads, gcfg.num_kv_heads, gcfg.head_dim))):
+    # every architecture's layer: GQA 3 at hd 64 (granite), hd 80
+    # non-causal MHA (hubert), GQA 4 (phi3), GQA 16 (qwen3-moe), hd 256
+    # with gemma3's window 1,024 on its local layers, GQA 8 (chameleon).
+    # At S=4096 a row's output is ~0.03, under the bf16 atol: the f32
+    # case at atol 2e-5 holds the long range on the CUDA cores, and the
+    # relative error holds it on the tensor cores
+    for name in ("qwen3_0_6b", GRANITE, HUBERT, "phi3_medium_14b",
+                 QWEN3_MOE, "gemma3_12b", "chameleon_34b"):
+        cfg = configs.get(name)
+        h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        window = cfg.pattern[0].window
         for dtype in (torch.float32, torch.bfloat16):
             q = randn(gen, (1, LM_SEQ, h, hd), dtype)
             k = randn(gen, (1, LM_SEQ, kh, hd), dtype)
             v = randn(gen, (1, LM_SEQ, kh, hd), dtype)
             errs.append(attention_check(
                 f"{name} layer {str(dtype)[6:]} B=1 S={LM_SEQ} H={h} "
-                f"KH={kh} hd={hd}", q, k, v, True, None,
+                f"KH={kh} hd={hd} causal={cfg.causal} window={window}", q,
+                k, v, cfg.causal, window,
                 rel_tol=ATTN_REL_TOL if dtype == torch.bfloat16 else None))
+            del q, k, v
 
     # timing at the main path's shape: the qwen3 prefill's layer
     b, s = LM_BATCH, LM_SEQ
@@ -1459,8 +1500,45 @@ def phase_attention(gen) -> tuple[float, dict]:
         f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
         f"{w['bound_ms']:.4f} ms ({w['bound_by']}; {w['ops']:.4g} ops, "
         f"{w['bytes']} B)")
+    del q, k, v, qt, kt, vt
     return max(errs), dict(w, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
-                           library_ms=library_ms)
+                           library_ms=library_ms, hd80=hd80_timing(gen))
+
+
+def hd80_timing(gen) -> dict:
+    """hubert-xlarge's prefill layer, bf16 (4, 4,096, 16, 80) non-causal:
+    the wgmma kernel (hd 80 in the hd-128 tile), the CUDA-core kernel at
+    the same shape, the plain version and SDPA (yardstick only), beside
+    the bound at the true hd and the padded tile's floor."""
+    cfg = configs.get(HUBERT)
+    b, s, h, kh, hd = (LM_BATCH, LM_SEQ, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim)
+    q = randn(gen, (b, s, h, hd), torch.bfloat16)
+    k = randn(gen, (b, s, kh, hd), torch.bfloat16)
+    v = randn(gen, (b, s, kh, hd), torch.bfloat16)
+    w = attention_work(b, s, h, kh, hd, torch.bfloat16, causal=False)
+    tile_ops = 4 * b * h * s * s * flash.wgmma_tile(hd)
+    tile_ms = tile_ops / BF16_OPS_PER_S * 1e3
+    ms = time_ms(lambda: flash.flash_attention_cuda(q, k, v, causal=False),
+                 reps=20)
+    fma_ms = time_ms(lambda: flash._launch("fma", q, k, v, False, None),
+                     reps=3, warmup=1)
+    plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=False),
+                       reps=2, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=False),
+                         reps=10)
+    log(f"time attention bf16 B={b} S={s} H={h} KH={kh} hd={hd} "
+        f"non-causal (hubert) [{flash.route(torch.bfloat16, hd)}, "
+        f"{flash.wgmma_tile(hd)}-column tile]: wgmma kernel {ms:.4f} ms "
+        f"({w['ops'] / ms / 1e9:.2f} TFLOP/s of the true hd), CUDA-core "
+        f"kernel {fma_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {w['bound_ms']:.4f} ms "
+        f"({w['bound_by']}; {w['ops']:.4g} ops at hd {hd}, {w['bytes']} "
+        f"B), padded tile's floor {tile_ms:.4f} ms ({tile_ops:.4g} ops)")
+    return dict(w, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
+                library_ms=library_ms, tile_bound_ms=tile_ms)
 
 
 def ssd_inputs(gen, b, l, h, p, n, a_shift=0.0):
@@ -1554,6 +1632,11 @@ def phase_ssd(gen) -> tuple[float, dict]:
     errs.append(ssd_check(f"mamba2 B={LM_BATCH} L={LM_SEQ} H={h} P={p} "
                           f"N={n} chunk={q}", gen, LM_BATCH, LM_SEQ, h, p,
                           n, q))
+    jcfg = configs.get(JAMBA)
+    jamba = (jcfg.ssm_heads, jcfg.ssm_head_dim, jcfg.ssm_state,
+             jcfg.ssm_chunk)
+    errs.append(ssd_check("jamba B=1 L=512 H={} P={} N={} chunk={}".format(
+        *jamba), gen, 1, 512, *jamba))
 
     x, dt, Bm, Cm, A_log, D = ssd_inputs(gen, LM_BATCH, LM_SEQ, h, p, n)
     C_c, B_c, dtx, cums = chunk_inputs(x, dt, Bm, Cm, A_log, q)
@@ -1567,7 +1650,30 @@ def phase_ssd(gen) -> tuple[float, dict]:
         f"{w['ops']:.4g} ops, {w['bytes']} B), f32 CUDA-core bound "
         f"{w['f32_bound_ms']:.4f} ms; {w['ops'] / ms / 1e9:.2f} TFLOP/s of "
         "needed work")
-    return max(errs), dict(w, ms=ms, plain_ms=plain_ms, library_ms=None)
+    del x, dt, Bm, Cm, C_c, B_c, dtx, cums
+    return max(errs), dict(w, ms=ms, plain_ms=plain_ms, library_ms=None,
+                           jamba=ssd_timing(gen, *jamba))
+
+
+def ssd_timing(gen, h, p, n, q) -> dict:
+    """The intra-chunk kernel at jamba's mamba layer in the prefill cell:
+    B=4 x 4,096, H=128 heads (16 groups of 8) of P=128, N=128, Q=256."""
+    x, dt, Bm, Cm, A_log, D = ssd_inputs(gen, LM_BATCH, LM_SEQ, h, p, n)
+    C_c, B_c, dtx, cums = chunk_inputs(x, dt, Bm, Cm, A_log, q)
+    del x, dt, Bm, Cm
+    w = ssd_work(LM_BATCH, LM_SEQ // q, q, n, h, p)
+    ms = time_ms(lambda: ssd.ssd_intra_cuda(C_c, B_c, dtx, cums), reps=10)
+    plain_ms = time_ms(lambda: ssd_intra_ref(C_c, B_c, dtx, cums), reps=2,
+                       warmup=1)
+    log(f"time ssd_intra f32 at jamba's layer B={LM_BATCH} "
+        f"nc={LM_SEQ // q} Q={q} N={n} H={h} P={p}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {w['bound_ms']:.4f} ms "
+        f"({w['bound_by']}; {w['ops']:.4g} ops, {w['bytes']} B), f32 "
+        f"CUDA-core bound {w['f32_bound_ms']:.4f} ms; "
+        f"{w['ops'] / ms / 1e9:.2f} TFLOP/s of needed work")
+    return {k: v for k, v in dict(w, ms=ms, plain_ms=plain_ms).items()
+            if k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                     "f32_bound_ms")}
 
 
 def profile_call(fn, label: str) -> None:
@@ -1660,47 +1766,81 @@ def profile_shares(fn, label: str, spans: dict) -> None:
         f"({parts.get(name, 0.0) / busy:.1%})" for name in spans))
 
 
-def lm_path(arch: str, kernel, rng) -> tuple[int, dict]:
-    """One architecture's serving path at full width (see the module
-    docstring, phases 8 and 16). `kernel` is the wrapper the path must
-    launch. Returns its launches in the two bf16 prefills and, for flash
-    attention, the launches by route: the bf16 prefills' (wgmma) and the
-    float32 prefill's (fma); the profiled calls are not counted."""
-    cfg = configs.get(arch)
-    is_moe = bool(cfg.num_experts)
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, seed=0)
-    torch.cuda.synchronize()
-    require(params.device.type == "cuda", f"{arch}: the model is not on CUDA")
-    nparam = sum(t.numel() for t in params.parameters())
-    nbytes = sum(t.numel() * t.element_size() for t in params.parameters())
-    log(f"{arch}: {nparam} parameters, {nbytes / 2**30:.2f} GiB on "
-        f"{params.device}, initialised in {time.perf_counter() - t0:.1f} s")
-    prefill = steps.make_prefill_step(cfg)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).cuda()
-    batch = {"tokens": tokens}
-
-    # the main path: counts start at 0 here
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count, and K2's by route, to 0."""
     for wrapper in KERNELS:
         wrapper.launches = 0
     routes = flash.flash_attention_cuda.route_launches
     for name in routes:
         routes[name] = 0
-    drops = []                 # MoE: dropped (token, choice) pairs per layer
+
+
+def layers_of(cfg, kind: str) -> int:
+    return cfg.repeat * sum(spec.kind == kind for spec in cfg.pattern)
+
+
+def drop_counter(drops: list):
+    """`moe.dispatch_buffer` that also records each dispatch's dropped
+    (token, choice) pairs in `drops` (patched in for one prefill)."""
     dispatch = moe.dispatch_buffer
 
     def counting(xt, ids, cap, e):
         out = dispatch(xt, ids, cap, e)
         drops.append((~out[2]).sum())
         return out
+    return mock.patch.object(moe, "dispatch_buffer", counting)
 
+
+def log_memory(label: str) -> None:
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"{label}: peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB allocated of {total / 2**30:.2f} GiB")
+
+
+def free() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def lm_path(arch: str, kernel, rng, cfg=None, replay_layers=None,
+            replay_len=None, profile=True, serve_flags=()) -> tuple[int, dict]:
+    """One architecture's serving path at full width (see the module
+    docstring, phases 8, 16 and 17). `kernel` is the wrapper the path must
+    launch; `cfg` the config (default `configs.get(arch)`; a depth cut for
+    qwen3-moe), `replay_layers` the depth of the float32 replay (default:
+    the whole model), `replay_len` its prompt; `profile` adds one profiled
+    prefill and decode step; `serve_flags` go to `serve.main` after the
+    defaults. Returns its launches in the two bf16 prefills and, for flash
+    attention, the launches by route: the bf16 prefills' (wgmma) and the
+    float32 prefill's (fma); the profiled calls are not counted."""
+    cfg = cfg or configs.get(arch)
+    is_moe = bool(cfg.num_experts)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    require(params.device.type == "cuda", f"{arch}: the model is not on CUDA")
+    nparam = sum(t.numel() for t in params.parameters())
+    nbytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    log(f"{arch}: {cfg.num_layers} layers, {nparam} parameters, "
+        f"{nbytes / 2**30:.2f} GiB on {params.device}, initialised in "
+        f"{time.perf_counter() - t0:.1f} s")
+    prefill = steps.make_prefill_step(cfg)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_SEQ))).cuda()
+    batch = {"tokens": tokens}
+
+    # the main path: counts start at 0 here
+    reset_counts()
+    routes = flash.flash_attention_cuda.route_launches
+    drops = []                 # MoE: dropped (token, choice) pairs per layer
     walls = []
     for i in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with (mock.patch.object(moe, "dispatch_buffer", counting)
-              if is_moe and i == 0 else contextlib.nullcontext()):
+        with (drop_counter(drops) if is_moe and i == 0
+              else contextlib.nullcontext()):
             logits = prefill(params, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
@@ -1724,6 +1864,7 @@ def lm_path(arch: str, kernel, rng) -> tuple[int, dict]:
     log(f"{arch} prefill B={LM_BATCH} S={LM_SEQ}: wall {walls[0]:.3f} / "
         f"{walls[1]:.3f} s, {ntok / walls[1]:.1f} tokens/s (second call), "
         f"launches {launches}{by_route}")
+    log_memory(f"{arch} weights + prefill")
     if is_moe:
         require(len(drops) == cfg.num_layers,
                 f"{arch}: {len(drops)} MoE dispatches in one prefill of "
@@ -1737,26 +1878,30 @@ def lm_path(arch: str, kernel, rng) -> tuple[int, dict]:
             f"{sum(per_layer)} of {total} (token, choice) pairs dropped "
             f"({sum(per_layer) / total:.4%}); per layer min "
             f"{min(per_layer)} max {max(per_layer)}")
-        profile_shares(lambda: prefill(params, batch), f"{arch} prefill",
-                       {"attention (K2)": (attention, "attend"),
-                        "moe dispatch scatter": (moe, "dispatch_buffer"),
-                        "moe expert products": (moe, "expert_ffn"),
-                        "moe combine gather": (moe, "combine")})
-    profile_call(lambda: prefill(params, batch), f"{arch} prefill")
-    profile_decode(params, cfg, f"{arch} decode step B=8")
+        if profile:
+            profile_shares(lambda: prefill(params, batch), f"{arch} prefill",
+                           {"attention (K2)": (attention, "attend"),
+                            "moe dispatch scatter": (moe, "dispatch_buffer"),
+                            "moe expert products": (moe, "expert_ffn"),
+                            "moe combine gather": (moe, "combine")})
+    if profile:
+        profile_call(lambda: prefill(params, batch), f"{arch} prefill")
+        profile_decode(params, cfg, f"{arch} decode step B=8")
     del params, logits
+    free()
 
     # float32: prefill through the kernels == token-by-token decode replay
-    replay = MOE_REPLAY_LEN if is_moe else REPLAY_LEN
+    replay = replay_len or (MOE_REPLAY_LEN if is_moe else REPLAY_LEN)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                activation_dtype="float32")
+                                activation_dtype="float32",
+                                num_layers=replay_layers or cfg.num_layers)
     params = M.init_params(cfg32, seed=1)
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (1, replay))).cuda()
     before = kernel.launches
     fma_before = routes.get("fma", 0)
     full = steps.make_prefill_step(cfg32)(params, {"tokens": prompt})
-    require(kernel.launches == before + cfg.num_layers,
+    require(kernel.launches == before + cfg32.num_layers,
             f"{arch}: the f32 prefill did not go through the kernel")
     if kernel is flash.flash_attention_cuda:
         path_routes["fma"] = routes["fma"] - fma_before
@@ -1767,13 +1912,15 @@ def lm_path(arch: str, kernel, rng) -> tuple[int, dict]:
         logits, cache = decode(params, cache, prompt[:, t:t + 1],
                                torch.full((1,), t, device="cuda"))
     torch.cuda.synchronize()
-    require(kernel.launches == before + cfg.num_layers,
+    require(kernel.launches == before + cfg32.num_layers,
             f"{arch}: decode launched the prefill kernel")
     diff = (logits - full).abs()
     tol = 2e-3 + 2e-2 * full.abs()
     note = (f" (an MoE at T={replay} <= capacity 8: no pair dropped)"
             if is_moe else "")
-    log(f"{arch} f32 prefill vs {replay}-step decode replay{note} "
+    depth = (f", {cfg32.num_layers} of {cfg.num_layers} layers"
+             if cfg32.num_layers != cfg.num_layers else "")
+    log(f"{arch} f32 prefill vs {replay}-step decode replay{note}{depth} "
         f"({time.perf_counter() - t0:.1f} s): max|diff| "
         f"{float(diff.max()):.3e}, max|logit| {float(full.abs().max()):.3e}, "
         f"worst diff/tol {float((diff / tol).max()):.3f}")
@@ -1781,17 +1928,19 @@ def lm_path(arch: str, kernel, rng) -> tuple[int, dict]:
             f"{arch}: float32 prefill and decode replay disagree "
             "(rtol 2e-2, atol 2e-3)")
     del params, cache
+    free()
 
     out = serve.main(["--arch", arch, "--preset", "full", "--slots", "8",
                       "--requests", "16", "--max-new", "32", "--max-seq",
-                      "4096"])
+                      "4096", *serve_flags])
     require(out["done"] == 16 and out["device"].startswith("cuda"),
             f"{arch}: serve answered {out['done']} of 16 requests on "
             f"{out['device']}")
     log(f"{arch} serve: 16 requests, {out['tokens']} tokens in "
         f"{out['steps']} steps, {out['seconds']:.3f} s, "
         f"{out['tokens'] / out['seconds']:.1f} decode tokens/s")
-    torch.cuda.empty_cache()
+    log_memory(f"{arch} (serve included)")
+    free()
     return launches, path_routes
 
 
@@ -1968,6 +2117,248 @@ def ep_check(cfg, group, gen) -> None:
     require(ok, "moe all_to_all disagrees with the one-group path")
 
 
+# ------------------------------------------------------------------ #
+# the other seven configurations (17)
+# ------------------------------------------------------------------ #
+DENSE = ("phi3_medium_14b", "mistral_nemo_12b", "gemma3_12b",
+         "chameleon_34b")
+# of qwen3-moe's 94 layers: 12 are 58.0 GiB of bf16 weights, ~63.5 GiB
+# at the B=4 prefill (8 layers peaked at 44.86 GiB with 39.39 of
+# weights); 14 would leave ~6.5 GiB of the card's 79.2 GiB, 16 do not fit
+QWEN3_MOE_LAYERS = 12
+GEMMA3_REPLAY_LEN = 1_088     # past the local layers' window of 1,024
+REPLAY_TOL = dict(rtol=2e-2, atol=2e-3)
+
+
+def hold(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """got within rtol 2e-2, atol 2e-3 of want, everywhere, and finite."""
+    diff = (got - want).abs()
+    tol = REPLAY_TOL["atol"] + REPLAY_TOL["rtol"] * want.abs()
+    ok = bool((diff <= tol).all()) and bool(torch.isfinite(got).all())
+    log(f"{label}: max|diff| {float(diff.max()):.3e}, max|ref| "
+        f"{float(want.abs().max()):.3e}, worst diff/tol "
+        f"{float((diff / tol).max()):.3f}: {ok}")
+    require(ok, f"{label}: outside rtol 2e-2, atol 2e-3")
+
+
+def hubert_path(gen) -> dict:
+    """hubert-xlarge at full depth on a frames batch: two bf16 prefills
+    through K2 (hd 80, wgmma), the float32 prefill at B=1 through K2's
+    CUDA-core route against the same prefill with `attention.attend` on
+    `attention_ref`, and `serve`'s refusal. Returns K2's launches by
+    route."""
+    cfg = configs.get(HUBERT)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0)
+    frames = randn(gen, (LM_BATCH, LM_SEQ, cfg.d_model), torch.bfloat16)
+    prefill = steps.make_prefill_step(cfg)
+    routes = flash.flash_attention_cuda.route_launches
+    reset_counts()
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(params, {"frames": frames})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    got = dict(routes)
+    require(got == {"wgmma": 2 * cfg.num_layers, "fma": 0},
+            f"{HUBERT}: bf16 prefill routes {got}; want "
+            f"{2 * cfg.num_layers} wgmma launches (hd 80)")
+    require(tuple(logits.shape) == (LM_BATCH, 1, cfg.padded_vocab)
+            and bool(torch.isfinite(logits).all()),
+            f"{HUBERT}: prefill logits {tuple(logits.shape)} not finite or "
+            "of the wrong shape")
+    ntok = LM_BATCH * LM_SEQ
+    log(f"{HUBERT} prefill frames ({LM_BATCH}, {LM_SEQ}, {cfg.d_model}): "
+        f"wall {walls[0]:.3f} / {walls[1]:.3f} s, {ntok / walls[1]:.1f} "
+        f"frames/s (second call), K2 {got}")
+    log_memory(f"{HUBERT} weights + prefill")
+    del params, logits, frames
+    free()
+
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    params = M.init_params(cfg32, seed=1)
+    x = {"frames": randn(gen, (1, LM_SEQ, cfg.d_model))}
+    prefill32 = steps.make_prefill_step(cfg32)
+    fma0 = routes["fma"]
+    out = prefill32(params, x)
+    require(routes["fma"] == fma0 + cfg.num_layers and routes["wgmma"]
+            == 2 * cfg.num_layers, f"{HUBERT}: f32 prefill routes {routes}")
+    fma = routes["fma"] - fma0
+
+    def plain(q, k, v, causal, window):
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    with mock.patch.object(attention, "attend", plain):
+        want = prefill32(params, x)
+    require(routes["fma"] == fma0 + cfg.num_layers,
+            f"{HUBERT}: the plain prefill launched K2")
+    hold(f"{HUBERT} f32 prefill B=1 S={LM_SEQ}, {cfg.num_layers} layers: "
+         "K2 (fma, hd 80) vs attention_ref", out, want)
+    del params, out, want
+    free()
+    try:
+        serve.main(["--arch", HUBERT, "--preset", "full"])
+    except SystemExit as e:
+        require("encoder-only" in str(e), f"{HUBERT} serve: {e}")
+        log(f"{HUBERT} serve: {e}")
+    else:
+        require(False, f"{HUBERT}: serve did not refuse an encoder")
+    return {"wgmma": got["wgmma"], "fma": fma}
+
+
+def jamba_blocks(gen) -> dict:
+    """jamba-1.5-large-398b's three block kinds at full width, one at a
+    time (one 8-layer period is 88 GB in bf16): positions 4 (attention +
+    dense FFN), 0 (mamba + dense FFN) and 1 (mamba + MoE, 16 experts x
+    24,576), each over a (4, 4,096, 8,192) bf16 input through the
+    block forward; then one full-width mamba layer in float32 at B=1 x 512
+    against the same layer with the plain intra-chunk form. Returns K2's
+    and K3's launches."""
+    cfg = configs.get(JAMBA)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    x = randn(gen, (LM_BATCH, LM_SEQ, cfg.d_model), torch.bfloat16)
+    reset_counts()
+    routes = flash.flash_attention_cuda.route_launches
+    for pos in (4, 0, 1):
+        spec = cfg.pattern[pos]
+        blk = M.Block(cfg, spec, torch.bfloat16, torch.device("cuda"))
+        init_module(blk, gen)
+        nbytes = sum(t.numel() * t.element_size() for t in blk.parameters())
+        drops = []
+        k2, k3 = routes["wgmma"], ssd.ssd_intra_cuda.launches
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        with drop_counter(drops) if spec.moe else contextlib.nullcontext():
+            start.record()
+            y = M._run_block(blk, x, cfg)
+            end.record()
+        torch.cuda.synchronize()
+        require(tuple(y.shape) == tuple(x.shape)
+                and bool(torch.isfinite(y).all()),
+                f"{JAMBA} block {pos}: output not finite or misshapen")
+        kind = f"{spec.kind}{' + MoE' if spec.moe else ' + dense FFN'}"
+        extra = ""
+        if spec.moe:
+            ntok = LM_BATCH * LM_SEQ
+            cap = moe._capacity(ntok, cfg.num_experts, cfg.top_k,
+                                cfg.capacity_factor)
+            extra = (f"; capacity {cap} per expert, {int(drops[0])} of "
+                     f"{ntok * cfg.top_k} (token, choice) pairs dropped")
+        log(f"{JAMBA} block {pos} ({kind}, {nbytes / 1e9:.1f} GB): "
+            f"{start.elapsed_time(end):.3f} ms on the card (one call), K2 "
+            f"+{routes['wgmma'] - k2}, K3 "
+            f"+{ssd.ssd_intra_cuda.launches - k3}{extra}")
+        del blk, y
+        free()
+    got = {"wgmma": routes["wgmma"], "fma": routes["fma"],
+           "ssd": ssd.ssd_intra_cuda.launches}
+    require(got == {"wgmma": 1, "fma": 0, "ssd": 2},
+            f"{JAMBA} blocks: launches {got}; want one K2 (wgmma) and two "
+            "K3")
+    log_memory(f"{JAMBA} blocks")
+    del x
+
+    layer = mamba.Mamba(cfg, torch.float32, torch.device("cuda"))
+    init_module(layer, gen)
+    xs = randn(gen, (1, 512, cfg.d_model))
+    k3 = ssd.ssd_intra_cuda.launches
+    out = mamba.apply(layer, xs, cfg)
+    require(ssd.ssd_intra_cuda.launches == k3 + 1,
+            f"{JAMBA}: the f32 mamba layer did not launch K3")
+    with mock.patch.object(ssd, "ssd_intra_cuda", ssd_intra_ref):
+        want = mamba.apply(layer, xs, cfg)
+    hold(f"{JAMBA} f32 mamba layer B=1 L=512 (2 chunks of "
+         f"{cfg.ssm_chunk}, H={cfg.ssm_heads} P={cfg.ssm_head_dim} "
+         f"N={cfg.ssm_state}): K3 vs ssd_intra_ref", out, want)
+    del layer, out, want
+    free()
+    return got
+
+
+def jamba_smoke(rng) -> dict:
+    """jamba's whole hybrid model at its smoke config on the card (K2 on
+    the CUDA-core route at hd 16, K3 at P 32): a prefill, the 8-token
+    replay and `serve --preset tiny --device cuda`. Returns K2's (fma)
+    and K3's launches in the prefill."""
+    cfg = configs.get_smoke(JAMBA)
+    params = M.init_params(cfg, seed=0)
+    n_attn, n_mamba = layers_of(cfg, "attn"), layers_of(cfg, "mamba")
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (LM_BATCH, 512))).cuda()
+    routes = flash.flash_attention_cuda.route_launches
+    reset_counts()
+    logits = M.prefill(params, {"tokens": tokens}, cfg)
+    got = {"fma": routes["fma"], "wgmma": routes["wgmma"],
+           "ssd": ssd.ssd_intra_cuda.launches}
+    require(got == {"fma": n_attn, "wgmma": 0, "ssd": n_mamba}
+            and bool(torch.isfinite(logits).all()),
+            f"{JAMBA} smoke prefill: launches {got}; want {n_attn} K2 (fma) "
+            f"and {n_mamba} K3, finite logits")
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                           (1, MOE_REPLAY_LEN))).cuda()
+    full = M.prefill(params, {"tokens": prompt}, cfg)
+    cache = M.init_cache(cfg, 1, MOE_REPLAY_LEN)
+    for t in range(MOE_REPLAY_LEN):
+        step, cache = M.decode_step(params, cache, prompt[:, t:t + 1],
+                                    torch.full((1,), t, device="cuda"), cfg)
+    hold(f"{JAMBA} smoke ({cfg.num_layers} layers: {n_attn} attention, "
+         f"{n_mamba} mamba, MoE on odd positions) f32 prefill vs "
+         f"{MOE_REPLAY_LEN}-step decode replay", step, full)
+    out = serve.main(["--arch", JAMBA, "--preset", "tiny", "--device",
+                      "cuda", "--slots", "8", "--requests", "16"])
+    require(out["done"] == 16 and out["device"].startswith("cuda"),
+            f"{JAMBA} smoke serve: {out['done']} of 16 on {out['device']}")
+    log(f"{JAMBA} smoke: prefill ({LM_BATCH}, 512) K2 {n_attn} (fma) K3 "
+        f"{n_mamba}; serve 16 requests, {out['tokens']} tokens in "
+        f"{out['steps']} steps, {out['seconds']:.3f} s")
+    return got
+
+
+def phase_configs(rng, gen) -> tuple[dict, dict, dict]:
+    """Phase 17. Returns K2's launches by phase on the wgmma and the fma
+    route, and K3's."""
+    wgmma, fma, k3 = {}, {}, {}
+    for arch in DENSE:
+        t0 = time.perf_counter()
+        cfg = configs.get(arch)
+        period = len(cfg.pattern)
+        n, r = lm_path(arch, flash.flash_attention_cuda, rng,
+                       replay_layers=period if period > 1 else 4,
+                       replay_len=(GEMMA3_REPLAY_LEN if arch == "gemma3_12b"
+                                   else None),
+                       profile=arch == DENSE[0])
+        wgmma[f"17 {arch}"] = r["wgmma"]
+        fma[f"17 {arch} f32 replay"] = r["fma"]
+        log(f"phase 17 {arch}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    r = hubert_path(gen)
+    wgmma[f"17 {HUBERT}"] = r["wgmma"]
+    fma[f"17 {HUBERT} f32"] = r["fma"]
+    log(f"phase 17 {HUBERT}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cut = dataclasses.replace(configs.get(QWEN3_MOE),
+                              num_layers=QWEN3_MOE_LAYERS)
+    n, r = lm_path(QWEN3_MOE, flash.flash_attention_cuda, rng, cfg=cut,
+                   replay_layers=2, profile=False,
+                   serve_flags=("--layers", str(QWEN3_MOE_LAYERS)))
+    wgmma[f"17 {QWEN3_MOE} ({QWEN3_MOE_LAYERS} of 94 layers)"] = r["wgmma"]
+    fma[f"17 {QWEN3_MOE} f32 replay"] = r["fma"]
+    log(f"phase 17 {QWEN3_MOE}: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    r = jamba_blocks(gen)
+    wgmma[f"17 {JAMBA} blocks"] = r["wgmma"]
+    k3[f"17 {JAMBA} blocks"] = r["ssd"]
+    r = jamba_smoke(rng)
+    fma[f"17 {JAMBA} smoke"] = r["fma"]
+    k3[f"17 {JAMBA} smoke"] = r["ssd"]
+    log(f"phase 17 {JAMBA}: {time.perf_counter() - t0:.1f} s")
+    return wgmma, fma, k3
+
+
 def kernel_row(name, source, replaces, launches, err, t, by_phase,
                route="cuda") -> dict:
     return {"name": name, "route": route, "source": source,
@@ -2070,11 +2461,17 @@ def main() -> None:
         finally:
             dist.destroy_process_group()
 
+    t0 = time.perf_counter()
+    wgmma17, fma17, k3_17 = phase_configs(rng, gen)
+    log(f"phase 17 configs: {time.perf_counter() - t0:.1f} s; K2 wgmma "
+        f"{wgmma17}, fma {fma17}; K3 {k3_17}")
+
     k1_main = sum(v for k, v in k1_phases.items() if "rank" not in k)
     wgmma_by_phase = {"8 qwen3": qwen3_routes["wgmma"],
-                      "16 granite": granite_routes["wgmma"]}
+                      "16 granite": granite_routes["wgmma"], **wgmma17}
     fma_by_phase = {"8 qwen3 f32 replay": qwen3_routes["fma"],
-                    "16 granite f32 replay": granite_routes["fma"]}
+                    "16 granite f32 replay": granite_routes["fma"], **fma17}
+    ssd_by_phase = {"8 mamba2": ssd_launches, **k3_17}
     print(json.dumps({"kernels": [
         kernel_row("frontier_relax",
                    "src/repro_torch/kernels/frontier/csrc/frontier_relax.cu",
@@ -2086,19 +2483,25 @@ def main() -> None:
             "src/repro_torch/kernels/attention/csrc/flash_attention_wgmma.cu",
             "src/repro/kernels/attention/flash.py:84",
             sum(wgmma_by_phase.values()), err_attn, t_attn, wgmma_by_phase),
-            kernel_route="wgmma"),
+            kernel_route="wgmma", hubert_hd80={
+                k: t_attn["hd80"][k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                    "tile_bound_ms")}),
         dict(kernel_row(
             "flash_attention",
             "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
             "src/repro/kernels/attention/flash.py:84",
             sum(fma_by_phase.values()), err_attn,
             dict(t_attn, ms=t_attn["fma_ms"]), fma_by_phase),
-            kernel_route="fma"),
+            kernel_route="fma", hubert_hd80={
+                "ms": t_attn["hd80"]["fma_ms"],
+                "bound_ms": t_attn["hd80"]["bound_ms"]}),
         dict(kernel_row("ssd_intra",
                         "src/repro_torch/kernels/ssd/csrc/ssd_intra.cu",
-                        "src/repro/kernels/ssd/ssd.py:50", ssd_launches,
-                        err_ssd, t_ssd, {"8 mamba2": ssd_launches}),
-             bound_rate=t_ssd["bound_rate"]),
+                        "src/repro/kernels/ssd/ssd.py:50",
+                        sum(ssd_by_phase.values()), err_ssd, t_ssd,
+                        ssd_by_phase),
+             bound_rate=t_ssd["bound_rate"], jamba_shape=t_ssd["jamba"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

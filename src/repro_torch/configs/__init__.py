@@ -1,9 +1,10 @@
 """Model configurations of the port: the counterpart of `repro.configs`.
 
 `ARCH_IDS` and `SHAPES` list the reference's architectures and input
-shapes. `get(name)` returns an architecture's full `ModelConfig` and
-`get_smoke(name)` its reduced same-family config for CPU tests; both
-raise for an architecture whose model is not ported yet.
+shapes. `get(name)` returns an architecture's full `ModelConfig`,
+`get_smoke(name)` its reduced same-family config for CPU tests, and
+`cells()` the (arch x shape) cells with the reference's skip rules
+(`shape_supported`) applied.
 """
 from __future__ import annotations
 
@@ -22,9 +23,6 @@ ARCH_IDS = [
     "chameleon_34b",
 ]
 
-# the architectures whose config (and model) the port has
-PORTED = ("qwen3_0_6b", "mamba2_370m", "granite_moe_3b_a800m")
-
 # assigned input shapes: name -> (seq_len, global_batch, step kind)
 SHAPES = {
     "train_4k":    dict(seq_len=4_096,   global_batch=256, step="train"),
@@ -37,10 +35,6 @@ SHAPES = {
 def _module(name: str):
     if name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {name!r}; one of {ARCH_IDS}")
-    if name not in PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet (ROADMAP Queue 1 item 11); ported: "
-            f"{', '.join(PORTED)}")
     return importlib.import_module(f"repro_torch.configs.{name}")
 
 
@@ -50,3 +44,25 @@ def get(name: str):
 
 def get_smoke(name: str):
     return _module(name).SMOKE
+
+
+def shape_supported(cfg, shape_name: str) -> tuple[bool, str]:
+    """The reference's skip rules. Returns (supported, reason)."""
+    spec = SHAPES[shape_name]
+    if spec["step"] == "decode" and not cfg.has_decode:
+        return False, "encoder-only: no autoregressive decode step"
+    if shape_name == "long_500k" and not cfg.supports_long_context():
+        return False, ("pure full-attention decoder: 500k KV cache is not "
+                       "sub-quadratic-servable (assignment skip rule)")
+    return True, ""
+
+
+def cells():
+    """All runnable (arch, shape) cells + the skip list."""
+    run, skipped = [], []
+    for a in ARCH_IDS:
+        cfg = get(a)
+        for s in SHAPES:
+            ok, reason = shape_supported(cfg, s)
+            (run if ok else skipped).append((a, s) if ok else (a, s, reason))
+    return run, skipped

@@ -34,7 +34,8 @@
 //    behaves as in the reference); keys past T take -inf and weigh 0.
 //  * Reads the (B, S, H, hd) / (B, T, KH, hd) layouts directly: no
 //    transposes around the call. Dynamic shared memory above 48 KB
-//    (cudaFuncSetAttribute): 117 KB at hd=128, 217 KB at hd=256.
+//    (cudaFuncSetAttribute): 80 KB at hd=80, 117 KB at hd=128, 217 KB at
+//    hd=256. hd 80 (hubert-xlarge) gives each thread 5 output columns.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -82,6 +83,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, T* __restrict__ o, int S, int Tk, int H,
           int KH, int causal, int window, float scale) {
   constexpr int CPT = HD / 16;        // output columns per thread
+  static_assert(HD % 16 == 0, "16 threads share a row's columns");
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;                   // [HD][LDT]  q tile, transposed
   float* Kt = Qt + HD * LDT;          // [HD][LDT]  k tile, transposed
@@ -243,6 +245,7 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
     case 16: return launch<T, 16>(q, k, v, o, B, S, Tk, H, KH, causal, window, scale, st);
     case 32: return launch<T, 32>(q, k, v, o, B, S, Tk, H, KH, causal, window, scale, st);
     case 64: return launch<T, 64>(q, k, v, o, B, S, Tk, H, KH, causal, window, scale, st);
+    case 80: return launch<T, 80>(q, k, v, o, B, S, Tk, H, KH, causal, window, scale, st);
     case 128: return launch<T, 128>(q, k, v, o, B, S, Tk, H, KH, causal, window, scale, st);
     case 256: return launch<T, 256>(q, k, v, o, B, S, Tk, H, KH, causal, window, scale, st);
     default: return cudaErrorInvalidValue;

@@ -1,5 +1,5 @@
 // GQA flash attention, forward only, on Hopper's tensor cores (sm_90a):
-// the bf16 route for head dims 64, 128 and 256.
+// the bf16 route for head dims 64, 80, 128 and 256.
 //
 // Replaces, with flash_attention.cu (the f32 route and bf16 at hd 16/32),
 // the Pallas TPU kernel `repro.kernels.attention.flash.flash_attention_pallas`
@@ -48,6 +48,13 @@
 //    past T arrive as zeros from TMA, so keys >= T are masked to -inf.
 //  * hd=256 takes a 64-row kv tile: Q 64 KB + 2 x (K + V) 128 KB of the
 //    227 KB of shared memory; hd=128: 32 + 128 KB; hd=64: 16 + 64 KB.
+//  * hd=80 (hubert-xlarge) runs in the hd=128 tile layout: the tensor maps
+//    carry the true inner extent, 80 columns (a 160-byte row stride), so
+//    TMA fills the second box's columns 80-127 with zeros on load, as it
+//    does rows past T. The zero columns add nothing to Q.K^T, P.V gives
+//    zeros there, and the TMA store of O clips them. It costs 128/80 = 1.6x
+//    the products of a native hd-80 tile, on the tensor cores; the scale
+//    is the wrapper's 1/sqrt(80).
 // The two consumers do not yet overlap one's softmax with the other's
 // products (ping-pong), and the grid is not persistent.
 #include <cuda.h>
@@ -570,7 +577,8 @@ EncodeTiled encoder() {
 
 // A 4-D map over a contiguous (batch, rows, heads, hd) bf16 tensor, boxes
 // of 64 hd columns x `box_rows` rows of one head, 128-byte swizzle;
-// out-of-bounds rows read as zeros and are not written.
+// out-of-bounds rows and columns (past hd, for a tile wider than the
+// tensor) read as zeros and are not written.
 int make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int rows,
              int batch, int box_rows) {
   const EncodeTiled encode = encoder();
@@ -590,17 +598,18 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int rows,
   return r == CUDA_SUCCESS ? 0 : ERR_TENSOR_MAP;
 }
 
+// HD is the tile's width, hd (<= HD) the tensors' head dim.
 template <int HD>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Tk, int H, int KH, int causal, int window, float scale,
-           cudaStream_t stream) {
+           int S, int Tk, int H, int KH, int hd, int causal, int window,
+           float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap qm, km, vm, om;
   int err;
-  if ((err = make_map(&qm, q, HD, H, S, B, 64))) return err;
-  if ((err = make_map(&km, k, HD, KH, Tk, B, C::BKV))) return err;
-  if ((err = make_map(&vm, v, HD, KH, Tk, B, C::BKV))) return err;
-  if ((err = make_map(&om, o, HD, H, S, B, 64))) return err;
+  if ((err = make_map(&qm, q, hd, H, S, B, 64))) return err;
+  if ((err = make_map(&km, k, hd, KH, Tk, B, C::BKV))) return err;
+  if ((err = make_map(&vm, v, hd, KH, Tk, B, C::BKV))) return err;
+  if ((err = make_map(&om, o, hd, H, S, B, 64))) return err;
   const cudaError_t attr = cudaFuncSetAttribute(
       flash_wgmma<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (attr != cudaSuccess) return (int)attr;
@@ -615,7 +624,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // q (B,S,H,hd), k/v (B,T,KH,hd), out (B,S,H,hd), all contiguous and
 // 16-byte aligned; dtype must be 1 (bfloat16; the signature is that of
-// flash_attention_launch); hd in {64, 128, 256}. window <= 0: no window.
+// flash_attention_launch); hd in {64, 80, 128, 256} (80 in the hd-128
+// tile). window <= 0: no window.
 // Returns 0, a cudaError_t, or one of the tensor-map errors above; the
 // wrapper raises on anything but 0.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
@@ -632,9 +642,10 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
     return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (HD) {
-    case 64: return launch<64>(q, k, v, o, B, S, Tk, H, KH, causal, window, scale, st);
-    case 128: return launch<128>(q, k, v, o, B, S, Tk, H, KH, causal, window, scale, st);
-    case 256: return launch<256>(q, k, v, o, B, S, Tk, H, KH, causal, window, scale, st);
+    case 64: return launch<64>(q, k, v, o, B, S, Tk, H, KH, 64, causal, window, scale, st);
+    case 80: return launch<128>(q, k, v, o, B, S, Tk, H, KH, 80, causal, window, scale, st);
+    case 128: return launch<128>(q, k, v, o, B, S, Tk, H, KH, 128, causal, window, scale, st);
+    case 256: return launch<256>(q, k, v, o, B, S, Tk, H, KH, 256, causal, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

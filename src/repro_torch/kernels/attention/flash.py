@@ -4,8 +4,10 @@ Two kernels compute the Pallas TPU kernel
 `repro.kernels.attention.flash.flash_attention_pallas`, one route each;
 `route` picks it from the dtype and head dim, in one place:
 
-* ``"wgmma"``: `csrc/flash_attention_wgmma.cu`, bf16 at hd 64/128/256, on
-  the tensor cores (wgmma, TMA-fed K/V, a producer warpgroup);
+* ``"wgmma"``: `csrc/flash_attention_wgmma.cu`, bf16 at hd 64/80/128/256,
+  on the tensor cores (wgmma, TMA-fed K/V, a producer warpgroup); hd 80
+  runs in the hd-128 tile (`wgmma_tile`), its columns 80-127 zero-filled
+  by TMA;
 * ``"fma"``: `csrc/flash_attention.cu`, f32 at every hd and bf16 at hd
   16/32, f32 FMAs on the CUDA cores (a tensor-core product would not hold
   the f32 cases).
@@ -30,8 +32,8 @@ from repro_torch.kernels import _build
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"                # the "fma" route
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"    # the "wgmma" route
-HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 # route -> (source, prefix of its C functions `<prefix>_launch` and
 # `<prefix>_error_string`, which share one signature)
@@ -41,7 +43,7 @@ ROUTES = {"wgmma": (WGMMA_SOURCE, "flash_attention_wgmma"),
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that q/k/v of `dtype` and `head_dim` take: ``"wgmma"``
-    for bf16 at hd 64/128/256, ``"fma"`` for f32 at any hd in
+    for bf16 at hd 64/80/128/256, ``"fma"`` for f32 at any hd in
     `HEAD_DIMS` and bf16 at hd 16/32. Raises on anything else."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head_dim {head_dim} not "
@@ -52,6 +54,14 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
         return "fma"
     raise ValueError(f"flash_attention_cuda: dtype {dtype}; the kernels "
                      "take float32 or bfloat16")
+
+
+def wgmma_tile(head_dim: int) -> int:
+    """The head-dim width of the "wgmma" route's tiles for `head_dim`:
+    hd 80 runs in the hd-128 layout (two 64-column boxes, whose columns
+    80-127 TMA fills with zeros on load and clips on store); the other
+    head dims in their own."""
+    return 128 if head_dim == 80 else head_dim
 
 
 def kv_tile_range(qi: int, bq: int, bkv: int, causal: bool,

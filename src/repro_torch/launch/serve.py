@@ -1,5 +1,5 @@
 """Serving launcher: continuous-batching decode loop (the port of
-`repro.launch.serve`, same flags and loop, plus --device).
+`repro.launch.serve`, same flags and loop, plus --device and --layers).
 
 Decode slots are the PEs and requests the packets: a slot activates when
 a request arrives and retires when the request has its tokens, so new
@@ -13,10 +13,17 @@ Usage:
                                           # on the CUDA device (default)
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch granite_moe_3b_a800m --preset full   # the MoE (also mamba2_370m)
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3_moe_235b_a22b --preset full --layers 12
+                                          # a depth cut that fits one card
+
+Every architecture of `configs.ARCH_IDS` serves; an encoder
+(hubert_xlarge) exits with "encoder-only; nothing to serve".
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -40,9 +47,20 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' "
                          "runs the plain versions)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the first N layers only (a multiple of the "
+                         "pattern's length): a depth cut for a model that "
+                         "does not fit the card whole")
     args = ap.parse_args(argv)
 
     cfg = C.get_smoke(args.arch) if args.preset == "tiny" else C.get(args.arch)
+    if args.layers is not None:
+        period = len(cfg.pattern)
+        if not (0 < args.layers <= cfg.num_layers
+                and args.layers % period == 0):
+            ap.error(f"--layers {args.layers}: {cfg.name} takes a multiple "
+                     f"of its {period}-layer pattern up to {cfg.num_layers}")
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
     if not cfg.has_decode:
         raise SystemExit(f"{cfg.name} is encoder-only; nothing to serve")
     dev = resolve_device(args.device, "serve")

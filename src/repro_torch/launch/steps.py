@@ -9,7 +9,8 @@ from repro_torch.models.config import ModelConfig
 
 
 def make_prefill_step(cfg: ModelConfig):
-    """(params, batch) -> last-position logits (B,1,V) f32."""
+    """(params, batch) -> last-position logits (B,1,V) f32. batch holds
+    "tokens" (B,S), or "frames" (B,S,d) for the `frames` frontend."""
     def prefill_step(params, batch):
         return M.prefill(params, batch, cfg)
     return prefill_step

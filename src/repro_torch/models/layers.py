@@ -44,7 +44,9 @@ def init_param(gen: torch.Generator, decl: ParamDecl, dtype: torch.dtype,
         scale = 1.0
     x = torch.randn(decl.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * scale).to(dtype)
+    # in place: one f32 copy of the tensor at a time (a jamba expert
+    # stack is 12.9 GB in f32)
+    return x.mul_(scale).to(dtype)
 
 
 class DeclModule(nn.Module):

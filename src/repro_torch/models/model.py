@@ -7,16 +7,22 @@ norm, and the tied or untied head over `padded_vocab`. Where the
 reference scans one stacked parameter tree over `repeat`, the port keeps
 one module per layer (`convert.params_from_jax` splits the stacked axis).
 
+  embed_inputs -- token ids through the scaled embedding, or, for the
+                  `frames` frontend (hubert), the batch's precomputed
+                  frame embeddings (B,S,d) as they are;
   prefill      -- forward over a prompt, last-position logits in f32; the
                   path that reaches the flash-attention and SSD kernels;
   decode_step  -- one token against per-layer KV / SSM caches (no kernel);
+                  an encoder (`frames`) has none and raises;
   init_cache / cache_len -- the caches, ring-sized for windowed layers.
 
 An FFN is dense SwiGLU, or MoE (`models.moe`, one token group, as the
-reference runs without a mesh); serving drops the MoE's aux loss.
+reference runs without a mesh); serving drops the MoE's aux loss. A
+`frames` model still declares `embed` (and an untied `lm_head`), as the
+reference does.
 
-Not ported yet (ROADMAP Queue 1 item 11): the `frames` frontend and the
-training surface (`train_loss`, `chunked_ce`).
+Not ported yet (ROADMAP Queue 1 item 11): the training surface
+(`train_loss`, `chunked_ce`).
 """
 from __future__ import annotations
 
@@ -30,8 +36,6 @@ from repro_torch.models import attention, mamba, moe
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import (DTYPES, DeclModule, ParamDecl,
                                        init_module, rms_norm, swiglu)
-
-NOT_PORTED = "not ported yet (ROADMAP Queue 1 item 11)"
 
 
 def _ffn_decls(cfg: ModelConfig) -> dict:
@@ -77,9 +81,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.frontend == "frames":
-            raise NotImplementedError(
-                f"the 'frames' frontend ({cfg.name}) is {NOT_PORTED}")
         dev = resolve_device(device, "LM")
         dtype = DTYPES[cfg.param_dtype]
         head = {"embed": ParamDecl((cfg.padded_vocab, cfg.d_model),
@@ -142,11 +143,20 @@ def embed_tokens(params: LM, tokens, cfg: ModelConfig):
     return (emb.float() * math.sqrt(cfg.d_model)).to(act)
 
 
+def embed_inputs(params: LM, batch: dict, cfg: ModelConfig):
+    """batch["frames"] (B,S,d) in the activation dtype for the `frames`
+    frontend, else batch["tokens"] (B,S) through `embed_tokens`."""
+    if cfg.frontend == "frames":
+        return batch["frames"].to(DTYPES[cfg.activation_dtype])
+    return embed_tokens(params, batch["tokens"], cfg)
+
+
 @torch.no_grad()
 def prefill(params: LM, batch: dict, cfg: ModelConfig):
-    """Forward pass over batch["tokens"] (B,S) returning the last
-    position's logits (B,1,padded_vocab) in f32."""
-    x = embed_tokens(params, batch["tokens"], cfg)
+    """Forward pass over batch["tokens"] (B,S), or batch["frames"]
+    (B,S,d) for the `frames` frontend, returning the last position's
+    logits (B,1,padded_vocab) in f32."""
+    x = embed_inputs(params, batch, cfg)
     hidden = backbone(params, x, cfg)
     last = hidden[:, -1:]
     return (last @ params.head_weights().T).float()
@@ -188,7 +198,9 @@ def decode_step(params: LM, cache: list[dict], tokens, pos,
 
     Returns (logits (B,1,padded_vocab) f32, new cache). Attention caches
     are updated in place (see `attention.decode`); mamba states are
-    replaced."""
+    replaced. Raises ValueError for an encoder (`frames` frontend)."""
+    if cfg.frontend == "frames":
+        raise ValueError("encoder models have no decode step")
     x = embed_tokens(params, tokens, cfg)
     new_cache = []
     for blk, c in zip(params.blocks, cache):

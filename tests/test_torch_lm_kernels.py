@@ -12,6 +12,9 @@ raise), and the "wgmma" route's numerics (bf16 q, k, v; P rounded to bf16
 before P.V; tiled online softmax in exp2) emulated on the CPU and held
 against both references at the bf16 tolerances of `chip_smoke.py`.
 
+hd 80 (hubert-xlarge) against `flash_attention_pallas(interpret=True)`,
+and on the "wgmma" route in the hd-128 tile with zero columns 80-127.
+
 SSD (K3): `ssd_intra_ref` against `ssd_intra_pallas(interpret=True)`;
 `ssd_ref`, `ssd_chunked` and the kernel path's torch glue (`ssd_cuda`
 with the plain intra-chunk form in place of the kernel) against
@@ -86,6 +89,22 @@ def test_attention_matches_pallas_interpret(causal, window):
     np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
 
 
+@pytest.mark.parametrize("kh", [4, 1])              # GQA 1 and 4
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_hd80_matches_pallas_interpret(causal, window, kh):
+    """hubert-xlarge's head dim, which the reference's kernel takes as any
+    other (bq == bkv: the reference's causal range is short only when
+    bq > bkv)."""
+    q, k, v = _qkv(128, 4, kh, 80, seed=80 + kh)
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, bq=64, bkv=64, interpret=True))
+    got = attention_ref(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                        window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+
+
 def _visible_tiles(qi, bq, bkv, causal, window, s, t):
     """kv tiles holding at least one (q, k) pair the mask lets through."""
     qs = np.arange(qi * bq, min(qi * bq + bq, s))[:, None]
@@ -129,25 +148,27 @@ def test_flash_cuda_wrapper_rejects_cpu_tensors():
         flash.flash_attention_cuda(q, k, v)
     assert flash.flash_attention_cuda.launches == before
     assert flash.flash_attention_cuda.route_launches == routes
-    assert set(flash.HEAD_DIMS) == {16, 32, 64, 128, 256}
+    assert set(flash.HEAD_DIMS) == {16, 32, 64, 80, 128, 256}
     for source in (flash.SOURCE, flash.WGMMA_SOURCE):
         src = source.read_text()
         assert "flash_attention_pallas" in src        # names what it replaces
         assert "kv_tile_range" in src
 
 
-@pytest.mark.parametrize("hd", [16, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float16])
 def test_flash_route_rule(dtype, hd):
-    """bf16 at hd 64/128/256 takes the tensor-core kernel; f32 at every
-    hd and bf16 at hd 16/32 the CUDA-core kernel; anything else raises."""
+    """bf16 at hd 64/80/128/256 takes the tensor-core kernel (hd 80 in the
+    hd-128 tile); f32 at every hd and bf16 at hd 16/32 the CUDA-core
+    kernel; anything else raises."""
     if hd not in flash.HEAD_DIMS or dtype == torch.float16:
         with pytest.raises(ValueError):
             flash.route(dtype, hd)
         return
-    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 128, 256)
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 80, 128, 256)
             else "fma")
+    assert flash.wgmma_tile(hd) == (128 if hd == 80 else hd)
     assert flash.route(dtype, hd) == want
     assert flash.ROUTES[want][0].exists()
 
@@ -156,20 +177,24 @@ def _wgmma_emulation(q, k, v, causal, window):
     """The "wgmma" route's arithmetic in f32 on the CPU: per 128-row q tile
     the kv tiles of `kv_tile_range`; S = q k^T of the bf16 inputs in f32;
     the online softmax in log2 units with the kernel's -1e30 mask; P
-    rounded to bf16 before P.V; O / max(l, 1e-30) rounded to bf16."""
+    rounded to bf16 before P.V; O / max(l, 1e-30) rounded to bf16. The
+    tiles are `flash.wgmma_tile(hd)` columns wide: at hd 80, 128 columns
+    whose columns 80-127 are zero (TMA's fill), cut off at the store."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
-    bq, bkv = 128, 64 if hd == 256 else 128      # BQ, BKV of the source
+    tile = flash.wgmma_tile(hd)
+    bq, bkv = 128, 64 if tile == 256 else 128    # BQ, BKV of the source
     scale_log2 = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) \
         * torch.tensor(1.4426950408889634, dtype=torch.float32)
-    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    qf, kf, vf = (torch.nn.functional.pad(x.float(), (0, tile - hd))
+                  .transpose(1, 2) for x in (q, k, v))
     kf, vf = (x.repeat_interleave(h // kh, dim=1) for x in (kf, vf))
-    out = torch.empty(b, h, s, hd)
+    out = torch.empty(b, h, s, tile)
     for qi in range(-(-s // bq)):
         rows = torch.arange(qi * bq, min(qi * bq + bq, s))
         m = torch.full((b, h, rows.numel()), -1e30)
         l = torch.zeros_like(m)
-        o = torch.zeros(b, h, rows.numel(), hd)
+        o = torch.zeros(b, h, rows.numel(), tile)
         first, last = flash.kv_tile_range(qi, bq, bkv, causal, window, s, t)
         for kt in range(first, last + 1):
             keys = torch.arange(kt * bkv, min(kt * bkv + bkv, t))
@@ -187,7 +212,7 @@ def _wgmma_emulation(q, k, v, causal, window):
             o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, keys]
             m = mn
         out[:, :, rows] = o / l.clamp_min(1e-30)[..., None]
-    return out.transpose(1, 2).bfloat16()
+    return out[..., :hd].transpose(1, 2).bfloat16()
 
 
 @pytest.mark.parametrize("h,kh,hd,s,causal,window", [
@@ -196,6 +221,7 @@ def _wgmma_emulation(q, k, v, causal, window):
     (8, 8, 64, 320, False, None),
     (4, 2, 256, 320, True, None),       # bq > bkv
     (4, 1, 64, 200, True, 50),          # ragged
+    (16, 16, 80, 320, False, None),     # hubert-xlarge: the hd-128 tile
 ])
 def test_wgmma_route_numerics_hold_against_reference(h, kh, hd, s, causal,
                                                      window):

@@ -7,7 +7,8 @@ packages compute with the same tensors. The port's `rms_norm`,
 a few `decode_step`s must equal the reference's at f32 atol 1e-4, rtol
 1e-4; the port's decode replay must equal its prefill (rtol 2e-2, atol
 2e-3, as tests/test_models.py holds the reference); the serving launcher
-runs to its end on the CPU; unported architectures and blocks raise.
+runs to its end on the CPU. The other seven architectures are held in
+tests/test_torch_configs.py.
 """
 import dataclasses
 
@@ -216,23 +217,18 @@ def test_params_from_jax_takes_bf16():
                                   want.view(np.int16))
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "gemma3_12b",
-                                  "hubert_xlarge"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        configs.get(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 11"):
-        configs.get_smoke(arch)
-
-
 def test_moe_blocks_and_frames_frontend_raise():
-    """MoE blocks are ported (they carry `moe.decls`); the frames
-    frontend still raises."""
+    """MoE blocks are ported (they carry `moe.decls`), and so is the
+    frames frontend: a frames `LM` builds and still declares `embed` (and
+    an untied `lm_head`), as the reference does."""
     cfg = configs.get_smoke("granite_moe_3b_a800m")
     blk = M.LM(cfg, device="cpu").blocks[0]
     assert blk.spec.moe and set(blk.ffn.decls) == {"router", "w_gate",
                                                    "w_in", "w_out"}
     assert tuple(blk.ffn["w_gate"].shape) == (
         cfg.num_experts, cfg.d_model, cfg.expert_d_ff)
-    with pytest.raises(NotImplementedError, match="frames"):
-        M.LM(dataclasses.replace(cfg, frontend="frames"), device="cpu")
+    frames = M.LM(dataclasses.replace(cfg, frontend="frames",
+                                      tie_embeddings=False), device="cpu")
+    assert set(frames.embedding.decls) == {"embed", "lm_head"}
+    assert tuple(frames.embedding["embed"].shape) == (cfg.padded_vocab,
+                                                      cfg.d_model)
