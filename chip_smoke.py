@@ -7,8 +7,8 @@ Phases (every failure raises and exits nonzero):
   1. device  -- the card's name, and its name and power limit from
                 nvidia-smi;
   2. build   -- compile the CUDA kernels (frontier relax, flash attention
-                on the CUDA cores and on the tensor cores, SSD
-                intra-chunk) from the sources in this checkout, one nvcc
+                on the CUDA cores and on the tensor cores, its backward,
+                SSD intra-chunk) from the sources in this checkout, one nvcc
                 each, all at once (sm_90a); log ptxas registers, spills
                 and warnings, and fail if the tensor-core attention kernel
                 or any function of the SSD kernel spills, if the attention
@@ -194,6 +194,30 @@ Phases (every failure raises and exits nonzero):
                 form; then the whole hybrid model at its smoke config on
                 the card (a prefill through K2 and K3, the 8-token replay,
                 `serve --preset tiny --device cuda`).
+ 18. train    -- K2's backward kernel (`flash_attention_bwd_cuda`, built
+                in phase 2 with its registers and spills logged) against
+                `attention_bwd_ref`: causal x window {None, 128} x GQA
+                ratio {1, 2, 8} x {f32, bf16} x hd {64, 128}, f32 hd 16,
+                non-causal hd 80 (hubert's layer, bf16 at B=1 x 4,096),
+                ragged S=200 (hd 256 too) and S=5, qwen3's layer at B=1 x
+                4,096 (f32 atol 1e-4 x max(1, max|ref|); bf16 atol 2e-2
+                plus the output's bf16 rounding, and a relative Frobenius
+                error of 1e-2); the autograd Function (`ops.flash_attention`)
+                against torch.autograd through `attention_ref` in f32. Times
+                at qwen3's training shape (bf16 q (8, 4,096, 16, 128),
+                causal) beside the plain version, SDPA's backward and the
+                bound. The main path: qwen3-0.6b whole, bf16, B=8 x 4,096
+                from `SyntheticTextDataset(151_936, 4_096, 8, seed=0)`
+                through `make_train_step` with remat, 5 steps: finite,
+                falling loss; every gradient finite; wq/wk/wv/q_norm/k_norm
+                gradients non-zero in all 28 layers; K2 forward launches
+                2 x 28 x 5 (wgmma), backward 28 x 5; tokens/s, ms per step,
+                peak memory, one profiled step. An f32 hold at full width
+                cut to 2 layers (B=2 x 256): one step through the kernels
+                against the same step on `attention_ref`, then 3 steps.
+                `launch.train` on the card: 8 steps, --resume to 12, and a
+                12-step run resumed from its own step 8 against the
+                uninterrupted run.
 
 In phases 4, 5, 9-15 every fixpoint step is one launch of the
 frontier-relax kernel: each path resets the launch count before it runs
@@ -203,8 +227,8 @@ warm-up and three timed segments per measured engine, which prices
 every bucket width on it; for phase 15b, on each rank).
 
 The last lines are one JSON object describing each kernel -- K2 once per
-route, every row with its launches by phase, K2's rows also with their
-times at hubert's hd-80 shape -- and then
+route and its backward, every row with its launches by phase, K2's
+forward rows also with their times at hubert's hd-80 shape -- and then
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; without one it
 exits 2 and prints no result. Imports nothing of JAX or of `repro`.
 """
@@ -214,7 +238,9 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -241,8 +267,11 @@ from repro_torch.distributed.health import HeartbeatMonitor  # noqa: E402
 from repro_torch.graphs import (Graph, make_dataset,  # noqa: E402
                                 make_road_network, reference)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.data import SyntheticTextDataset, make_batches  # noqa: E402
 from repro_torch.kernels.attention import flash  # noqa: E402
-from repro_torch.kernels.attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
+from repro_torch.kernels.attention.ref import (attention_bwd_ref,  # noqa: E402
+                                               attention_ref)
 from repro_torch.kernels.frontier import frontier as relax  # noqa: E402
 from repro_torch.kernels.frontier.ops import (BlockedGraph,  # noqa: E402
                                               build_blocks,
@@ -250,12 +279,14 @@ from repro_torch.kernels.frontier.ops import (BlockedGraph,  # noqa: E402
 from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.kernels.ssd.ref import (chunk_inputs,  # noqa: E402
                                          ssd_intra_ref, ssd_ref)
-from repro_torch.launch import graph_run, serve, steps  # noqa: E402
+from repro_torch.launch import graph_run, serve, steps, train  # noqa: E402
 from repro_torch.launch.serve_graph import GraphServer  # noqa: E402
 from repro_torch.models import attention, mamba, moe  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.layers import DeclModule, init_module  # noqa: E402
 from repro_torch.obs import write_chrome_trace  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, init_opt_state  # noqa: E402
 from repro_torch.resilience import (BackendFailure,  # noqa: E402
                                     FaultInjector, FaultSpec,
                                     fallback_chain)
@@ -434,7 +465,8 @@ def wgmma_waits(library: Path) -> dict:
 
 
 def phase_build() -> None:
-    sources = (relax.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE, ssd.SOURCE)
+    sources = (relax.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE,
+               flash.BWD_SOURCE, ssd.SOURCE)
     t0 = time.perf_counter()
     for source, (path, seconds, text) in zip(
             sources, _build.build_all(sources, verbose=True)):
@@ -474,6 +506,7 @@ def phase_build() -> None:
     relax._library()
     flash._library("fma")
     flash._library("wgmma")
+    flash._bwd_library()
     ssd._library()
 
 
@@ -1361,7 +1394,7 @@ ATTN_REL_TOL = 1e-2           # bf16 at the qwen3 layer, relative Frobenius
 SSD_ATOL = 1e-4               # scaled by max(1, max|ref|)
 LM_BATCH, LM_SEQ = 4, 4_096   # the prefill cell (prefill_32k cut to fit)
 KERNELS = (relax.frontier_relax_cuda, flash.flash_attention_cuda,
-           ssd.ssd_intra_cuda)
+           flash.flash_attention_bwd_cuda, ssd.ssd_intra_cuda)
 REPLAY_LEN = 256              # float32 prefill-vs-decode prompt
 # an MoE's replay prompt: at T <= 8 tokens the capacity (8) holds every
 # (token, choice) pair, so prefill drops none, as decode (one token a
@@ -2234,7 +2267,7 @@ def jamba_blocks(gen) -> dict:
         start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
         with drop_counter(drops) if spec.moe else contextlib.nullcontext():
             start.record()
-            y = M._run_block(blk, x, cfg)
+            y, _ = M._run_block(blk, x, cfg)
             end.record()
         torch.cuda.synchronize()
         require(tuple(y.shape) == tuple(x.shape)
@@ -2359,6 +2392,546 @@ def phase_configs(rng, gen) -> tuple[dict, dict, dict]:
     return wgmma, fma, k3
 
 
+# ------------------------------------------------------------------ #
+# training qwen3-0.6b (18)
+# ------------------------------------------------------------------ #
+TRAIN_ARCH = "qwen3_0_6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4_096, 5   # train_4k cut 32x
+BWD_F32_ATOL = 1e-4           # x max(1, max|ref|) per output
+BWD_REL_TOL = 1e-2            # bf16: relative Frobenius per output
+HOLD_LAYERS, HOLD_BATCH, HOLD_SEQ = 2, 2, 256
+
+
+def bwd_check(label: str, gen, q, k, v, causal: bool, window: int | None,
+              quiet: bool = False) -> float:
+    """The backward kernel against `attention_bwd_ref` on the same inputs
+    (o from the forward kernel, do random; the plain version in f32 on
+    the upcast inputs). f32: atol 1e-4 x max(1, max|ref|) per output;
+    bf16: phase 6's atol 2e-2 plus the output's own bf16 rounding
+    (2^-8 |ref|) elementwise, and a relative Frobenius error of 1e-2 per
+    output."""
+    with torch.no_grad():
+        o = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    do = randn(gen, tuple(o.shape), q.dtype)
+    before = flash.flash_attention_bwd_cuda.launches
+    got = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal, window)
+    torch.cuda.synchronize()
+    require(flash.flash_attention_bwd_cuda.launches == before + 1,
+            f"backward {label}: not counted once")
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
+                             do.float(), causal, window)
+    errs, notes, ok = [], [], True
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        require(g.dtype == q.dtype and g.shape == w.shape,
+                f"backward {label}: {name} {g.dtype} {tuple(g.shape)}")
+        diff = (g.float() - w).abs()
+        err = float(diff.max())
+        peak = float(w.abs().max())
+        if q.dtype == torch.float32:
+            good = err <= BWD_F32_ATOL * max(1.0, peak)
+        else:
+            rel = float((g.float() - w).norm() / w.norm())
+            good = bool((diff <= ATTN_ATOL[torch.bfloat16]
+                         + 2.0 ** -8 * w.abs()).all()) and rel <= BWD_REL_TOL
+            notes.append(f"{name} rel {rel:.2e}")
+        good = good and bool(torch.isfinite(g).all())
+        ok = ok and good
+        errs.append(err)
+        notes.append(f"{name} {err:.2e} (max|ref| {peak:.3g})")
+    if not (quiet and ok):
+        log(f"backward {label}: max|err| {'; '.join(notes)}: {ok}")
+    require(ok, f"backward kernel disagrees with attention_bwd_ref: {label}")
+    return max(errs)
+
+
+def function_check(gen, b, s, h, kh, hd, causal, window) -> float:
+    """`ops.flash_attention` (the autograd Function: K2's forward and
+    backward kernels) against torch.autograd through `attention_ref`, f32
+    at atol 1e-4 x max(1, max|ref|): the output and the three input
+    gradients."""
+    q, k, v = (randn(gen, shp) for shp in ((b, s, h, hd), (b, s, kh, hd),
+                                           (b, s, kh, hd)))
+    do = randn(gen, (b, s, h, hd))
+    f0, b0 = (flash.flash_attention_cuda.launches,
+              flash.flash_attention_bwd_cuda.launches)
+    outs = []
+    for fn in (attn_ops.flash_attention, attention_ref):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves, causal=causal, window=window)
+        outs.append([o.detach(), *torch.autograd.grad(o, leaves, do)])
+    require((flash.flash_attention_cuda.launches - f0,
+             flash.flash_attention_bwd_cuda.launches - b0) == (1, 1),
+            "the autograd Function did not launch each kernel once")
+    err = 0.0
+    for name, g, w in zip(("out", "dq", "dk", "dv"), *outs):
+        e = float((g - w).abs().max())
+        require(e <= BWD_F32_ATOL * max(1.0, float(w.abs().max())),
+                f"autograd Function {name} disagrees with autograd through "
+                f"attention_ref: {e:.3e}")
+        err = max(err, e)
+    log(f"autograd Function f32 ({b}, {s}, {h}, {hd}) KH={kh} causal="
+        f"{causal} window={window}: out, dq, dk, dv max|err| {err:.3e} "
+        "against torch.autograd through attention_ref: True")
+    return err
+
+
+def bwd_cases(gen) -> float:
+    """Phase 18's kernel-against-plain cases."""
+    errs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for hd in (64, 128):
+            group = []
+            for kh in (8, 4, 1):                    # GQA ratio 1, 2, 8
+                q = randn(gen, (2, 320, 8, hd), dtype)
+                k = randn(gen, (2, 320, kh, hd), dtype)
+                v = randn(gen, (2, 320, kh, hd), dtype)
+                for causal in (True, False):
+                    for window in (None, 128):
+                        group.append(bwd_check(
+                            f"{str(dtype)[6:]} hd={hd} g={8 // kh} "
+                            f"causal={causal} window={window} S=320", gen,
+                            q, k, v, causal, window, quiet=True))
+            log(f"backward {str(dtype)[6:]} hd={hd}: 12 cases (GQA ratio "
+                "1/2/8 x causal x window None/128, B=2, S=320, H=8): "
+                f"max|err| {max(group):.3e}")
+            errs += group
+    cases = [("f32 hd=16 (the smoke config's)", torch.float32, 1, 320, 4, 2,
+              16, True, None),
+             ("f32 hd=80 non-causal", torch.float32, 1, 320, 16, 16, 80,
+              False, None),
+             ("bf16 hubert layer B=1 S=4096 hd=80 non-causal",
+              torch.bfloat16, 1, LM_SEQ, 16, 16, 80, False, None),
+             ("f32 ragged S=200 window=50", torch.float32, 1, 200, 4, 2, 32,
+              True, 50),
+             ("bf16 ragged S=200 hd=256 window=50", torch.bfloat16, 1, 200,
+              4, 2, 256, True, 50),
+             ("bf16 ragged S=5", torch.bfloat16, 1, 5, 4, 2, 128, True,
+              None),
+             ("f32 ragged S=5", torch.float32, 1, 5, 4, 2, 64, False, None)]
+    qcfg = configs.get(TRAIN_ARCH)
+    for dtype in (torch.float32, torch.bfloat16):
+        cases.append((f"{str(dtype)[6:]} qwen3 layer B=1 S={LM_SEQ}", dtype,
+                      1, LM_SEQ, qcfg.num_heads, qcfg.num_kv_heads,
+                      qcfg.head_dim, True, None))
+    for label, dtype, b, s, h, kh, hd, causal, window in cases:
+        q = randn(gen, (b, s, h, hd), dtype)
+        k = randn(gen, (b, s, kh, hd), dtype)
+        v = randn(gen, (b, s, kh, hd), dtype)
+        errs.append(bwd_check(label, gen, q, k, v, causal, window))
+        del q, k, v
+    errs.append(function_check(gen, 2, 256, 16, 8, 128, True, None))
+    errs.append(function_check(gen, 1, 320, 8, 2, 64, True, 128))
+    return max(errs)
+
+
+def bwd_timing(gen) -> dict:
+    """The backward at qwen3's training shape, bf16 q (8, 4,096, 16, 128),
+    k/v (8, 4,096, 8, 128), causal: the kernel, the plain version at the
+    largest batch it fits (stated), SDPA's backward (yardstick only),
+    beside the bound: 2.5x the forward's operations at the bf16
+    tensor-core rate (3.0x with the recompute of q k^T for L), or the
+    bytes of q, k, v, o, do read and dq, dk, dv written."""
+    cfg = configs.get(TRAIN_ARCH)
+    b, s, h, kh, hd = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim)
+    q = randn(gen, (b, s, h, hd), torch.bfloat16)
+    k = randn(gen, (b, s, kh, hd), torch.bfloat16)
+    v = randn(gen, (b, s, kh, hd), torch.bfloat16)
+    do = randn(gen, (b, s, h, hd), torch.bfloat16)
+    with torch.no_grad():
+        o = flash.flash_attention_cuda(q, k, v)
+    fwd = attention_work(b, s, h, kh, hd, torch.bfloat16)
+    ops = 2.5 * fwd["ops"]
+    nbytes = 2 * fwd["bytes"] + b * s * h * hd * 2 * 2   # + o and do
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    ms = time_ms(lambda: flash.flash_attention_bwd_cuda(q, k, v, o, do),
+                 reps=3, warmup=1)
+    plain_ms = plain_b = None
+    for pb in (b, b // 2, b // 4, 1):
+        try:
+            free()
+            plain_ms = time_ms(lambda: attention_bwd_ref(
+                q[:pb], k[:pb], v[:pb], o[:pb], do[:pb]), reps=2, warmup=1)
+            plain_b = pb
+            break
+        except torch.cuda.OutOfMemoryError:
+            continue
+    free()
+    require(plain_ms is not None, "the plain backward fits at no batch")
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    library_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True), reps=5)
+    t = {"ms": ms, "plain_ms": plain_ms, "plain_batch": plain_b,
+         "library_ms": library_ms, "ops": ops, "bytes": nbytes,
+         "bound_ms": max(t_bytes, t_ops) * 1e3,
+         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "bound_recompute_ms": 3.0 * fwd["ops"] / BF16_OPS_PER_S * 1e3}
+    log(f"time backward bf16 B={b} S={s} H={h} KH={kh} hd={hd} causal: "
+        f"kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s of the 2.5x "
+        f"count), plain {plain_ms:.4f} ms at B={plain_b}, SDPA backward "
+        f"{library_ms:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}"
+        f"; {ops:.4g} ops, {nbytes} B), with the recompute of q k^T "
+        f"{t['bound_recompute_ms']:.4f} ms")
+    del q, k, v, o, do, qt, kt, vt, out, dot
+    free()
+    return t
+
+
+KERNEL_CLASSES = (("K2 forward", ("flash_wgmma", "flash_fwd")),
+                  ("K2 backward", ("bwd_prep", "bwd_dkdv", "bwd_dq")),
+                  ("cuBLAS GEMM", ("gemm", "xmma", "cutlass", "cublas",
+                                   "nvjet", "Kernel2")),
+                  ("elementwise", ("elementwise",)),
+                  ("reductions", ("reduce", "softmax", "logsumexp")))
+
+
+def grad_spy(record: list, keep_grads: bool = False):
+    """`adamw.adamw_update` that first reads, per parameter, whether its
+    gradient is finite and non-zero (one host read per step), keeps
+    copies of the gradients with `keep_grads`, and times the update with
+    CUDA events; one entry per step is appended to `record` (patched in
+    for phase 18)."""
+    update = adamw.adamw_update
+
+    def spying(grads, opt_state, params, cfg):
+        names = list(grads)
+        flags = torch.stack([torch.stack((torch.isfinite(g).all(),
+                                          (g != 0).any()))
+                             for g in grads.values()]).cpu()
+        entry = {"finite": {n: bool(f[0]) for n, f in zip(names, flags)},
+                 "nonzero": {n: bool(f[1]) for n, f in zip(names, flags)}}
+        if keep_grads:
+            entry["grads"] = {n: g.detach().clone() for n, g in grads.items()}
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        start.record()
+        out = update(grads, opt_state, params, cfg)
+        end.record()
+        entry["events"] = (start, end)
+        record.append(entry)
+        return out
+    return mock.patch.object(adamw, "adamw_update", spying)
+
+
+def profile_train_step(step_fn, state, batch) -> None:
+    """One profiled train step: device time by kernel class, the chunked
+    CE's forward and the AdamW update as ranges, and the device's busy
+    share of the step's wall."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def spanned(name, f):
+        def g(*a, **kw):
+            with record_function(name):
+                return f(*a, **kw)
+        return g
+
+    spans = {"chunked CE forward": (M, "chunked_ce"),
+             "AdamW update": (adamw, "adamw_update")}
+    torch.cuda.synchronize()
+    with contextlib.ExitStack() as stack:
+        for name, (mod, attr) in spans.items():
+            stack.enter_context(mock.patch.object(
+                mod, attr, spanned(name, getattr(mod, attr))))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in events if str(e.device_type).endswith("CUDA")
+               and e.key not in spans]
+    busy = sum(ms for _, ms, _ in kernels)
+    if not busy:
+        log("profile train step: device time not measured (no device "
+            "events)")
+        return
+    classes = {name: 0.0 for name, _ in KERNEL_CLASSES}
+    other = 0.0
+    for key, ms, _ in kernels:
+        for name, marks in KERNEL_CLASSES:
+            if any(m in key for m in marks):
+                classes[name] += ms
+                break
+        else:
+            other += ms
+    parts = {e.key: e.device_time_total / 1e3 for e in events
+             if e.key in spans}
+    log(f"profile train step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
+        f"({busy / wall:.1%}), {sum(c for _, _, c in kernels)} device ops; "
+        + ", ".join(f"{n} {ms:.1f} ms ({ms / busy:.1%})"
+                    for n, ms in classes.items())
+        + f", other {other:.1f} ms ({other / busy:.1%}); ranges: "
+        + ", ".join(f"{n} {parts.get(n, 0.0):.1f} ms" for n in spans))
+    for key, ms, count in sorted(kernels, key=lambda r: -r[1])[:14]:
+        log(f"  device {ms:9.3f} ms {count:6d}x  {key[:90]}")
+
+
+def ce_timing(cfg) -> float:
+    """The chunked CE alone, forward and backward, at the main path's
+    shape (hidden (8, 4,096, 1,024) bf16, the tied head): device ms."""
+    params = M.init_params(dataclasses.replace(cfg, num_layers=0), seed=2)
+    hidden = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+                         device="cuda").to(torch.bfloat16).requires_grad_()
+    labels = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ),
+                           device="cuda")
+    w = params.embedding["embed"].requires_grad_()
+
+    def run():
+        loss = M.chunked_ce(params, hidden, labels, cfg)
+        torch.autograd.grad(loss, (hidden, w))
+    ms = time_ms(run, reps=2, warmup=1)
+    del params, hidden, labels, w
+    free()
+    return ms
+
+
+def train_main_path(gen) -> tuple[dict, dict]:
+    """qwen3-0.6b whole, bf16, B=8 x 4,096 through `make_train_step` with
+    remat, 5 steps. Returns the launches (K2 forward by route, backward)
+    and the logged numbers."""
+    cfg = configs.get(TRAIN_ARCH)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0)
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS,
+                          warmup_steps=TRAIN_STEPS // 10 + 1)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    ds = SyntheticTextDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    record: list = []
+    losses, walls = [], []
+    routes = flash.flash_attention_cuda.route_launches
+    # the main path: counts start at 0 here
+    reset_counts()
+    with grad_spy(record):
+        for step, batch in make_batches(ds, 0, TRAIN_STEPS):
+            batch = {k: torch.from_numpy(x).cuda() for k, x in batch.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(loss)
+            log(f"train step {step + 1}: loss {loss:.6f}, lr "
+                f"{float(metrics['lr']):.3e}, grad norm "
+                f"{float(metrics['grad_norm']):.4f}, wall {walls[-1]:.3f} s")
+    launches = {"wgmma": routes["wgmma"], "fma": routes["fma"],
+                "bwd": flash.flash_attention_bwd_cuda.launches}
+    n = cfg.num_layers * TRAIN_STEPS
+    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd": n},
+            f"{TRAIN_ARCH} train: launches {launches}; want {2 * n} K2 "
+            f"forward (wgmma; remat runs each block twice) and {n} backward")
+    require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+            f"{TRAIN_ARCH} train: losses {losses} not finite or not falling")
+    require(len(record) == TRAIN_STEPS, "the AdamW spy missed a step")
+    for i, entry in enumerate(record):
+        bad = [n_ for n_, ok in entry["finite"].items() if not ok]
+        require(not bad, f"step {i + 1}: non-finite gradients {bad[:4]}")
+        for layer in range(cfg.num_layers):
+            for leaf in ("wq", "wk", "wv", "q_norm", "k_norm"):
+                name = f"blocks.{layer}.attn.{leaf}"
+                require(entry["nonzero"][name],
+                        f"step {i + 1}: the gradient of {name} is zero: "
+                        "K2's backward did not reach it")
+    adamw_ms = [e[0].elapsed_time(e[1]) for e in
+                (r["events"] for r in record)]
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    med = float(np.median(walls[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out = {"losses": losses, "walls": walls, "ms_per_step": med * 1e3,
+           "tokens_per_s": ntok / med, "peak_gib": peak,
+           "adamw_ms": float(np.median(adamw_ms))}
+    log(f"{TRAIN_ARCH} train B={TRAIN_BATCH} S={TRAIN_SEQ} bf16, remat, "
+        f"{TRAIN_STEPS} steps: losses {[round(x, 6) for x in losses]}; "
+        f"every gradient finite; wq/wk/wv/q_norm/k_norm non-zero in all "
+        f"{cfg.num_layers} layers; {out['ms_per_step']:.1f} ms per step, "
+        f"{out['tokens_per_s']:.1f} tokens/s (median of steps 2-"
+        f"{TRAIN_STEPS}); AdamW update {out['adamw_ms']:.2f} ms (device); "
+        f"K2 launches {launches}")
+    log_memory(f"{TRAIN_ARCH} train")
+    batch = {k: torch.from_numpy(x).cuda()
+             for k, x in ds.batch_at(TRAIN_STEPS).items()}
+    profile_train_step(step_fn, state, batch)
+    del state, params, batch
+    free()
+    out["ce_ms"] = ce_timing(cfg)
+    log(f"chunked CE alone (8 chunks, fwd + bwd, hidden ({TRAIN_BATCH}, "
+        f"{TRAIN_SEQ}, {cfg.d_model}) bf16): {out['ce_ms']:.2f} ms")
+    return launches, out
+
+
+def hold_f32(gen) -> dict:
+    """qwen3 at full width cut to 2 layers, f32, B=2 x 256: one train step
+    through the kernels against the same step with `attention_ref` in K2's
+    place (swapped here only): losses rtol 1e-5, every gradient relative
+    Frobenius 1e-4, the updated parameters atol 1e-6 plus AdamW's own
+    first-step sensitivity to the two gradients' difference (an element
+    whose clipped gradient is near 0 moves by lr * g/(|g| + 1e-8)), with
+    at most 0.01% of the elements past 1e-6; then 3 steps each, losses
+    rtol 1e-4. Returns K2's launches (wgmma, fma, backward)."""
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=HOLD_LAYERS,
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    opt_cfg = AdamWConfig(total_steps=3, warmup_steps=1)
+    ds = SyntheticTextDataset(cfg.vocab_size, HOLD_SEQ, HOLD_BATCH, seed=1)
+
+    def plain(q, k, v, causal, window):
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    runs = []
+    routes = flash.flash_attention_cuda.route_launches
+    # the f32 hold's path: counts start at 0 here
+    reset_counts()
+    for swap in (False, True):
+        params = M.init_params(cfg, seed=3)
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        step_fn = steps.make_train_step(cfg, opt_cfg)
+        record: list = []
+        losses = []
+        with (mock.patch.object(attention, "attend", plain) if swap
+              else contextlib.nullcontext()), grad_spy(record, True):
+            for i in range(3):
+                batch = {k: torch.from_numpy(x).cuda()
+                         for k, x in ds.batch_at(i).items()}
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+                if i == 0:
+                    after = {n: p.detach().clone()
+                             for n, p in params.named_parameters()}
+        runs.append((losses, record[0]["grads"], after))
+        del params, state, record
+    launches = {"wgmma": routes["wgmma"], "fma": routes["fma"],
+                "bwd": flash.flash_attention_bwd_cuda.launches}
+    require(launches == {"wgmma": 0, "fma": 2 * 3 * HOLD_LAYERS,
+                         "bwd": 3 * HOLD_LAYERS},
+            f"f32 hold: K2 launches {launches}; the plain run must launch "
+            "none")
+    (lk, gk, pk), (lp, gp, pp) = runs
+    rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm()) if float(
+        gp[n].norm()) else float((gk[n] - gp[n]).norm()) for n in gk}
+    worst = max(rel, key=rel.get)
+    # AdamW's first step moves an element by lr * g/(|g| + eps) on the
+    # clipped gradient g: between the two runs' gradients a and b that
+    # update differs by at most lr * eps |a - b| / (m + eps)^2, m = min(|a|,
+    # |b|) (0 when the signs differ): atol 1e-6 plus that bound
+    lr = float(adamw.cosine_schedule(1, opt_cfg))
+    eps = opt_cfg.eps
+    clip = [min(1.0, opt_cfg.clip_norm / max(float(adamw.global_norm(g)),
+                                             1e-9)) for g in (gk, gp)]
+    excess, over = {}, 0
+    total = sum(p.numel() for p in pk.values())
+    for n in pk:
+        a, b = gk[n].float() * clip[0], gp[n].float() * clip[1]
+        m = torch.where(a * b > 0, torch.minimum(a.abs(), b.abs()), 0.0)
+        sens = lr * eps * (a - b).abs() / (m + eps) ** 2
+        diff = (pk[n] - pp[n]).abs()
+        over += int((diff > 1e-6).sum())
+        excess[n] = float((diff - 1e-6 - sens).max())
+    worst_p = max(excess, key=excess.get)
+    dp_max = max(float((pk[n] - pp[n]).abs().max()) for n in pk)
+    # the bound is loose where the signs differ, so few elements may use it
+    ok = (abs(lk[0] - lp[0]) <= 1e-5 * abs(lp[0]) and rel[worst] <= 1e-4
+          and excess[worst_p] <= 0 and over <= 1e-4 * total)
+    log(f"f32 hold ({HOLD_LAYERS} layers at full width, B={HOLD_BATCH} "
+        f"S={HOLD_SEQ}): step 1 loss {lk[0]!r} (kernels) vs {lp[0]!r} "
+        f"(attention_ref); worst gradient relative Frobenius {rel[worst]:.3e}"
+        f" ({worst}); updated parameters: max |diff| {dp_max:.3e}, {over} "
+        f"of {total} elements past 1e-6 (at most 0.01% may be), each within "
+        f"1e-6 + AdamW's bound for its "
+        f"gradient difference (worst margin {excess[worst_p]:.3e}, "
+        f"{worst_p}): {ok}")
+    require(ok, "f32 hold: the train step through the kernels disagrees "
+            "with the same step on attention_ref")
+    np_ok = bool(np.allclose(lk, lp, rtol=1e-4, atol=0))
+    log(f"f32 hold, 3 steps: losses {lk} vs {lp} (rtol 1e-4): {np_ok}")
+    require(np_ok, "f32 hold: 3-step losses disagree")
+    free()
+    return launches
+
+
+def cli_resume() -> dict:
+    """`python -m repro_torch.launch.train --preset tiny` on the card (in
+    process): 8 steps, then --resume to 12; a 12-step run resumed from
+    its own step-8 checkpoint ends at the uninterrupted run's step-12 loss
+    (rtol 1e-4: the embedding's gradient sums in no fixed order on the
+    card). Returns K2's launches (wgmma, fma, backward)."""
+    base = ["--arch", TRAIN_ARCH, "--preset", "tiny", "--seq", "64",
+            "--batch", "4", "--ckpt-every", "4", "--log-every", "4"]
+    routes = flash.flash_attention_cuda.route_launches
+    # the CLI's path: counts start at 0 here
+    reset_counts()
+
+    def run(ckpt, *extra) -> str:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main([*base, "--ckpt-dir", ckpt, *extra])
+        text = buf.getvalue()
+        require(rc == 0, f"train {extra}: rc {rc}\n{text}")
+        return text
+
+    def loss_at(text, step) -> float:
+        for ln in text.splitlines():
+            if f"step={step} " in ln:
+                return float(ln.split("loss=")[1].split()[0])
+        raise RuntimeError(f"no step={step} line in {text!r}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a, b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+        out = run(a, "--steps", "8")
+        require("step=8" in out, f"train 8 steps: {out}")
+        out = run(a, "--steps", "12", "--resume")
+        require("resumed from step 8" in out and "step=12" in out,
+                f"train --resume: {out}")
+        full = run(b, "--steps", "12")
+        shutil.rmtree(os.path.join(b, "step_00000012"))
+        again = run(b, "--steps", "12", "--resume")
+        require("resumed from step 8" in again, f"resume: {again}")
+        l_full, l_again = loss_at(full, 12), loss_at(again, 12)
+        ok = math.isfinite(l_full) and abs(l_again - l_full) <= 1e-4 * abs(
+            l_full)
+        log(f"train CLI on the card (tiny, seq 64, batch 4): 8 steps, "
+            f"--resume to 12 ('resumed from step 8'); 12 steps {l_full!r} "
+            f"vs resumed from its step 8 {l_again!r} (rtol 1e-4): {ok}")
+        require(ok, "train CLI: the resumed step-12 loss differs")
+    # steps run: 8, 8 -> 12, 12, 8 -> 12; remat runs each block twice
+    n = configs.get_smoke(TRAIN_ARCH).num_layers * (8 + 4 + 12 + 4)
+    launches = {"wgmma": routes["wgmma"], "fma": routes["fma"],
+                "bwd": flash.flash_attention_bwd_cuda.launches}
+    require(launches == {"wgmma": 0, "fma": 2 * n, "bwd": n},
+            f"train CLI: K2 launches {launches}; want {2 * n} forward (fma) "
+            f"and {n} backward")
+    return launches
+
+
+def phase_train(gen) -> tuple[float, dict, dict, dict]:
+    """Phase 18. Returns the backward's max error, its times, K2's
+    launches by phase (forward wgmma, forward fma, backward) and the
+    main path's numbers."""
+    t0 = time.perf_counter()
+    err = bwd_cases(gen)
+    log(f"phase 18 backward cases: {time.perf_counter() - t0:.1f} s")
+    t_bwd = bwd_timing(gen)
+    t0 = time.perf_counter()
+    main_launches, train_out = train_main_path(gen)
+    log(f"phase 18 main path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hold = hold_f32(gen)
+    cli = cli_resume()
+    log(f"phase 18 f32 hold and CLI: {time.perf_counter() - t0:.1f} s")
+    by_phase = {
+        "wgmma": {"18 qwen3 train": main_launches["wgmma"]},
+        "fma": {"18 f32 hold": hold["fma"], "18 CLI": cli["fma"]},
+        "bwd": {"18 qwen3 train": main_launches["bwd"],
+                "18 f32 hold": hold["bwd"], "18 CLI": cli["bwd"]}}
+    return err, t_bwd, by_phase, train_out
+
+
 def kernel_row(name, source, replaces, launches, err, t, by_phase,
                route="cuda") -> dict:
     return {"name": name, "route": route, "source": source,
@@ -2466,11 +3039,18 @@ def main() -> None:
     log(f"phase 17 configs: {time.perf_counter() - t0:.1f} s; K2 wgmma "
         f"{wgmma17}, fma {fma17}; K3 {k3_17}")
 
+    t0 = time.perf_counter()
+    err_bwd, t_bwd, k2_18, _ = phase_train(gen)
+    log(f"phase 18 train: {time.perf_counter() - t0:.1f} s; K2 {k2_18}")
+
     k1_main = sum(v for k, v in k1_phases.items() if "rank" not in k)
     wgmma_by_phase = {"8 qwen3": qwen3_routes["wgmma"],
-                      "16 granite": granite_routes["wgmma"], **wgmma17}
+                      "16 granite": granite_routes["wgmma"], **wgmma17,
+                      **k2_18["wgmma"]}
     fma_by_phase = {"8 qwen3 f32 replay": qwen3_routes["fma"],
-                    "16 granite f32 replay": granite_routes["fma"], **fma17}
+                    "16 granite f32 replay": granite_routes["fma"], **fma17,
+                    **k2_18["fma"]}
+    bwd_by_phase = k2_18["bwd"]
     ssd_by_phase = {"8 mamba2": ssd_launches, **k3_17}
     print(json.dumps({"kernels": [
         kernel_row("frontier_relax",
@@ -2496,6 +3076,14 @@ def main() -> None:
             kernel_route="fma", hubert_hd80={
                 "ms": t_attn["hd80"]["fma_ms"],
                 "bound_ms": t_attn["hd80"]["bound_ms"]}),
+        dict(kernel_row(
+            "flash_attention_bwd",
+            "src/repro_torch/kernels/attention/csrc/flash_attention_bwd.cu",
+            "src/repro/kernels/attention/flash.py:84",
+            sum(bwd_by_phase.values()), err_bwd, t_bwd, bwd_by_phase),
+            shape="bf16 q (8, 4096, 16, 128), k/v (8, 4096, 8, 128), causal",
+            plain_batch=t_bwd["plain_batch"],
+            bound_recompute_ms=t_bwd["bound_recompute_ms"]),
         dict(kernel_row("ssd_intra",
                         "src/repro_torch/kernels/ssd/csrc/ssd_intra.cu",
                         "src/repro/kernels/ssd/ssd.py:50",

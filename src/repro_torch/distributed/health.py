@@ -1,18 +1,28 @@
-"""Heartbeat monitoring: a watchdog over a loop that beats every step.
+"""Fault tolerance: heartbeat monitoring and the train step's guard.
 
-The port's copy of `repro.distributed.health.HeartbeatMonitor`. The
-bucket graph server (`repro_torch.launch.serve_graph.GraphServer`)
-`beat()`s before and after every dispatch; a watchdog thread flags a
-stall (a hung kernel, a dead host, an injected 'stall' fault) after
-`timeout_s` and invokes the registered callback, then re-arms on the
-next beat. The reference's `StepFailure` and `step_guard` belong to its
-trainer and come with the port's trainer.
+The port's copy of `repro.distributed.health`:
+
+  * HeartbeatMonitor: the bucket graph server
+    (`repro_torch.launch.serve_graph.GraphServer`) `beat()`s before and
+    after every dispatch, the trainer (`repro_torch.launch.train`) every
+    step; a watchdog thread flags a stall (a hung kernel, a dead host, an
+    injected 'stall' fault) after `timeout_s` and invokes the registered
+    callback, then re-arms on the next beat.
+  * step_guard: wraps one train step; turns an error into a StepFailure
+    carrying the step index, so the supervisor's log shows where.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
 import time
+
+
+class StepFailure(RuntimeError):
+    def __init__(self, step: int, cause: BaseException):
+        super().__init__(f"step {step} failed: {cause!r}")
+        self.step = step
+        self.cause = cause
 
 
 @dataclasses.dataclass
@@ -78,3 +88,11 @@ class HeartbeatMonitor:
         if t is not None and t is not threading.current_thread():
             t.join()
         self._thread = None
+
+
+def step_guard(fn, step: int):
+    """Run one step, wrapping failures with their step index."""
+    try:
+        return fn()
+    except Exception as e:                      # noqa: BLE001
+        raise StepFailure(step, e) from e

@@ -11,6 +11,10 @@ The plain PyTorch version of the same function is `ref.ssd_intra_ref`.
 `ssd_cuda` mirrors `ssd_pallas`: the cumulative decay, the inter-chunk
 recurrence (a loop over chunks), `y_inter` and the `D` skip stay in
 torch around the kernel.
+
+The kernel has no backward yet (ROADMAP item 11.3): both wrappers raise
+under grad mode when an input requires grad, so no mamba layer on the
+card can silently lose its gradient.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import require_no_grad
 from repro_torch.kernels.ssd.ref import chunk_inputs, ssd_from_intra
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd_intra.cu"
@@ -28,6 +33,8 @@ MAX_STATE = 128             # N: two warpgroups x 64 state rows
 MAX_HEAD_DIM = 128          # P: two 64-column slots per head
 MAX_CHUNK = 256             # Q: the G panel of a 64-row tile fits in smem
 HEAD_GROUP = 8              # heads that share one G = C.B^T panel
+K3_BACKWARD = ("the K3 backward is not ported yet: ROADMAP item 11.3, "
+               "training mamba layers on the card")
 ROUTE = (f"3xTF32 tensor cores, f32 accumulate (wgmma m64n64k8 for y and S, "
          f"mma.sync m16n8k8 for G); G = C.B^T shared by {HEAD_GROUP} heads")
 
@@ -50,7 +57,9 @@ def ssd_intra_cuda(C: torch.Tensor, B: torch.Tensor, dtx: torch.Tensor,
     Q <= 256, N <= 128, P <= 128. Returns (y_intra (b,nc,Q,H,P),
     S (b,nc,H,N,P)), f32. One call launches the kernel's two functions
     (y, then S) and counts once. Raises on anything the kernel does not
-    take; never falls back to the plain version."""
+    take, and under grad mode when an input requires grad; never falls
+    back to the plain version."""
+    require_no_grad("ssd_intra_cuda", K3_BACKWARD, C, B, dtx, cums)
     tensors = {"C": C, "B": B, "dtx": dtx, "cums": cums}
     if not all(x.is_cuda for x in tensors.values()):
         raise ValueError("ssd_intra_cuda needs CUDA tensors; the plain "
@@ -104,7 +113,8 @@ ssd_intra_cuda.launches = 0          # kernel launches since the last reset
 
 def ssd_cuda(x, dt, Bm, Cm, A_log, D, chunk: int = 64, h0=None):
     """Full SSD with the CUDA intra-chunk kernel (same contract as
-    `ref.ssd_ref`)."""
+    `ref.ssd_ref`). Raises under grad mode when an input requires grad."""
+    require_no_grad("ssd_cuda", K3_BACKWARD, x, dt, Bm, Cm, A_log, D, h0)
     C_c, B_c, dtx, cums = chunk_inputs(x, dt, Bm, Cm, A_log, chunk)
     y_intra, S = ssd_intra_cuda(C_c.contiguous(), B_c.contiguous(), dtx,
                                 cums)

@@ -1,11 +1,73 @@
 """Step factories of the port (the counterpart of `repro.launch.steps`):
-the prefill and decode steps that the serving launcher and `chip_smoke.py`
-call. The reference's sharding and train-step parts wait for a later
-slice (ROADMAP Queue 1 item 11)."""
+the train step that the trainer (`launch.train`) and `chip_smoke.py`
+call, and the prefill and decode steps of the serving launcher. The
+reference's sharding parts (`param_shardings`, `input_specs`, ...) need a
+device mesh and wait for ROADMAP item 11.4."""
 from __future__ import annotations
 
+import torch
+
+from repro_torch.device import resolve_device
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import AdamWConfig
+
+
+def check_trainable(cfg: ModelConfig, device) -> None:
+    """Raise NotImplementedError when `cfg` cannot train on `device`: on a
+    CUDA device every mamba layer's SSD runs through K3, whose backward is
+    not ported yet. On the CPU every config trains (the plain versions)."""
+    if torch.device(device).type == "cuda" and any(
+            spec.kind == "mamba" for spec in cfg.pattern):
+        raise NotImplementedError(
+            f"{cfg.name}: training a mamba layer on the card needs the K3 "
+            "backward (the SSD intra-chunk kernel's), not ported yet: "
+            "ROADMAP item 11.3. Attention-only configs train on the card; "
+            "any config trains with device='cpu'.")
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
+                    impl: str = "auto", moe_dispatch: str = "gspmd",
+                    remat: bool = True, grad_compression=None, device=None):
+    """(state, batch) -> (state, metrics). state = {"params": LM, "opt":
+    `adamw.init_opt_state`'s dict}, plus "feedback" with
+    `grad_compression` (`distributed.compression.compress_grads`). The
+    parameters and moments are updated in place and the same dicts are
+    returned. metrics = {"loss", "lr", "grad_norm"}, device tensors (read
+    them on the host only when logging). batch holds "tokens" (or
+    "frames") and "labels" on the parameters' device.
+
+    `impl` and `moe_dispatch` are accepted for parity with the reference:
+    the tensors' device picks the attention route (K2 under autograd on
+    the card, `attention_ref` on the CPU), and the MoE runs its one-group
+    dispatch. `device` (default: the CUDA device) is checked with
+    `check_trainable`."""
+    del impl, moe_dispatch
+    check_trainable(cfg, resolve_device(device, "make_train_step"))
+
+    def train_step(state, batch):
+        params = state["params"]
+        check_trainable(cfg, params.device)
+        params.requires_grad_(True)
+        named = dict(params.named_parameters())
+        with torch.enable_grad():
+            loss = M.train_loss(params, batch, cfg, remat=remat)
+            # a `frames` model declares an embedding it never reads
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g
+                 for (n, p), g in zip(named.items(), grads)}
+        if grad_compression is not None:
+            grads, feedback = grad_compression(grads, state.get("feedback"))
+        _, opt, stats = adamw.adamw_update(grads, state["opt"], params,
+                                           opt_cfg)
+        new_state = {"params": params, "opt": opt}
+        if grad_compression is not None:
+            new_state["feedback"] = feedback
+        return new_state, {"loss": loss.detach(), **stats}
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig):

@@ -1,6 +1,7 @@
-"""Full model: embedding -> blocks -> norm -> head, for inference.
+"""Full model: embedding -> blocks -> norm -> head, for training and
+inference.
 
-The port of `repro.models.model`'s serving surface. `LM` is an
+The port of `repro.models.model`. `LM` is an
 `nn.Module` holding, in order: the embedding (scaled by sqrt(d) on
 lookup), an `nn.ModuleList` of `repeat` x `pattern` blocks, the final
 norm, and the tied or untied head over `padded_vocab`. Where the
@@ -10,6 +11,15 @@ one module per layer (`convert.params_from_jax` splits the stacked axis).
   embed_inputs -- token ids through the scaled embedding, or, for the
                   `frames` frontend (hubert), the batch's precomputed
                   frame embeddings (B,S,d) as they are;
+  backbone     -- the blocks and the final norm, with one non-reentrant
+                  `torch.utils.checkpoint` per block when `remat` (the
+                  reference's per-block `jax.checkpoint(nothing_saveable)`);
+                  returns the hidden states and the summed MoE aux loss;
+  train_loss   -- ``chunked_ce + AUX_WEIGHT * aux``: the cross-entropy in
+                  8 sequence chunks, each checkpointed, its log-sum-exp
+                  over all `padded_vocab` columns (`ce_chunk_loss`), so the
+                  (B,S,V) logits never exist at once; `head_loss` is the
+                  final norm and CE alone;
   prefill      -- forward over a prompt, last-position logits in f32; the
                   path that reaches the flash-attention and SSD kernels;
   decode_step  -- one token against per-layer KV / SSM caches (no kernel);
@@ -19,10 +29,8 @@ one module per layer (`convert.params_from_jax` splits the stacked axis).
 An FFN is dense SwiGLU, or MoE (`models.moe`, one token group, as the
 reference runs without a mesh); serving drops the MoE's aux loss. A
 `frames` model still declares `embed` (and an untied `lm_head`), as the
-reference does.
-
-Not ported yet (ROADMAP Queue 1 item 11): the training surface
-(`train_loss`, `chunked_ce`).
+reference does. Parameters are created with ``requires_grad=False``; the
+train step (`launch.steps.make_train_step`) turns gradients on.
 """
 from __future__ import annotations
 
@@ -30,12 +38,15 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, mamba, moe
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import (DTYPES, DeclModule, ParamDecl,
                                        init_module, rms_norm, swiglu)
+
+AUX_WEIGHT = 0.01     # load-balance loss weight
 
 
 def _ffn_decls(cfg: ModelConfig) -> dict:
@@ -70,9 +81,11 @@ class Block(nn.Module):
 
 
 def _ffn(blk: Block, h, cfg: ModelConfig):
+    """The block's FFN: (y, MoE aux loss, or None for a dense FFN)."""
     if blk.spec.moe:
-        return moe.apply(blk.ffn, h, cfg)[0]
-    return swiglu(h, blk.ffn["w_gate"], blk.ffn["w_in"], blk.ffn["w_out"])
+        return moe.apply(blk.ffn, h, cfg)
+    return swiglu(h, blk.ffn["w_gate"], blk.ffn["w_in"],
+                  blk.ffn["w_out"]), None
 
 
 class LM(nn.Module):
@@ -115,9 +128,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
 
 
 # --------------------------------------------------------------------- #
-# forward (prefill)
+# forward (train / prefill)
 # --------------------------------------------------------------------- #
 def _run_block(blk: Block, x, cfg: ModelConfig):
+    """One layer. Returns (x, aux): aux is the MoE's load-balance loss
+    (f32 scalar), 0 for a dense FFN or none."""
     spec = blk.spec
     h = rms_norm(x, blk.norms["norm1"], cfg.rms_eps)
     if spec.kind == "attn":
@@ -125,16 +140,30 @@ def _run_block(blk: Block, x, cfg: ModelConfig):
     else:
         a = mamba.apply(blk.mamba, h, cfg)
     x = x + a
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.has_ffn:
-        x = x + _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps), cfg)
-    return x
+        f, moe_aux = _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps),
+                          cfg)
+        x = x + f
+        if moe_aux is not None:
+            aux = moe_aux
+    return x, aux
 
 
-def backbone(params: LM, x, cfg: ModelConfig):
-    """x: (B,S,d) embeddings -> hidden (B,S,d) after the final norm."""
+def backbone(params: LM, x, cfg: ModelConfig, remat: bool = True):
+    """x: (B,S,d) embeddings -> (hidden (B,S,d) after the final norm, aux
+    loss scalar). With `remat`, each block is one non-reentrant checkpoint:
+    its input is saved and its internals are recomputed in the backward,
+    so the live set is one layer plus every block's input."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:
-        x = _run_block(blk, x, cfg)
-    return rms_norm(x, params.final["final_norm"], cfg.rms_eps)
+        if remat:
+            x, a = checkpoint(_run_block, blk, x, cfg, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = _run_block(blk, x, cfg)
+        aux = aux + a
+    return rms_norm(x, params.final["final_norm"], cfg.rms_eps), aux
 
 
 def embed_tokens(params: LM, tokens, cfg: ModelConfig):
@@ -151,13 +180,60 @@ def embed_inputs(params: LM, batch: dict, cfg: ModelConfig):
     return embed_tokens(params, batch["tokens"], cfg)
 
 
+def ce_chunk_loss(w, h_c, y_c, cfg: ModelConfig):
+    """Summed token cross-entropy of one sequence chunk: logits (B,c,V)
+    over all `padded_vocab` rows of `w` in f32, log-sum-exp minus the
+    label's logit."""
+    logits = torch.einsum("bsd,vd->bsv", h_c, w).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    lbl = logits.gather(-1, y_c[..., None].long())[..., 0]
+    return (lse - lbl).sum()
+
+
+def chunked_ce(params: LM, hidden, labels, cfg: ModelConfig,
+               num_chunks: int = 8):
+    """Mean token cross-entropy in `num_chunks` sequence chunks, each a
+    non-reentrant checkpoint: a chunk's logits exist only while its loss
+    (and, in the backward, its gradient) is computed."""
+    b, s, _ = hidden.shape
+    num_chunks = min(num_chunks, s)
+    if s % num_chunks:
+        raise ValueError(f"sequence length {s} is not a multiple of "
+                         f"{num_chunks} chunks")
+    cs = s // num_chunks
+    w = params.head_weights()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(num_chunks):
+        sl = slice(i * cs, (i + 1) * cs)
+        total = total + checkpoint(ce_chunk_loss, w, hidden[:, sl],
+                                   labels[:, sl], cfg, use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / (b * s)
+
+
+def train_loss(params: LM, batch: dict, cfg: ModelConfig,
+               remat: bool = True):
+    """``chunked_ce + AUX_WEIGHT * aux`` over batch["tokens"] (or
+    ["frames"]) and batch["labels"] (B,S)."""
+    x = embed_inputs(params, batch, cfg)
+    hidden, aux = backbone(params, x, cfg, remat=remat)
+    ce = chunked_ce(params, hidden, batch["labels"], cfg)
+    return ce + AUX_WEIGHT * aux
+
+
+def head_loss(params: LM, hidden, labels, cfg: ModelConfig):
+    """Final norm + CE (the non-repeated tail of the train step)."""
+    h = rms_norm(hidden, params.final["final_norm"], cfg.rms_eps)
+    return chunked_ce(params, h, labels, cfg)
+
+
 @torch.no_grad()
 def prefill(params: LM, batch: dict, cfg: ModelConfig):
     """Forward pass over batch["tokens"] (B,S), or batch["frames"]
     (B,S,d) for the `frames` frontend, returning the last position's
     logits (B,1,padded_vocab) in f32."""
     x = embed_inputs(params, batch, cfg)
-    hidden = backbone(params, x, cfg)
+    hidden, _ = backbone(params, x, cfg, remat=False)
     last = hidden[:, -1:]
     return (last @ params.head_weights().T).float()
 
@@ -216,6 +292,6 @@ def decode_step(params: LM, cache: list[dict], tokens, pos,
         x = x + a
         if spec.has_ffn:
             x = x + _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps),
-                         cfg)
+                         cfg)[0]
     x = rms_norm(x, params.final["final_norm"], cfg.rms_eps)
     return (x @ params.head_weights().T).float(), new_cache

@@ -1,0 +1,651 @@
+"""The port's training path held against the JAX package on the CPU.
+
+Every case feeds the same numpy-seeded inputs to the reference and to the
+port: AdamW and its schedule, the data pipeline, gradient compression,
+`step_guard`, the checkpoint manager, the plain backward of flash
+attention (`attention_bwd_ref`, also against `jax.grad`), the backward
+kernel's tile ranges and tile walk, `train_loss` with every gradient for
+four smoke configs, eight training steps, the grad-mode guards of the raw
+kernel wrappers, and the training launcher (checkpoint and exact resume).
+The backward kernel itself runs only on the card (`chip_smoke.py`, phase
+18).
+"""
+import dataclasses
+import functools
+import json
+import math
+import os
+import shutil
+import threading
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as ref_configs
+from repro.checkpoint import manager as ref_ckpt
+from repro.data import SyntheticTextDataset as RefDataset
+from repro.data import make_batches as ref_make_batches
+from repro.distributed import compression as ref_comp
+from repro.kernels.attention.ref import attention_ref as jax_attention_ref
+from repro.models import model as ref_model
+from repro.optim import adamw as ref_adamw
+from repro_torch import configs
+from repro_torch.checkpoint import (CheckpointManager, load_pytree, manager,
+                                   save_pytree)
+from repro_torch.checkpoint.manager import committed_steps
+from repro_torch.data import SyntheticTextDataset, make_batches
+from repro_torch.distributed.compression import compress_grads, init_feedback
+from repro_torch.distributed.health import StepFailure, step_guard
+from repro_torch.kernels import _grad
+from repro_torch.kernels.attention import flash
+from repro_torch.kernels.attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.ssd import ssd
+from repro_torch.launch import steps, train
+from repro_torch.models import model as M
+from repro_torch.models.convert import opt_state_from_jax, params_from_jax
+from repro_torch.optim import adamw
+from repro_torch.optim.adamw import AdamWConfig
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _rel(got: np.ndarray, want: np.ndarray) -> float:
+    """Relative Frobenius error; 0 only for an exact zero reference."""
+    err = float(np.linalg.norm((got - want).ravel()))
+    ref = float(np.linalg.norm(want.ravel()))
+    return err / ref if ref else (0.0 if err == 0 else math.inf)
+
+
+# ------------------------------------------------------------------ #
+# AdamW
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_adamw_matches_reference(moment_dtype):
+    """5 steps from one state, gradients ~100x past the clip norm."""
+    rng = np.random.default_rng(0)
+    cfg = AdamWConfig(lr_peak=1e-2, warmup_steps=2, total_steps=5,
+                      moment_dtype=moment_dtype)
+    rcfg = ref_adamw.AdamWConfig(**dataclasses.asdict(cfg))
+    shapes = {"a": (4, 3), "b": (5,), "c": (2, 2, 2)}
+    p0 = {n: rng.normal(size=s).astype(np.float32)
+          for n, s in shapes.items()}
+    rparams = {n: jnp.asarray(a) for n, a in p0.items()}
+    ropt = ref_adamw.init_opt_state(rparams, rcfg)
+    params = {n: torch.from_numpy(a.copy()) for n, a in p0.items()}
+    opt = adamw.init_opt_state(params, cfg)
+    mdt = torch.bfloat16 if moment_dtype == "bfloat16" else torch.float32
+    assert all(m.dtype == mdt for m in opt["mu"].values())
+    for _ in range(5):
+        g = {n: (100 * rng.normal(size=s)).astype(np.float32)
+             for n, s in shapes.items()}
+        rparams, ropt, rstats = ref_adamw.adamw_update(
+            {n: jnp.asarray(a) for n, a in g.items()}, ropt, rparams, rcfg)
+        params, opt, stats = adamw.adamw_update(
+            {n: torch.from_numpy(a) for n, a in g.items()}, opt, params,
+            cfg)
+        assert float(stats["grad_norm"]) > 10 * cfg.clip_norm   # clipped
+        np.testing.assert_allclose(float(stats["grad_norm"]),
+                                   float(rstats["grad_norm"]), rtol=1e-6)
+        np.testing.assert_allclose(float(stats["lr"]), float(rstats["lr"]),
+                                   rtol=1e-6)
+        for n in shapes:
+            np.testing.assert_allclose(params[n].numpy(),
+                                       np.asarray(rparams[n]), atol=1e-6)
+            for key in ("mu", "nu"):
+                got, want = opt[key][n], ropt[key][n]
+                assert got.dtype == mdt and str(want.dtype) == moment_dtype
+                np.testing.assert_allclose(
+                    got.float().numpy(), np.asarray(want, np.float32),
+                    atol=1e-6, rtol=2 ** -8 if mdt == torch.bfloat16 else 0)
+    assert int(opt["step"]) == int(ropt["step"]) == 5
+
+
+def test_cosine_schedule_matches_reference():
+    cfg = AdamWConfig(lr_peak=1e-3, warmup_steps=5, total_steps=20)
+    rcfg = ref_adamw.AdamWConfig(**dataclasses.asdict(cfg))
+    got = [float(adamw.cosine_schedule(s, cfg)) for s in range(21)]
+    want = [float(ref_adamw.cosine_schedule(s, rcfg)) for s in range(21)]
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-12)
+    assert got[5] == pytest.approx(1e-3) and got[20] == pytest.approx(1e-4)
+
+
+# ------------------------------------------------------------------ #
+# data, compression, step_guard
+# ------------------------------------------------------------------ #
+@pytest.mark.parametrize("seed", [0, 7, 123])
+def test_batches_bit_equal_to_reference(seed):
+    ds = SyntheticTextDataset(128, 16, 4, seed=seed)
+    ref = RefDataset(128, 16, 4, seed=seed)
+    for step in range(3):
+        got, want = ds.batch_at(step), ref.batch_at(step)
+        for key in ("tokens", "labels"):
+            assert got[key].dtype == want[key].dtype
+            np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_make_batches_order():
+    ds = SyntheticTextDataset(32, 8, 2, seed=1)
+    got = list(make_batches(ds, 3, 5))
+    want = list(ref_make_batches(RefDataset(32, 8, 2, seed=1), 3, 5))
+    assert [s for s, _ in got] == [s for s, _ in want] == [3, 4, 5, 6, 7]
+    for (_, a), (_, b) in zip(got, want):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+
+
+def test_compression_matches_reference():
+    """Three steps, the feedback carried, leaf by leaf (atol 1e-7 x the
+    leaf's quantization scale)."""
+    rng = np.random.default_rng(2)
+    shapes = {"w": (64,), "m": (8, 8)}
+    params = {n: torch.zeros(s) for n, s in shapes.items()}
+    fb = init_feedback(params)
+    rfb = ref_comp.init_feedback({n: jnp.zeros(s) for n, s in shapes.items()})
+    for n in shapes:
+        assert fb[n].dtype == torch.float32
+        np.testing.assert_array_equal(fb[n].numpy(), np.asarray(rfb[n]))
+    for _ in range(3):
+        g = {n: rng.normal(size=s).astype(np.float32) * 1e-3
+             for n, s in shapes.items()}
+        cg, fb = compress_grads({n: torch.from_numpy(a)
+                                 for n, a in g.items()}, fb)
+        rcg, rfb = ref_comp.compress_grads(
+            {n: jnp.asarray(a) for n, a in g.items()}, rfb)
+        for n in shapes:
+            scale = float(np.abs(g[n] + 0).max()) / 127
+            np.testing.assert_allclose(cg[n].numpy(), np.asarray(rcg[n]),
+                                       atol=1e-7 * scale)
+            np.testing.assert_allclose(fb[n].numpy(), np.asarray(rfb[n]),
+                                       atol=1e-7 * scale)
+
+
+def test_step_guard_wraps_failures():
+    with pytest.raises(StepFailure) as e:
+        step_guard(lambda: 1 / 0, step=17)
+    assert e.value.step == 17
+    assert isinstance(e.value.cause, ZeroDivisionError)
+    assert step_guard(lambda: 3, step=1) == 3
+
+
+# ------------------------------------------------------------------ #
+# the checkpoint manager (the reference's four cases)
+# ------------------------------------------------------------------ #
+def test_checkpoint_roundtrip(tmp_path):
+    tree = {"a": torch.arange(6).reshape(2, 3),
+            "b": {"c": torch.ones(4, dtype=torch.bfloat16) * 1.5}}
+    save_pytree(tree, str(tmp_path), 3, extras={"foo": 1})
+    out, step, extras = load_pytree(tree, str(tmp_path))
+    assert step == 3 and extras == {"foo": 1}
+    assert torch.equal(out["a"], tree["a"])
+    assert out["b"]["c"].dtype == torch.bfloat16
+    assert torch.equal(out["b"]["c"], tree["b"]["c"])
+    # the reference's layout: it reads the port's bf16 leaf back as bf16
+    ref_out, ref_step, _ = ref_ckpt.load_pytree(
+        {"a": jnp.zeros((2, 3), jnp.int32),
+         "b": {"c": jnp.zeros(4, jnp.bfloat16)}}, str(tmp_path))
+    assert ref_step == 3 and ref_out["b"]["c"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(ref_out["b"]["c"], np.float32),
+                                  1.5)
+
+
+def test_checkpoint_async_and_retention(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), keep=2)
+    tree = {"w": torch.zeros(8)}
+    for s in (1, 2, 3, 4):
+        mgr.save({"w": tree["w"] + s}, s)
+    mgr.wait()
+    assert committed_steps(str(tmp_path)) == [3, 4]
+    out, step, _ = mgr.restore(tree)
+    assert step == 4 and mgr.latest_step() == 4
+    np.testing.assert_allclose(out["w"].numpy(), 4.0)
+
+
+def test_checkpoint_async_snapshot_owns_memory(tmp_path, monkeypatch):
+    """An async save keeps the values at `save` time although the caller
+    updates the same tensors in place before the writer runs (as the
+    train step does); the writer is held until the updates are done."""
+    go = threading.Event()
+    write = manager._write
+
+    def held(*args):
+        go.wait()
+        return write(*args)
+    monkeypatch.setattr(manager, "_write", held)
+    tree = {"w": torch.arange(6, dtype=torch.float32),
+            "b": torch.full((4,), 1.5, dtype=torch.bfloat16),
+            "n": np.arange(3, dtype=np.int32)}
+    want = {"w": tree["w"].clone(), "b": tree["b"].clone(),
+            "n": tree["n"].copy()}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(tree, 1)
+    tree["w"].add_(100.0)
+    tree["b"].mul_(2.0)
+    tree["n"] += 7
+    go.set()
+    mgr.wait()
+    out, step, _ = mgr.restore(tree)
+    assert step == 1
+    assert torch.equal(out["w"], want["w"])
+    assert torch.equal(out["b"], want["b"])
+    np.testing.assert_array_equal(out["n"].numpy(), want["n"])
+
+
+def test_checkpoint_uncommitted_ignored(tmp_path):
+    tree = {"w": torch.zeros(2)}
+    save_pytree(tree, str(tmp_path), 1)
+    os.makedirs(tmp_path / "step_00000002")        # a torn write
+    _, step, _ = load_pytree(tree, str(tmp_path))
+    assert step == 1
+
+
+def test_checkpoint_structure_mismatch_raises(tmp_path):
+    save_pytree({"a": torch.zeros(2)}, str(tmp_path), 1)
+    with pytest.raises(ValueError, match="structure mismatch"):
+        load_pytree({"b": torch.zeros(2)}, str(tmp_path))
+
+
+# ------------------------------------------------------------------ #
+# the backward's plain version, tile ranges and tile walk
+# ------------------------------------------------------------------ #
+def _attn_inputs(b, s, h, kh, hd, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    k = rng.normal(size=(b, s, kh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, s, kh, hd)).astype(np.float32)
+    do = rng.normal(size=(b, s, h, hd)).astype(np.float32)
+    return q, k, v, do
+
+
+@functools.partial(jax.jit, static_argnums=(4, 5))
+def _jax_attention_vjp(q, k, v, do, causal, window):
+    _, vjp = jax.vjp(lambda a, b, c: jax_attention_ref(
+        a, b, c, causal=causal, window=window), q, k, v)
+    return vjp(do)
+
+
+@pytest.mark.parametrize("hd", [16, 80, 128])
+@pytest.mark.parametrize("gqa", [1, 2, 4])
+@pytest.mark.parametrize("window", [None, 8])
+@pytest.mark.parametrize("causal", [True, False])
+def test_attention_bwd_ref(causal, window, gqa, hd):
+    """Against torch.autograd through attention_ref at S in {5, 64, 200},
+    and against jax.vjp of the reference's attention_ref at one of them,
+    f32, atol 1e-5. The S held against JAX rotates with the mask so that
+    every (GQA, hd) pair meets each S (one XLA compile per case keeps the
+    file inside its time)."""
+    h = 4
+    kh = h // gqa
+    lengths = (5, 64, 200)
+    jax_s = lengths[(2 * causal + (window is not None) + gqa + hd) % 3]
+    for s in lengths:
+        q, k, v, do = _attn_inputs(1, s, h, kh, hd, seed=s + hd)
+        tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+        o = attention_ref(tq, tk, tv, causal=causal, window=window)
+        wants = list(torch.autograd.grad(o, (tq, tk, tv),
+                                         torch.from_numpy(do)))
+        got = attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(),
+                                o.detach(), torch.from_numpy(do), causal,
+                                window)
+        if s == jax_s:
+            want_j = _jax_attention_vjp(q, k, v, do, causal, window)
+            for g, wj in zip(got, want_j):
+                np.testing.assert_allclose(g.numpy(), np.asarray(wj),
+                                           atol=1e-5)
+        for g, wt in zip(got, wants):
+            assert g.dtype == torch.float32
+            np.testing.assert_allclose(g.numpy(), wt.numpy(), atol=1e-5)
+
+
+def test_bwd_tile_ranges_brute_force():
+    """q_tile_range(kj) is exactly the q tiles whose kv_tile_range holds
+    kj, and together the ranges visit every (q, key) pair the mask
+    allows."""
+    for s, t in ((5, 5), (64, 64), (70, 200), (200, 70), (257, 257)):
+        for hd in (16, 128, 256):
+            bq, bkv = flash.bwd_tiles(hd)
+            nq, nk = -(-s // bq), -(-t // bkv)
+            for causal in (True, False):
+                for window in (None, 1, 8, 50, 128):
+                    pos_q = np.arange(s)[:, None]
+                    pos_k = np.arange(t)[None, :]
+                    ok = np.ones((s, t), bool)
+                    if causal:
+                        ok &= pos_k <= pos_q
+                    if window is not None:
+                        ok &= pos_k > pos_q - window
+                    seen = np.zeros((s, t), bool)
+                    for kj in range(nk):
+                        first, last = flash.q_tile_range(
+                            kj, bq, bkv, causal, window, s)
+                        inv = [qi for qi in range(nq)
+                               if flash.kv_tile_range(
+                                   qi, bq, bkv, causal, window, s, t)[0]
+                               <= kj <= flash.kv_tile_range(
+                                   qi, bq, bkv, causal, window, s, t)[1]]
+                        assert list(range(first, last + 1)) == inv
+                        for qi in inv:
+                            seen[qi * bq:(qi + 1) * bq,
+                                 kj * bkv:(kj + 1) * bkv] = True
+                    assert not (ok & ~seen).any(), (s, t, causal, window)
+
+
+def _emulate_bwd(q, k, v, o, do, causal, window):
+    """The backward kernel's three functions, tile by tile, in f32: prep's
+    online L over kv_tile_range, dkdv's walk over the GQA group and
+    q_tile_range, dq's over kv_tile_range; the forward's -1e30 mask."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    bq, bkv = flash.bwd_tiles(hd)
+    nq, nk = -(-s // bq), -(-t // bkv)
+    scale = 1.0 / math.sqrt(hd)
+
+    def tile_p_ds(bi, hi, qi, kj, L, D):
+        qs, ks = slice(qi * bq, (qi + 1) * bq), slice(kj * bkv,
+                                                      (kj + 1) * bkv)
+        kvh = hi // g
+        sc = q[bi, qs, hi] @ k[bi, ks, kvh].T * scale
+        qr = torch.arange(s)[qs][:, None]
+        kr = torch.arange(t)[ks][None, :]
+        okm = torch.ones_like(sc, dtype=torch.bool)
+        if causal:
+            okm &= kr <= qr
+        if window is not None:
+            okm &= kr > qr - window
+        sc = torch.where(okm, sc, -1e30)
+        p = torch.exp(sc - L[bi, hi, qs][:, None])
+        dp = do[bi, qs, hi] @ v[bi, ks, kvh].T
+        return qs, ks, sc, p, p * (dp - D[bi, hi, qs][:, None])
+
+    L = torch.zeros((b, h, s))
+    D = (do * o).sum(-1).permute(0, 2, 1)
+    for bi in range(b):
+        for hi in range(h):
+            for qi in range(nq):
+                qs = slice(qi * bq, (qi + 1) * bq)
+                first, last = flash.kv_tile_range(qi, bq, bkv, causal,
+                                                  window, s, t)
+                rows = q[bi, qs, hi].shape[0]
+                m = torch.full((rows,), -1e30)
+                lsum = torch.zeros(rows)
+                for kj in range(first, last + 1):
+                    _, _, sc, _, _ = tile_p_ds(bi, hi, qi, kj, L, D)
+                    mn = torch.maximum(m, sc.max(-1).values)
+                    lsum = lsum * torch.exp(m - mn) + torch.exp(
+                        sc - mn[:, None]).sum(-1)
+                    m = mn
+                L[bi, hi, qs] = m + torch.log(lsum)
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    for bi in range(b):
+        for kvh in range(kh):
+            for kj in range(nk):
+                first, last = flash.q_tile_range(kj, bq, bkv, causal,
+                                                 window, s)
+                for hi in range(kvh * g, (kvh + 1) * g):
+                    for qi in range(first, last + 1):
+                        qs, ks, _, p, ds = tile_p_ds(bi, hi, qi, kj, L, D)
+                        dv[bi, ks, kvh] += p.T @ do[bi, qs, hi]
+                        dk[bi, ks, kvh] += ds.T @ q[bi, qs, hi] * scale
+        for hi in range(h):
+            for qi in range(nq):
+                first, last = flash.kv_tile_range(qi, bq, bkv, causal,
+                                                  window, s, t)
+                for kj in range(first, last + 1):
+                    qs, ks, _, _, ds = tile_p_ds(bi, hi, qi, kj, L, D)
+                    dq[bi, qs, hi] += ds @ k[bi, ks, hi // g] * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("case", [(True, None, 2, 16, 200),
+                                  (True, 50, 4, 64, 150),
+                                  (False, None, 1, 80, 70),
+                                  (True, 8, 2, 256, 100)])
+def test_bwd_kernel_tile_walk(case):
+    """The kernel's tiling (bwd_tiles, both ranges, the GQA sum inside the
+    dkdv walk) emulated in torch equals attention_bwd_ref (atol 1e-5)."""
+    causal, window, gqa, hd, s = case
+    q, k, v, do = map(torch.from_numpy, _attn_inputs(1, s, 4, 4 // gqa, hd,
+                                                     seed=hd))
+    o = attention_ref(q, k, v, causal=causal, window=window)
+    got = _emulate_bwd(q, k, v, o, do, causal, window)
+    want = attention_bwd_ref(q, k, v, o, do, causal, window)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+
+
+# ------------------------------------------------------------------ #
+# train_loss and every gradient against jax.value_and_grad
+# ------------------------------------------------------------------ #
+GRAD_ARCHS = ["qwen3_0_6b", "granite_moe_3b_a800m", "hubert_xlarge",
+              "mamba2_370m"]
+
+
+def _loss_batch(cfg, b, s, seed):
+    rng = np.random.default_rng(seed)
+    batch = {"labels": rng.integers(0, cfg.vocab_size, (b, s))
+             .astype(np.int32)}
+    if cfg.frontend == "frames":
+        batch["frames"] = rng.normal(size=(b, s, cfg.d_model)).astype(
+            np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (b, s)).astype(
+            np.int32)
+    return batch
+
+
+def _port_grads(params, batch, cfg, remat):
+    params.requires_grad_(True)
+    named = dict(params.named_parameters())
+    loss = M.train_loss(params, batch, cfg, remat=remat)
+    grads = torch.autograd.grad(loss, list(named.values()),
+                                allow_unused=True)
+    return float(loss.detach()), {n: (torch.zeros_like(p) if g is None else g)
+                         for (n, p), g in zip(named.items(), grads)}
+
+
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
+def test_train_loss_and_grads_match_reference(arch):
+    """Loss within 1e-5 x max(1, |loss|) (the smoke losses are ~5-25,
+    where one f32 ulp is up to 1.9e-6). Each gradient within a relative
+    Frobenius error of 1e-4, or of four times its own f32 noise floor
+    where that is larger: the port's gradient moved by parameters scaled
+    by (1 + 1e-7 N(0, 1)). The worst floor is 1.1e-4 for granite's smoke
+    MoE (its router), 3.1e-5 for hubert's (saturated softmaxes), 8.7e-6
+    for mamba2's and 3.5e-6 for qwen3's; a floor above 2.5e-4 (a flipped
+    routing choice, say) fails rather than widening the tolerance. Remat
+    on and off give the same gradients."""
+    rcfg = ref_configs.get_smoke(arch)
+    cfg = configs.get_smoke(arch)
+    rparams = _np_tree(ref_model.init_params(rcfg, jax.random.PRNGKey(0)))
+    batch = _loss_batch(cfg, 2, 32, seed=5)
+    rloss, rgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: ref_model.train_loss(p, b, rcfg)))(
+        rparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    want = dict(params_from_jax(cfg, _np_tree(rgrads),
+                                device="cpu").named_parameters())
+    tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    params = params_from_jax(cfg, rparams, device="cpu")
+    loss, grads = _port_grads(params, tbatch, cfg, remat=True)
+    assert abs(loss - float(rloss)) <= 1e-5 * max(1.0, abs(float(rloss)))
+    assert set(grads) == set(want)
+    rng = np.random.default_rng(1)
+    noisy = jax.tree_util.tree_map(
+        lambda a: (a * (1 + 1e-7 * rng.normal(size=a.shape))).astype(
+            a.dtype), rparams)
+    _, moved = _port_grads(params_from_jax(cfg, noisy, device="cpu"),
+                           tbatch, cfg, remat=True)
+    for n, g in grads.items():
+        floor = _rel(moved[n].numpy(), g.numpy())
+        assert floor <= 2.5e-4, (n, floor)
+        tol = max(1e-4, 4 * floor)
+        assert _rel(g.numpy(), want[n].detach().numpy()) <= tol, n
+    loss2, grads2 = _port_grads(params, tbatch, cfg, remat=False)
+    assert loss2 == loss
+    for n, g in grads.items():
+        np.testing.assert_allclose(grads2[n].numpy(), g.numpy(), atol=1e-7,
+                                   rtol=1e-6)
+    if arch == "granite_moe_3b_a800m":     # the aux loss is in the sum
+        params.requires_grad_(False)
+        x = M.embed_inputs(params, tbatch, cfg)
+        _, aux = M.backbone(params, x, cfg, remat=False)
+        assert float(aux) > 0
+
+
+def test_training_matches_reference():
+    """8 steps of make_train_step against the reference's on
+    tests/test_models.py's tiny qwen3 (vocab 64, lr 1e-2), from one state:
+    losses within rtol 1e-4 each step, and falling."""
+    rcfg = dataclasses.replace(ref_configs.get_smoke("qwen3_0_6b"),
+                               vocab_size=64)
+    cfg = dataclasses.replace(configs.get_smoke("qwen3_0_6b"),
+                              vocab_size=64)
+    opt_cfg = AdamWConfig(lr_peak=1e-2, warmup_steps=1, total_steps=20)
+    ropt_cfg = ref_adamw.AdamWConfig(**dataclasses.asdict(opt_cfg))
+    rparams = ref_model.init_params(rcfg, jax.random.PRNGKey(0))
+    ropt = ref_adamw.init_opt_state(rparams, ropt_cfg)
+    state = {"params": params_from_jax(cfg, _np_tree(rparams),
+                                       device="cpu"),
+             "opt": opt_state_from_jax(cfg, _np_tree(ropt), device="cpu")}
+    ds = SyntheticTextDataset(cfg.vocab_size, 32, 4, seed=0)
+
+    @jax.jit
+    def ref_step(params, opt, batch):
+        loss, g = jax.value_and_grad(
+            lambda p: ref_model.train_loss(p, batch, rcfg))(params)
+        params, opt, _ = ref_adamw.adamw_update(g, opt, params, ropt_cfg)
+        return params, opt, loss
+
+    step = steps.make_train_step(cfg, opt_cfg, device="cpu")
+    losses, ref_losses = [], []
+    for i in range(8):
+        b = ds.batch_at(i)
+        rparams, ropt, rloss = ref_step(
+            rparams, ropt, {k: jnp.asarray(v) for k, v in b.items()})
+        state, metrics = step(state, {k: torch.from_numpy(v)
+                                      for k, v in b.items()})
+        losses.append(float(metrics["loss"]))
+        ref_losses.append(float(rloss))
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-4)
+    assert losses[-1] < losses[0]
+    assert int(state["opt"]["step"]) == 8
+
+
+def test_opt_state_from_jax_keeps_moment_dtype():
+    cfg = configs.get_smoke("qwen3_0_6b")
+    rcfg = ref_configs.get_smoke("qwen3_0_6b")
+    ocfg = ref_adamw.AdamWConfig(moment_dtype="bfloat16")
+    ropt = ref_adamw.init_opt_state(
+        ref_model.init_params(rcfg, jax.random.PRNGKey(0)), ocfg)
+    opt = opt_state_from_jax(cfg, _np_tree(ropt), device="cpu")
+    names = {n for n, _ in M.LM(cfg, "meta").named_parameters()}
+    assert set(opt["mu"]) == set(opt["nu"]) == names
+    assert all(t.dtype == torch.bfloat16 for t in opt["mu"].values())
+    assert opt["step"].dtype == torch.int32 and int(opt["step"]) == 0
+
+
+# ------------------------------------------------------------------ #
+# the guards
+# ------------------------------------------------------------------ #
+def test_raw_wrappers_refuse_grad_mode():
+    """A raw kernel wrapper raises under grad mode when an input requires
+    grad (its output would carry no gradient), before anything else;
+    under no_grad it goes on to its usual checks."""
+    q = torch.zeros((1, 8, 2, 16), requires_grad=True)
+    kv = torch.zeros((1, 8, 2, 16))
+    launches = (flash.flash_attention_cuda.launches,
+                flash.flash_attention_bwd_cuda.launches,
+                ssd.ssd_intra_cuda.launches)
+    calls = [lambda: flash.flash_attention_cuda(q, kv, kv),
+             lambda: flash.flash_attention_bwd_cuda(q, kv, kv, kv, kv)]
+    C = torch.zeros((1, 1, 16, 4), requires_grad=True)
+    dtx, cums = torch.zeros((1, 1, 16, 2, 4)), torch.zeros((1, 1, 16, 2))
+    calls.append(lambda: ssd.ssd_intra_cuda(C, C.detach(), dtx, cums))
+    x = torch.zeros((1, 16, 2, 4), requires_grad=True)
+    calls.append(lambda: ssd.ssd_cuda(x, torch.ones((1, 16, 2)),
+                                      torch.zeros((1, 16, 4)),
+                                      torch.zeros((1, 16, 4)),
+                                      torch.zeros(2), torch.zeros(2),
+                                      chunk=16))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no gradient"):
+            call()
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert (flash.flash_attention_cuda.launches,
+            flash.flash_attention_bwd_cuda.launches,
+            ssd.ssd_intra_cuda.launches) == launches
+    with pytest.raises(RuntimeError, match="11.3"):
+        calls[2]()
+    assert _grad.records_grad(q, kv) and not _grad.records_grad(kv, None)
+    with torch.no_grad():
+        assert not _grad.records_grad(q, kv)
+
+
+def test_make_train_step_refuses_mamba_on_cuda():
+    opt_cfg = AdamWConfig()
+    for arch in ("mamba2_370m", "jamba_1_5_large_398b"):
+        cfg = configs.get(arch)
+        with pytest.raises(NotImplementedError, match="K3 backward.*11.3"):
+            steps.make_train_step(cfg, opt_cfg, device="cuda")
+        steps.make_train_step(cfg, opt_cfg, device="cpu")     # plain: ok
+    for arch in ("qwen3_0_6b", "granite_moe_3b_a800m", "hubert_xlarge"):
+        steps.check_trainable(configs.get(arch), torch.device("cuda"))
+
+
+# ------------------------------------------------------------------ #
+# the launcher (tests/test_system.py's CLI case, on the CPU)
+# ------------------------------------------------------------------ #
+def _train(capsys, ckpt, *extra):
+    rc = train.main(["--arch", "qwen3_0_6b", "--preset", "tiny", "--seq",
+                     "64", "--batch", "4", "--ckpt-dir", str(ckpt),
+                     "--ckpt-every", "4", "--log-every", "4", "--device",
+                     "cpu", *extra])
+    assert rc == 0
+    return capsys.readouterr().out
+
+
+def _loss_at(out: str, step: int) -> float:
+    for line in out.splitlines():
+        if f"step={step} " in line:
+            return float(line.split("loss=")[1].split()[0])
+    raise AssertionError(f"no step={step} line in {out!r}")
+
+
+def test_train_cli_and_resume(tmp_path, capsys):
+    """8 steps, then --resume to 12; a 12-step run resumed from its own
+    step-8 checkpoint ends at the uninterrupted run's loss, bit for bit
+    (the 8-step run's schedule is AdamWConfig(total_steps=8), as in the
+    reference, so its resumed loss differs from a 12-step run's)."""
+    out = _train(capsys, tmp_path / "a", "--steps", "8")
+    assert "step=8" in out and "done" in out
+    out = _train(capsys, tmp_path / "a", "--steps", "12", "--resume")
+    assert "resumed from step 8" in out and "step=12" in out
+
+    full = _train(capsys, tmp_path / "b", "--steps", "12")
+    assert committed_steps(str(tmp_path / "b")) == [4, 8, 12]
+    shutil.rmtree(tmp_path / "b" / "step_00000012")
+    again = _train(capsys, tmp_path / "b", "--steps", "12", "--resume")
+    assert "resumed from step 8" in again
+    assert _loss_at(again, 12) == _loss_at(full, 12)
+    assert math.isfinite(_loss_at(full, 12))
+
+    with pytest.raises(SystemExit, match="11.4"):
+        train.main(["--mesh", "2x1", "--device", "cpu", "--ckpt-dir",
+                    str(tmp_path / "c")])
+
+
+def test_train_cli_grad_compression_resumes(tmp_path, capsys):
+    """--grad-compression trains and checkpoints its error feedback: the
+    resumed run restores it with the parameters and moments."""
+    out = _train(capsys, tmp_path, "--steps", "4", "--grad-compression")
+    assert math.isfinite(_loss_at(out, 4))
+    with open(tmp_path / "step_00000004" / "manifest.json") as f:
+        paths = json.load(f)["paths"]
+    assert any(p.startswith("feedback/") for p in paths)
+    out = _train(capsys, tmp_path, "--steps", "8", "--grad-compression",
+                 "--resume")
+    assert "resumed from step 4" in out and math.isfinite(_loss_at(out, 8))
