@@ -7,14 +7,18 @@ Phases (every failure raises and exits nonzero):
   1. device  -- the card's name, and its name and power limit from
                 nvidia-smi;
   2. build   -- compile the CUDA kernels (frontier relax, flash attention
-                on the CUDA cores and on the tensor cores, its backward,
-                SSD intra-chunk) from the sources in this checkout, one nvcc
-                each, all at once (sm_90a); log ptxas registers, spills
-                and warnings, and fail if the tensor-core attention kernel
-                or any function of the SSD kernel spills, if the attention
-                kernel's wgmma is serialized (C7510) or its setmaxnreg
-                ignored (C7508), or if the SSD kernel's SASS waits after
-                every wgmma;
+                on the CUDA cores and on the tensor cores, its backward on
+                the CUDA cores (`flash_attention_bwd.cu`) and on the tensor
+                cores (`flash_attention_bwd_wgmma.cu`), SSD intra-chunk)
+                from the sources in this checkout, one nvcc each, all at
+                once (sm_90a); log ptxas registers, spills and warnings,
+                and fail if the tensor-core attention kernels (forward and
+                backward) or any function of the SSD kernel spill, if
+                either tensor-core attention source's wgmma is serialized
+                (C7510) or its setmaxnreg ignored (C7508), if the SASS of
+                the SSD kernel or of the wgmma backward waits after every
+                wgmma (fewer waits than half the HGMMA count, per
+                function), or if `bwd_dkdv` or `bwd_dq` has no HGMMA;
   3. kernel  -- hold the kernel against its plain PyTorch version,
                 `frontier_relax_torch`, on the card: 4 semirings x dense /
                 frontier-masked / empty states x B in {1, 8} x d in {1, 8},
@@ -194,30 +198,50 @@ Phases (every failure raises and exits nonzero):
                 form; then the whole hybrid model at its smoke config on
                 the card (a prefill through K2 and K3, the 8-token replay,
                 `serve --preset tiny --device cuda`).
- 18. train    -- K2's backward kernel (`flash_attention_bwd_cuda`, built
-                in phase 2 with its registers and spills logged) against
-                `attention_bwd_ref`: causal x window {None, 128} x GQA
-                ratio {1, 2, 8} x {f32, bf16} x hd {64, 128}, f32 hd 16,
-                non-causal hd 80 (hubert's layer, bf16 at B=1 x 4,096),
-                ragged S=200 (hd 256 too) and S=5, qwen3's layer at B=1 x
-                4,096 (f32 atol 1e-4 x max(1, max|ref|); bf16 atol 2e-2
+ 18. train    -- K2's backward (`flash_attention_bwd_cuda`) on its two
+                routes (`flash.bwd_route`): "wgmma" (bf16 at hd 64/80/128,
+                `flash_attention_bwd_wgmma.cu`: bwd_dot, bwd_dkdv, bwd_dq,
+                every product a wgmma; it takes the row log-sum-exp L that
+                the wgmma forward writes with `return_lse=True`) and "fma"
+                (f32, bf16 at hd 16/32/256, `flash_attention_bwd.cu` on the
+                CUDA cores). The forward's L against `attention_lse_ref`
+                (qwen3's layer, ragged S=200 and S=5, hd 64 and 80, S=300 >
+                T=100 under window 64, whose rows 163-299 see no key and
+                must get +inf; atol 1e-4; the output bit-equal to the call
+                without L). Each route against `attention_bwd_ref`: causal x
+                window {None, 128} x GQA ratio {1, 2, 8} x {f32, bf16} x hd
+                {64, 128}, f32 hd 16, non-causal hd 80 (hubert's layer,
+                bf16 at B=1 x 4,096), ragged S=200 (hd 256, and bf16 at hd
+                80 and 64) and S=5, T != S both ways, qwen3's layer at B=1
+                x 4,096 (f32 atol 1e-4 x max(1, max|ref|); bf16 atol 2e-2
                 plus the output's bf16 rounding, and a relative Frobenius
-                error of 1e-2); the autograd Function (`ops.flash_attention`)
-                against torch.autograd through `attention_ref` in f32. Times
-                at qwen3's training shape (bf16 q (8, 4,096, 16, 128),
-                causal) beside the plain version, SDPA's backward and the
-                bound. The main path: qwen3-0.6b whole, bf16, B=8 x 4,096
-                from `SyntheticTextDataset(151_936, 4_096, 8, seed=0)`
-                through `make_train_step` with remat, 5 steps: finite,
-                falling loss; every gradient finite; wq/wk/wv/q_norm/k_norm
+                error of 1e-2); every case must take its route's kernel,
+                and each wgmma case logs the fma kernel's error on the same
+                inputs beside its own; the autograd Function
+                (`ops.flash_attention`) against torch.autograd through
+                `attention_ref` in f32. Times at qwen3's training shape
+                (bf16 q (8, 4,096, 16, 128), causal) both routes, beside the
+                plain version, SDPA's backward (yardstick only), the bound
+                and the wgmma design's seven-product floor (the profiled
+                train step splits it by kernel); the wgmma forward with and
+                without L at the prefill shape, in turns. The main path: qwen3-0.6b
+                whole, bf16, B=8 x 4,096 from
+                `SyntheticTextDataset(151_936, 4_096, 8, seed=0)` through
+                `make_train_step` with remat, 5 steps: finite, falling
+                loss; every gradient finite; wq/wk/wv/q_norm/k_norm
                 gradients non-zero in all 28 layers; K2 forward launches
-                2 x 28 x 5 (wgmma), backward 28 x 5; tokens/s, ms per step,
-                peak memory, one profiled step. An f32 hold at full width
-                cut to 2 layers (B=2 x 256): one step through the kernels
-                against the same step on `attention_ref`, then 3 steps.
-                `launch.train` on the card: 8 steps, --resume to 12, and a
-                12-step run resumed from its own step 8 against the
-                uninterrupted run.
+                2 x 28 x 5 (wgmma), backward 28 x 5, all wgmma; tokens/s,
+                ms per step, peak memory, one profiled step. A bf16 hold at
+                full width cut to 2 layers (B=2 x 1,024): one step through
+                the wgmma backward against the same step with the route
+                patched to "fma" here (unittest.mock; the package has no
+                knob): the loss within 1e-3 relative, every gradient within
+                relative Frobenius 1e-2. An f32 hold at full width cut to 2
+                layers (B=2 x 256): one step through the kernels (fma
+                forward and backward) against the same step on
+                `attention_ref`, then 3 steps. `launch.train` on the card
+                (fma): 8 steps, --resume to 12, and a 12-step run resumed
+                from its own step 8 against the uninterrupted run.
 
 In phases 4, 5, 9-15 every fixpoint step is one launch of the
 frontier-relax kernel: each path resets the launch count before it runs
@@ -226,9 +250,11 @@ iterations of every dispatch, retries included; for a tuning sweep, one
 warm-up and three timed segments per measured engine, which prices
 every bucket width on it; for phase 15b, on each rank).
 
-The last lines are one JSON object describing each kernel -- K2 once per
-route and its backward, every row with its launches by phase, K2's
-forward rows also with their times at hubert's hd-80 shape -- and then
+The last lines are one JSON object describing each kernel -- K2 and its
+backward once per route, every row with its launches by phase, K2's
+forward rows also with their times at hubert's hd-80 shape, the wgmma
+backward's row with its seven-product floor, its L's error and the
+forward's time with and without L -- and then
 ``{"ok": true, "device": {...}}``. Needs one CUDA card; without one it
 exits 2 and prints no result. Imports nothing of JAX or of `repro`.
 """
@@ -271,6 +297,7 @@ from repro_torch.data import SyntheticTextDataset, make_batches  # noqa: E402
 from repro_torch.kernels.attention import flash  # noqa: E402
 from repro_torch.kernels.attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.attention.ref import (attention_bwd_ref,  # noqa: E402
+                                               attention_lse_ref,
                                                attention_ref)
 from repro_torch.kernels.frontier import frontier as relax  # noqa: E402
 from repro_torch.kernels.frontier.ops import (BlockedGraph,  # noqa: E402
@@ -466,7 +493,8 @@ def wgmma_waits(library: Path) -> dict:
 
 def phase_build() -> None:
     sources = (relax.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE,
-               flash.BWD_SOURCE, ssd.SOURCE)
+               flash.BWD_SOURCE, flash.BWD_WGMMA_SOURCE, ssd.SOURCE)
+    wgmma_sources = (flash.WGMMA_SOURCE, flash.BWD_WGMMA_SOURCE)
     t0 = time.perf_counter()
     for source, (path, seconds, text) in zip(
             sources, _build.build_all(sources, verbose=True)):
@@ -482,16 +510,16 @@ def phase_build() -> None:
                 props[-1].append(ln.split(":", 1)[-1].strip())
         for name, prop in zip(demangle(names), props):
             log(f"  {name}: {'; '.join(prop)}")
-        if source == flash.WGMMA_SOURCE:
+        if source in wgmma_sources:
             require("C7510" not in text and "C7508" not in text,
                     f"{source.name}: ptxas serialized wgmma (C7510) or "
                     "ignored setmaxnreg (C7508)")
-        if source in (flash.WGMMA_SOURCE, ssd.SOURCE):
+        if source in (*wgmma_sources, ssd.SOURCE):
             require(" 0 bytes spill stores" in text
                     and text.count("spill stores") == text.count(
                         " 0 bytes spill stores"),
                     f"{source.name}: ptxas reports spills")
-        if source == ssd.SOURCE:
+        if source in (flash.BWD_WGMMA_SOURCE, ssd.SOURCE):
             # ptxas gives no C7510 when it serializes these wgmma (a
             # register-A operand): only the SASS shows it
             waits = wgmma_waits(path)
@@ -502,11 +530,17 @@ def phase_build() -> None:
                     require(2 * n_wait < n_mma,
                             f"{source.name}: ptxas serialized the wgmma "
                             f"of {name} (a wait after each)")
+            if source == flash.BWD_WGMMA_SOURCE:
+                for fn in ("bwd_dkdv", "bwd_dq"):
+                    require(any(fn in name and n_mma
+                                for name, (n_mma, _) in waits.items()),
+                            f"{source.name}: no HGMMA in {fn}")
     log(f"all kernels built in {time.perf_counter() - t0:.2f} s")
     relax._library()
     flash._library("fma")
     flash._library("wgmma")
-    flash._bwd_library()
+    flash._bwd_library("fma")
+    flash._bwd_library("wgmma")
     ssd._library()
 
 
@@ -1803,9 +1837,10 @@ def reset_counts() -> None:
     """Every kernel wrapper's launch count, and K2's by route, to 0."""
     for wrapper in KERNELS:
         wrapper.launches = 0
-    routes = flash.flash_attention_cuda.route_launches
-    for name in routes:
-        routes[name] = 0
+    for routes in (flash.flash_attention_cuda.route_launches,
+                   flash.flash_attention_bwd_cuda.route_launches):
+        for name in routes:
+            routes[name] = 0
 
 
 def layers_of(cfg, kind: str) -> int:
@@ -2402,32 +2437,25 @@ BWD_REL_TOL = 1e-2            # bf16: relative Frobenius per output
 HOLD_LAYERS, HOLD_BATCH, HOLD_SEQ = 2, 2, 256
 
 
-def bwd_check(label: str, gen, q, k, v, causal: bool, window: int | None,
-              quiet: bool = False) -> float:
-    """The backward kernel against `attention_bwd_ref` on the same inputs
-    (o from the forward kernel, do random; the plain version in f32 on
-    the upcast inputs). f32: atol 1e-4 x max(1, max|ref|) per output;
-    bf16: phase 6's atol 2e-2 plus the output's own bf16 rounding
-    (2^-8 |ref|) elementwise, and a relative Frobenius error of 1e-2 per
-    output."""
-    with torch.no_grad():
-        o = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    do = randn(gen, tuple(o.shape), q.dtype)
-    before = flash.flash_attention_bwd_cuda.launches
-    got = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal, window)
-    torch.cuda.synchronize()
-    require(flash.flash_attention_bwd_cuda.launches == before + 1,
-            f"backward {label}: not counted once")
-    want = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
-                             do.float(), causal, window)
+def fma_route():
+    """K2's backward patched onto its "fma" route, here only (the package
+    has no such knob): the comparisons of phase 18, never the main path."""
+    return mock.patch.object(flash, "bwd_route", lambda dtype, hd: "fma")
+
+
+def grads_hold(dtype, got, want) -> tuple[bool, float, list[str]]:
+    """(dq, dk, dv) against `attention_bwd_ref`'s: f32 atol 1e-4 x max(1,
+    max|ref|) per output; bf16 phase 6's atol 2e-2 plus the output's own
+    bf16 rounding (2^-8 |ref|) elementwise, and a relative Frobenius error
+    of 1e-2 per output. Returns (held, max|err|, notes)."""
     errs, notes, ok = [], [], True
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
-        require(g.dtype == q.dtype and g.shape == w.shape,
-                f"backward {label}: {name} {g.dtype} {tuple(g.shape)}")
+        require(g.dtype == dtype and g.shape == w.shape,
+                f"backward: {name} {g.dtype} {tuple(g.shape)}")
         diff = (g.float() - w).abs()
         err = float(diff.max())
         peak = float(w.abs().max())
-        if q.dtype == torch.float32:
+        if dtype == torch.float32:
             good = err <= BWD_F32_ATOL * max(1.0, peak)
         else:
             rel = float((g.float() - w).norm() / w.norm())
@@ -2438,10 +2466,98 @@ def bwd_check(label: str, gen, q, k, v, causal: bool, window: int | None,
         ok = ok and good
         errs.append(err)
         notes.append(f"{name} {err:.2e} (max|ref| {peak:.3g})")
+    return ok, max(errs), notes
+
+
+def bwd_check(label: str, gen, q, k, v, causal: bool, window: int | None,
+              quiet: bool = False) -> tuple[str, float, float | None]:
+    """The backward kernel on `flash.bwd_route`'s route against
+    `attention_bwd_ref` on the same inputs (o and L from the forward
+    kernel, do random; the plain version in f32 on the upcast inputs), at
+    `grads_hold`'s limits. The call must take the route's kernel, counted
+    once. On the "wgmma" route the "fma" kernel runs on the same inputs too
+    and its error is logged beside (not held: it is the old route).
+    Returns (route, max|err|, the fma route's max|err| or None)."""
+    name = flash.bwd_route(q.dtype, q.shape[-1])
+    with torch.no_grad():
+        out = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                         window=window,
+                                         return_lse=name == "wgmma")
+    o, lse = out if name == "wgmma" else (out, None)
+    do = randn(gen, tuple(o.shape), q.dtype)
+    counts = flash.flash_attention_bwd_cuda.route_launches
+    before = dict(counts)
+    got = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal, window,
+                                         lse=lse)
+    torch.cuda.synchronize()
+    taken = {r: n - before[r] for r, n in counts.items() if n != before[r]}
+    require(taken == {name: 1}, f"backward {label}: took {taken}, not "
+            f"{name} once")
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
+                             do.float(), causal, window)
+    ok, err, notes = grads_hold(q.dtype, got, want)
+    alt_err, alt = None, ""
+    if name == "wgmma":
+        with fma_route():
+            other = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal,
+                                                   window)
+        _, alt_err, alt_notes = grads_hold(q.dtype, other, want)
+        alt = f" | the fma route on the same inputs: {'; '.join(alt_notes)}"
     if not (quiet and ok):
-        log(f"backward {label}: max|err| {'; '.join(notes)}: {ok}")
-    require(ok, f"backward kernel disagrees with attention_bwd_ref: {label}")
-    return max(errs)
+        log(f"backward {label} [{name}]: max|err| {'; '.join(notes)}: "
+            f"{ok}{alt}")
+    require(ok, f"backward kernel ({name}) disagrees with attention_bwd_ref: "
+            f"{label}")
+    return name, err, alt_err
+
+
+LSE_ATOL = 1e-4               # natural-log units: 1e-4 of the row sum
+
+
+def lse_check(label: str, gen, b, s, t, h, kh, hd, causal, window) -> float:
+    """The wgmma forward's row log-sum-exp (`return_lse=True`) against
+    `attention_lse_ref` on the same bf16 inputs (upcast): +inf on exactly
+    the rows that see no key, elsewhere within atol 1e-4; the output the
+    same bit for bit as without L."""
+    q = randn(gen, (b, s, h, hd), torch.bfloat16)
+    k = randn(gen, (b, t, kh, hd), torch.bfloat16)
+    v = randn(gen, (b, t, kh, hd), torch.bfloat16)
+    before = flash.flash_attention_cuda.route_launches["wgmma"]
+    o, lse = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                        window=window, return_lse=True)
+    o2 = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    require(flash.flash_attention_cuda.route_launches["wgmma"] == before + 2,
+            f"L {label}: not on the wgmma route")
+    ref = attention_lse_ref(q.float(), k.float(), causal, window)
+    require(lse.shape == (b, h, s) and lse.dtype == torch.float32,
+            f"L {label}: {tuple(lse.shape)} {lse.dtype}")
+    empty = torch.isinf(ref)
+    fin = ~empty
+    err = float((lse[fin] - ref[fin]).abs().max()) if bool(fin.any()) else 0.0
+    ok = (bool(torch.equal(torch.isposinf(lse), empty))
+          and bool(torch.isfinite(lse[fin]).all()) and err <= LSE_ATOL
+          and bool(torch.equal(o, o2)))
+    log(f"forward L {label}: max|err| {err:.3e} on {int(fin.sum())} rows "
+        f"(atol {LSE_ATOL:g}), +inf on the {int(empty.sum())} rows that see "
+        f"no key; output bit-equal to the call without L: {ok}")
+    require(ok, f"the forward's L disagrees with attention_lse_ref: {label}")
+    return err
+
+
+def lse_cases(gen) -> float:
+    """Phase 18's L cases: qwen3's layer, ragged S=200 and S=5, hd 64 and
+    80, and S > T under a window, where rows see no key."""
+    qcfg = configs.get(TRAIN_ARCH)
+    cases = [(f"qwen3 layer B=1 S={LM_SEQ}", 1, LM_SEQ, LM_SEQ,
+              qcfg.num_heads, qcfg.num_kv_heads, qcfg.head_dim, True, None),
+             ("ragged S=200 hd=128 window=50", 2, 200, 200, 4, 2, 128, True,
+              50),
+             ("ragged S=5 hd=64", 1, 5, 5, 4, 2, 64, True, None),
+             ("hd=80 non-causal S=200", 1, 200, 200, 4, 4, 80, False, None),
+             ("S=300 > T=100 window=64 (rows 163-299 see no key)", 1, 300,
+              100, 4, 2, 128, True, 64)]
+    return max(lse_check(label, gen, *rest) for label, *rest in cases)
 
 
 def function_check(gen, b, s, h, kh, hd, causal, window) -> float:
@@ -2475,26 +2591,38 @@ def function_check(gen, b, s, h, kh, hd, causal, window) -> float:
     return err
 
 
-def bwd_cases(gen) -> float:
-    """Phase 18's kernel-against-plain cases."""
-    errs = []
+def bwd_cases(gen) -> dict:
+    """Phase 18's kernel-against-plain cases. Returns each backward
+    route's max|err|."""
+    errs = {"wgmma": [], "fma": []}
+
+    def run(label, q, k, v, causal, window, quiet=False):
+        name, err, alt = bwd_check(label, gen, q, k, v, causal, window,
+                                   quiet)
+        errs[name].append(err)
+        return name, err, alt
+
     for dtype in (torch.float32, torch.bfloat16):
         for hd in (64, 128):
-            group = []
+            group, alts = [], []
             for kh in (8, 4, 1):                    # GQA ratio 1, 2, 8
                 q = randn(gen, (2, 320, 8, hd), dtype)
                 k = randn(gen, (2, 320, kh, hd), dtype)
                 v = randn(gen, (2, 320, kh, hd), dtype)
                 for causal in (True, False):
                     for window in (None, 128):
-                        group.append(bwd_check(
+                        name, err, alt = run(
                             f"{str(dtype)[6:]} hd={hd} g={8 // kh} "
-                            f"causal={causal} window={window} S=320", gen,
-                            q, k, v, causal, window, quiet=True))
-            log(f"backward {str(dtype)[6:]} hd={hd}: 12 cases (GQA ratio "
-                "1/2/8 x causal x window None/128, B=2, S=320, H=8): "
-                f"max|err| {max(group):.3e}")
-            errs += group
+                            f"causal={causal} window={window} S=320", q, k,
+                            v, causal, window, quiet=True)
+                        group.append(err)
+                        if alt is not None:
+                            alts.append(alt)
+            log(f"backward {str(dtype)[6:]} hd={hd} [{name}]: 12 cases (GQA "
+                "ratio 1/2/8 x causal x window None/128, B=2, S=320, H=8): "
+                f"max|err| {max(group):.3e}"
+                + (f"; the fma route on the same inputs {max(alts):.3e}"
+                   if alts else ""))
     cases = [("f32 hd=16 (the smoke config's)", torch.float32, 1, 320, 4, 2,
               16, True, None),
              ("f32 hd=80 non-causal", torch.float32, 1, 320, 16, 16, 80,
@@ -2505,6 +2633,10 @@ def bwd_cases(gen) -> float:
               True, 50),
              ("bf16 ragged S=200 hd=256 window=50", torch.bfloat16, 1, 200,
               4, 2, 256, True, 50),
+             ("bf16 ragged S=200 hd=80 window=50", torch.bfloat16, 1, 200,
+              4, 2, 80, True, 50),
+             ("bf16 ragged S=200 hd=64 GQA 4 non-causal", torch.bfloat16, 1,
+              200, 8, 2, 64, False, None),
              ("bf16 ragged S=5", torch.bfloat16, 1, 5, 4, 2, 128, True,
               None),
              ("f32 ragged S=5", torch.float32, 1, 5, 4, 2, 64, False, None)]
@@ -2517,20 +2649,30 @@ def bwd_cases(gen) -> float:
         q = randn(gen, (b, s, h, hd), dtype)
         k = randn(gen, (b, s, kh, hd), dtype)
         v = randn(gen, (b, s, kh, hd), dtype)
-        errs.append(bwd_check(label, gen, q, k, v, causal, window))
+        run(label, q, k, v, causal, window)
         del q, k, v
-    errs.append(function_check(gen, 2, 256, 16, 8, 128, True, None))
-    errs.append(function_check(gen, 1, 320, 8, 2, 64, True, 128))
-    return max(errs)
+    # T != S: kv tiles past S that no q tile reaches (zeros), and rows
+    # past T
+    for label, s, t, hd in (("bf16 S=200 T=328 hd=128 causal", 200, 328, 128),
+                            ("bf16 S=328 T=200 hd=64 causal", 328, 200, 64)):
+        run(label, randn(gen, (1, s, 4, hd), torch.bfloat16),
+            randn(gen, (1, t, 2, hd), torch.bfloat16),
+            randn(gen, (1, t, 2, hd), torch.bfloat16), True, None)
+    errs["fma"].append(function_check(gen, 2, 256, 16, 8, 128, True, None))
+    errs["fma"].append(function_check(gen, 1, 320, 8, 2, 64, True, 128))
+    return {name: max(e) for name, e in errs.items()}
 
 
 def bwd_timing(gen) -> dict:
     """The backward at qwen3's training shape, bf16 q (8, 4,096, 16, 128),
-    k/v (8, 4,096, 8, 128), causal: the kernel, the plain version at the
+    k/v (8, 4,096, 8, 128), causal: the wgmma kernel (L from the forward)
+    and the fma kernel on the same inputs, the plain version at the
     largest batch it fits (stated), SDPA's backward (yardstick only),
     beside the bound: 2.5x the forward's operations at the bf16
-    tensor-core rate (3.0x with the recompute of q k^T for L), or the
-    bytes of q, k, v, o, do read and dq, dk, dv written."""
+    tensor-core rate (3.0x with the recompute of q k^T for L; 3.5x, the
+    wgmma design's seven products), or the bytes of q, k, v, o, do read
+    and dq, dk, dv written. Also the wgmma forward with and without L at
+    qwen3's prefill shape (B=4), in turns."""
     cfg = configs.get(TRAIN_ARCH)
     b, s, h, kh, hd = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads,
                        cfg.num_kv_heads, cfg.head_dim)
@@ -2539,13 +2681,21 @@ def bwd_timing(gen) -> dict:
     v = randn(gen, (b, s, kh, hd), torch.bfloat16)
     do = randn(gen, (b, s, h, hd), torch.bfloat16)
     with torch.no_grad():
-        o = flash.flash_attention_cuda(q, k, v)
+        o, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
     fwd = attention_work(b, s, h, kh, hd, torch.bfloat16)
     ops = 2.5 * fwd["ops"]
     nbytes = 2 * fwd["bytes"] + b * s * h * hd * 2 * 2   # + o and do
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
-    ms = time_ms(lambda: flash.flash_attention_bwd_cuda(q, k, v, o, do),
-                 reps=3, warmup=1)
+
+    def wgmma():
+        return flash.flash_attention_bwd_cuda(q, k, v, o, do, lse=lse)
+
+    def fma():
+        with fma_route():
+            return flash.flash_attention_bwd_cuda(q, k, v, o, do)
+    ms = time_ms(wgmma, reps=10, warmup=2)
+    fma_ms = time_ms(fma, reps=3, warmup=1)
+    ms2 = time_ms(wgmma, reps=10, warmup=1)
     plain_ms = plain_b = None
     for pb in (b, b // 2, b // 4, 1):
         try:
@@ -2565,24 +2715,44 @@ def bwd_timing(gen) -> dict:
     dot = do.transpose(1, 2)
     library_ms = time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True), reps=5)
-    t = {"ms": ms, "plain_ms": plain_ms, "plain_batch": plain_b,
-         "library_ms": library_ms, "ops": ops, "bytes": nbytes,
-         "bound_ms": max(t_bytes, t_ops) * 1e3,
+    del qt, kt, vt, out, dot
+    # the forward at the prefill shape, in turns: without L, with, with,
+    # without, twice over
+    qf, kf, vf = q[:LM_BATCH], k[:LM_BATCH], v[:LM_BATCH]
+    fwd_runs = [time_ms(lambda: flash.flash_attention_cuda(
+        qf, kf, vf, return_lse=with_l), reps=50)
+        for with_l in (False, True, True, False) * 2]
+    without = [fwd_runs[i] for i in (0, 3, 4, 7)]
+    with_l = [fwd_runs[i] for i in (1, 2, 5, 6)]
+    t = {"ms": ms, "ms_again": ms2, "fma_ms": fma_ms, "plain_ms": plain_ms,
+         "plain_batch": plain_b, "library_ms": library_ms, "ops": ops,
+         "bytes": nbytes, "bound_ms": max(t_bytes, t_ops) * 1e3,
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-         "bound_recompute_ms": 3.0 * fwd["ops"] / BF16_OPS_PER_S * 1e3}
+         "bound_recompute_ms": 3.0 * fwd["ops"] / BF16_OPS_PER_S * 1e3,
+         "floor_7_products_ms": 3.5 * fwd["ops"] / BF16_OPS_PER_S * 1e3,
+         "fwd_ms": float(np.mean(without)),
+         "fwd_lse_ms": float(np.mean(with_l))}
     log(f"time backward bf16 B={b} S={s} H={h} KH={kh} hd={hd} causal: "
-        f"kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s of the 2.5x "
-        f"count), plain {plain_ms:.4f} ms at B={plain_b}, SDPA backward "
-        f"{library_ms:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}"
-        f"; {ops:.4g} ops, {nbytes} B), with the recompute of q k^T "
-        f"{t['bound_recompute_ms']:.4f} ms")
-    del q, k, v, o, do, qt, kt, vt, out, dot
+        f"wgmma kernel {ms:.4f} ms, again {ms2:.4f} ms ({ops / ms / 1e9:.2f} "
+        f"TFLOP/s of the 2.5x count), fma kernel {fma_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms at B={plain_b}, SDPA backward {library_ms:.4f} "
+        f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {ops:.4g} ops, "
+        f"{nbytes} B), with the recompute of q k^T "
+        f"{t['bound_recompute_ms']:.4f} ms, the wgmma design's seven "
+        f"products {t['floor_7_products_ms']:.4f} ms")
+    log(f"time forward bf16 ({LM_BATCH}, {s}, {h}, {hd}) causal, wgmma, in "
+        f"turns: without L {' / '.join(f'{x:.4f}' for x in without)} ms "
+        f"(mean {t['fwd_ms']:.4f}), with L "
+        f"{' / '.join(f'{x:.4f}' for x in with_l)} ms (mean "
+        f"{t['fwd_lse_ms']:.4f})")
+    del q, k, v, o, do, lse, qf, kf, vf
     free()
     return t
 
 
 KERNEL_CLASSES = (("K2 forward", ("flash_wgmma", "flash_fwd")),
-                  ("K2 backward", ("bwd_prep", "bwd_dkdv", "bwd_dq")),
+                  ("K2 backward", ("bwd_prep", "bwd_dot", "bwd_dkdv",
+                                   "bwd_dq")),
                   ("cuBLAS GEMM", ("gemm", "xmma", "cutlass", "cublas",
                                    "nvjet", "Kernel2")),
                   ("elementwise", ("elementwise",)),
@@ -2690,6 +2860,15 @@ def ce_timing(cfg) -> float:
     return ms
 
 
+def k2_launches() -> dict:
+    """K2's launches since the last `reset_counts`: the forward by route,
+    the backward by route."""
+    fwd = flash.flash_attention_cuda.route_launches
+    bwd = flash.flash_attention_bwd_cuda.route_launches
+    return {"wgmma": fwd["wgmma"], "fma": fwd["fma"],
+            "bwd_wgmma": bwd["wgmma"], "bwd_fma": bwd["fma"]}
+
+
 def train_main_path(gen) -> tuple[dict, dict]:
     """qwen3-0.6b whole, bf16, B=8 x 4,096 through `make_train_step` with
     remat, 5 steps. Returns the launches (K2 forward by route, backward)
@@ -2705,7 +2884,6 @@ def train_main_path(gen) -> tuple[dict, dict]:
     ds = SyntheticTextDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
     record: list = []
     losses, walls = [], []
-    routes = flash.flash_attention_cuda.route_launches
     # the main path: counts start at 0 here
     reset_counts()
     with grad_spy(record):
@@ -2721,12 +2899,14 @@ def train_main_path(gen) -> tuple[dict, dict]:
             log(f"train step {step + 1}: loss {loss:.6f}, lr "
                 f"{float(metrics['lr']):.3e}, grad norm "
                 f"{float(metrics['grad_norm']):.4f}, wall {walls[-1]:.3f} s")
-    launches = {"wgmma": routes["wgmma"], "fma": routes["fma"],
-                "bwd": flash.flash_attention_bwd_cuda.launches}
+    launches = k2_launches()
     n = cfg.num_layers * TRAIN_STEPS
-    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd": n},
+    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd_wgmma": n,
+                         "bwd_fma": 0}
+            and flash.flash_attention_bwd_cuda.launches == n,
             f"{TRAIN_ARCH} train: launches {launches}; want {2 * n} K2 "
-            f"forward (wgmma; remat runs each block twice) and {n} backward")
+            f"forward (wgmma; remat runs each block twice) and {n} backward "
+            "(wgmma)")
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
             f"{TRAIN_ARCH} train: losses {losses} not finite or not falling")
     require(len(record) == TRAIN_STEPS, "the AdamW spy missed a step")
@@ -2785,7 +2965,6 @@ def hold_f32(gen) -> dict:
         return attention_ref(q, k, v, causal=causal, window=window)
 
     runs = []
-    routes = flash.flash_attention_cuda.route_launches
     # the f32 hold's path: counts start at 0 here
     reset_counts()
     for swap in (False, True):
@@ -2806,10 +2985,9 @@ def hold_f32(gen) -> dict:
                              for n, p in params.named_parameters()}
         runs.append((losses, record[0]["grads"], after))
         del params, state, record
-    launches = {"wgmma": routes["wgmma"], "fma": routes["fma"],
-                "bwd": flash.flash_attention_bwd_cuda.launches}
+    launches = k2_launches()
     require(launches == {"wgmma": 0, "fma": 2 * 3 * HOLD_LAYERS,
-                         "bwd": 3 * HOLD_LAYERS},
+                         "bwd_wgmma": 0, "bwd_fma": 3 * HOLD_LAYERS},
             f"f32 hold: K2 launches {launches}; the plain run must launch "
             "none")
     (lk, gk, pk), (lp, gp, pp) = runs
@@ -2863,7 +3041,6 @@ def cli_resume() -> dict:
     card). Returns K2's launches (wgmma, fma, backward)."""
     base = ["--arch", TRAIN_ARCH, "--preset", "tiny", "--seq", "64",
             "--batch", "4", "--ckpt-every", "4", "--log-every", "4"]
-    routes = flash.flash_attention_cuda.route_launches
     # the CLI's path: counts start at 0 here
     reset_counts()
 
@@ -2901,34 +3078,92 @@ def cli_resume() -> dict:
         require(ok, "train CLI: the resumed step-12 loss differs")
     # steps run: 8, 8 -> 12, 12, 8 -> 12; remat runs each block twice
     n = configs.get_smoke(TRAIN_ARCH).num_layers * (8 + 4 + 12 + 4)
-    launches = {"wgmma": routes["wgmma"], "fma": routes["fma"],
-                "bwd": flash.flash_attention_bwd_cuda.launches}
-    require(launches == {"wgmma": 0, "fma": 2 * n, "bwd": n},
+    launches = k2_launches()
+    require(launches == {"wgmma": 0, "fma": 2 * n, "bwd_wgmma": 0,
+                         "bwd_fma": n},
             f"train CLI: K2 launches {launches}; want {2 * n} forward (fma) "
-            f"and {n} backward")
+            f"and {n} backward (fma)")
     return launches
 
 
-def phase_train(gen) -> tuple[float, dict, dict, dict]:
-    """Phase 18. Returns the backward's max error, its times, K2's
-    launches by phase (forward wgmma, forward fma, backward) and the
-    main path's numbers."""
+HOLD16_SEQ = 1_024
+
+
+def hold_bf16_routes() -> dict:
+    """qwen3 at full width cut to 2 layers, in its own bf16, B=2 x 1,024:
+    one train step through the wgmma backward, then the same step with
+    `flash.bwd_route` patched to "fma" (`fma_route`): the loss within 1e-3
+    relative, every gradient within a relative Frobenius error of 1e-2
+    (P and dS are rounded to bf16 before the wgmma products; the fma
+    kernel keeps them in f32). Returns K2's launches by route."""
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              num_layers=HOLD_LAYERS)
+    opt_cfg = AdamWConfig(total_steps=1, warmup_steps=1)
+    ds = SyntheticTextDataset(cfg.vocab_size, HOLD16_SEQ, HOLD_BATCH, seed=2)
+    batch = {k: torch.from_numpy(x).cuda() for k, x in ds.batch_at(0).items()}
+    runs = []
+    # the bf16 hold's path: counts start at 0 here
+    reset_counts()
+    for patched in (False, True):
+        params = M.init_params(cfg, seed=4)
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        step_fn = steps.make_train_step(cfg, opt_cfg)
+        record: list = []
+        with (fma_route() if patched else contextlib.nullcontext()), \
+                grad_spy(record, True):
+            state, metrics = step_fn(state, batch)
+        runs.append((float(metrics["loss"]), record[0]["grads"]))
+        del params, state, record
+    launches = k2_launches()
+    require(launches == {"wgmma": 2 * 2 * HOLD_LAYERS, "fma": 0,
+                         "bwd_wgmma": HOLD_LAYERS, "bwd_fma": HOLD_LAYERS},
+            f"bf16 hold: K2 launches {launches}")
+    (lw, gw), (lf, gf) = runs
+    rel = {n: float((gw[n].float() - gf[n].float()).norm()
+                    / gf[n].float().norm()) if float(gf[n].float().norm())
+           else float((gw[n].float() - gf[n].float()).norm()) for n in gw}
+    worst = max(rel, key=rel.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in gw.values())
+    ok = (finite and math.isfinite(lw) and abs(lw - lf) <= 1e-3 * abs(lf)
+          and rel[worst] <= 1e-2)
+    attn = max(v for n, v in rel.items() if ".attn." in n)
+    log(f"bf16 hold ({HOLD_LAYERS} layers at full width, B={HOLD_BATCH} "
+        f"S={HOLD16_SEQ}): loss {lw!r} (wgmma backward) vs {lf!r} (fma "
+        f"backward); worst gradient relative Frobenius {rel[worst]:.3e} "
+        f"({worst}), worst attention weight {attn:.3e}; every gradient "
+        f"finite: {ok}")
+    require(ok, "bf16 hold: the step through the wgmma backward disagrees "
+            "with the same step through the fma backward")
+    del runs, gw, gf
+    free()
+    return launches
+
+
+def phase_train(gen) -> tuple[dict, dict, dict, dict]:
+    """Phase 18. Returns each backward route's max error, the backward's
+    times, K2's launches by phase (forward wgmma, forward fma, backward
+    wgmma, backward fma) and the main path's numbers."""
     t0 = time.perf_counter()
     err = bwd_cases(gen)
-    log(f"phase 18 backward cases: {time.perf_counter() - t0:.1f} s")
+    err["lse"] = lse_cases(gen)
+    log(f"phase 18 backward and L cases: {time.perf_counter() - t0:.1f} s")
     t_bwd = bwd_timing(gen)
     t0 = time.perf_counter()
     main_launches, train_out = train_main_path(gen)
     log(f"phase 18 main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    hold16 = hold_bf16_routes()
     hold = hold_f32(gen)
     cli = cli_resume()
-    log(f"phase 18 f32 hold and CLI: {time.perf_counter() - t0:.1f} s")
+    log(f"phase 18 holds and CLI: {time.perf_counter() - t0:.1f} s")
     by_phase = {
-        "wgmma": {"18 qwen3 train": main_launches["wgmma"]},
+        "wgmma": {"18 qwen3 train": main_launches["wgmma"],
+                  "18 bf16 hold": hold16["wgmma"]},
         "fma": {"18 f32 hold": hold["fma"], "18 CLI": cli["fma"]},
-        "bwd": {"18 qwen3 train": main_launches["bwd"],
-                "18 f32 hold": hold["bwd"], "18 CLI": cli["bwd"]}}
+        "bwd_wgmma": {"18 qwen3 train": main_launches["bwd_wgmma"],
+                      "18 bf16 hold": hold16["bwd_wgmma"]},
+        "bwd_fma": {"18 bf16 hold (patched)": hold16["bwd_fma"],
+                    "18 f32 hold": hold["bwd_fma"], "18 CLI": cli["bwd_fma"]}}
     return err, t_bwd, by_phase, train_out
 
 
@@ -3050,7 +3285,8 @@ def main() -> None:
     fma_by_phase = {"8 qwen3 f32 replay": qwen3_routes["fma"],
                     "16 granite f32 replay": granite_routes["fma"], **fma17,
                     **k2_18["fma"]}
-    bwd_by_phase = k2_18["bwd"]
+    bwd_wgmma_by_phase = k2_18["bwd_wgmma"]
+    bwd_fma_by_phase = k2_18["bwd_fma"]
     ssd_by_phase = {"8 mamba2": ssd_launches, **k3_17}
     print(json.dumps({"kernels": [
         kernel_row("frontier_relax",
@@ -3078,9 +3314,25 @@ def main() -> None:
                 "bound_ms": t_attn["hd80"]["bound_ms"]}),
         dict(kernel_row(
             "flash_attention_bwd",
+            "src/repro_torch/kernels/attention/csrc/"
+            "flash_attention_bwd_wgmma.cu",
+            "src/repro/kernels/attention/flash.py:84",
+            sum(bwd_wgmma_by_phase.values()), err_bwd["wgmma"], t_bwd,
+            bwd_wgmma_by_phase),
+            kernel_route="wgmma",
+            shape="bf16 q (8, 4096, 16, 128), k/v (8, 4096, 8, 128), causal",
+            plain_batch=t_bwd["plain_batch"],
+            floor_7_products_ms=t_bwd["floor_7_products_ms"],
+            lse_max_abs_err=err_bwd["lse"],
+            forward_ms_without_lse=t_bwd["fwd_ms"],
+            forward_ms_with_lse=t_bwd["fwd_lse_ms"]),
+        dict(kernel_row(
+            "flash_attention_bwd",
             "src/repro_torch/kernels/attention/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/attention/flash.py:84",
-            sum(bwd_by_phase.values()), err_bwd, t_bwd, bwd_by_phase),
+            sum(bwd_fma_by_phase.values()), err_bwd["fma"],
+            dict(t_bwd, ms=t_bwd["fma_ms"]), bwd_fma_by_phase),
+            kernel_route="fma",
             shape="bf16 q (8, 4096, 16, 128), k/v (8, 4096, 8, 128), causal",
             plain_batch=t_bwd["plain_batch"],
             bound_recompute_ms=t_bwd["bound_recompute_ms"]),

@@ -14,11 +14,11 @@ from repro_torch.api import (BackendFailure, CapacityExceeded, CompiledQuery,
                              ConvergenceFailure, DeadlineExceeded,
                              ExecutionPlan, FlipError, InvalidRequest,
                              Program, QueryResult, WarmStart, compile,
-                             plan_from_cli)
+                             plan_from_cli, resolve_cli_engine)
 
 __all__ = [
     "ExecutionPlan", "Program", "CompiledQuery", "QueryResult",
-    "WarmStart", "compile", "plan_from_cli",
+    "WarmStart", "compile", "plan_from_cli", "resolve_cli_engine",
     "FlipError", "InvalidRequest", "CapacityExceeded",
     "DeadlineExceeded", "ConvergenceFailure", "BackendFailure",
 ]

@@ -9,7 +9,8 @@
     cq2, delta = cq.update(edge_batch)           # streaming mutation
     warm = cq2.query([0, 5, 9], warm=result)     # incremental recompute
 """
-from repro_torch.api.plan import ExecutionPlan, plan_from_cli
+from repro_torch.api.plan import (ExecutionPlan, plan_from_cli,
+                                  resolve_cli_engine)
 from repro_torch.api.program import Program
 from repro_torch.api.session import CompiledQuery, QueryResult, compile
 from repro_torch.core.engine import WarmStart
@@ -21,7 +22,7 @@ from repro_torch.resilience.errors import (BackendFailure, CapacityExceeded,
 
 __all__ = [
     "ExecutionPlan", "Program", "CompiledQuery", "QueryResult",
-    "WarmStart", "compile", "plan_from_cli",
+    "WarmStart", "compile", "plan_from_cli", "resolve_cli_engine",
     "QueryTelemetry", "DispatchTelemetry",
     "FlipError", "InvalidRequest", "CapacityExceeded",
     "DeadlineExceeded", "ConvergenceFailure", "BackendFailure",

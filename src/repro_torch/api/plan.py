@@ -12,6 +12,7 @@ reference's `mesh_axis` has no counterpart.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import torch
 
@@ -203,16 +204,28 @@ class ExecutionPlan:
         return plan
 
 
+def resolve_cli_engine(engine: str, mode: str) -> tuple[str, str]:
+    """Collapse deprecated CLI spellings so every option has one canonical
+    form, as the reference does. ``--engine op`` is the pre-split spelling
+    of ``--engine jax --mode op``: still accepted, it warns once with a
+    `DeprecationWarning` (the default filter deduplicates repeats)."""
+    if engine == "op":
+        warnings.warn(
+            "--engine op is deprecated; use --engine jax --mode op",
+            DeprecationWarning, stacklevel=2)
+        return "jax", "op"
+    return engine, mode
+
+
 def plan_from_cli(engine: str, mode: str, compact: bool | str = "auto",
                   tile: int = 128, batch: int = 0,
                   feature_dim: int = 0) -> ExecutionPlan:
     """One ExecutionPlan from the graph_run CLI surface. `engine` keeps
     the reference's spelling: 'jax' is the local engine ('op' the
-    deprecated spelling of 'jax' in op mode) and 'dist' the distributed
-    fixpoint over the default process group. The cycle simulator
-    ('sim') takes no plan."""
-    if engine == "op":
-        engine, mode = "jax", "op"
+    deprecated spelling of 'jax' in op mode, folded by
+    `resolve_cli_engine`) and 'dist' the distributed fixpoint over the
+    default process group. The cycle simulator ('sim') takes no plan."""
+    engine, mode = resolve_cli_engine(engine, mode)
     if engine not in ("jax", "dist"):
         raise ValueError(
             f"engine {engine!r} takes no ExecutionPlan: the plan surface "

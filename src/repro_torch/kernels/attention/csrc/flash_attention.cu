@@ -254,13 +254,17 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window <= 0: no window. Returns the
-// launch's cudaError_t (0 = success); the wrapper raises on anything else.
+// dtype: 0 = float32, 1 = bfloat16. window <= 0: no window. `lse` must be
+// null: this route writes no row log-sum-exp (its backward, the fma one,
+// recomputes it); the signature is that of flash_attention_wgmma_launch.
+// Returns the launch's cudaError_t (0 = success); the wrapper raises on
+// anything else.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* o, int dtype,
-                                      int B, int S, int Tk, int H, int KH,
-                                      int HD, int causal, int window,
+                                      const void* v, void* o, void* lse,
+                                      int dtype, int B, int S, int Tk, int H,
+                                      int KH, int HD, int causal, int window,
                                       float scale, void* stream) {
+  if (lse != nullptr) return (int)cudaErrorNotSupported;
   if (B <= 0 || S <= 0 || Tk <= 0 || KH <= 0 || H % KH != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -1,4 +1,6 @@
-// GQA flash attention, backward, for Hopper (sm_90a): the gradient of K2.
+// GQA flash attention, backward, for Hopper (sm_90a): the gradient of K2,
+// the "fma" route (f32 at every head dim, bf16 at hd 16/32/256); bf16 at hd
+// 64/80/128 takes flash_attention_bwd_wgmma.cu on the tensor cores.
 //
 // The Pallas TPU kernel `repro.kernels.attention.flash.flash_attention_pallas`
 // (body `_flash_kernel`) is forward only; the reference trains through XLA's
@@ -20,10 +22,10 @@
 // (8, 4096, 16, 128), k/v (8, 4096, 8, 128), causal) the backward is 2.5x
 // the forward's 5.50e11 operations, 1.37e12: 1.39 ms at the 989 TFLOP/s
 // bf16 tensor-core rate (1.67 ms with the recompute of q k^T for L), far
-// above the 0.2 ms its bytes take at 3.35 TB/s. This first kernel runs on
-// the CUDA cores in f32 FMAs (67 TFLOP/s), and recomputes S in each of its
-// three functions, so its own floor is ~33 ms: tensor cores (wgmma), TMA
-// and L emitted by the forward are the next steps.
+// above the 0.2 ms its bytes take at 3.35 TB/s. This kernel runs on the
+// CUDA cores in f32 FMAs (67 TFLOP/s), and recomputes S in each of its
+// three functions, so its own floor is ~33 ms; the wgmma route takes the
+// bf16 cases that fit its tiles.
 //
 // What the design does about that. Three functions, each with one role, no
 // atomics, the same result on every run:

@@ -41,7 +41,14 @@
 //    in its stored [kv][hd] layout as an MN-major operand (transpose bit).
 //  * Epilogue: O / max(l, 1e-30) in bf16, written into the consumer's own
 //    (now idle) Q rows in the swizzled layout, and stored by TMA, which
-//    clips the rows past S.
+//    clips the rows past S. When the caller passes a (B, H, S) f32 `lse`
+//    (training: the wgmma backward reads it instead of recomputing it), one
+//    thread of each quad writes its two rows' log-sum-exp of the masked,
+//    scaled scores, in natural-log units: L = (m + log2 l) ln 2, from the
+//    running max m and the quad-summed l it already holds in log2 units.
+//    A row that saw no allowed key (m never rose above the -1e30 mask, so
+//    l = 0 or l counts masked keys only) gets L = +inf: the backward's P is
+//    0 there, not NaN. Inference passes null and pays one branch.
 //  * q, k, v and out keep their (B, S, H, hd) / (B, T, KH, hd) layouts: the
 //    tensor maps are 4-D over (hd, heads, rows, batch), built on each call
 //    (they encode the base pointers) and passed as __grid_constant__. Rows
@@ -344,8 +351,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_wgmma(const __grid_constant__ CUtensorMap qmap,
             const __grid_constant__ CUtensorMap kmap,
             const __grid_constant__ CUtensorMap vmap,
-            const __grid_constant__ CUtensorMap omap, int S, int Tk, int H,
-            int KH, int causal, int window, float scale_log2) {
+            const __grid_constant__ CUtensorMap omap, float* __restrict__ lse,
+            int S, int Tk, int H, int KH, int causal, int window,
+            float scale_log2) {
   using C = Cfg<HD>;
   constexpr int BKV = C::BKV, NC = C::NC;
   constexpr int QBOX = 64 * 128;            // 64 rows x 128 B
@@ -519,6 +527,15 @@ flash_wgmma(const __grid_constant__ CUtensorMap qmap,
       l1 += __shfl_xor_sync(0xffffffffu, l1, off);
     }
     const float d0 = fmaxf(l0, 1e-30f), d1 = fmaxf(l1, 1e-30f);
+    if (lse != nullptr && lane % 4 == 0) {
+      float* lrow = lse + ((size_t)b * H + h) * S;
+      if (row0 < S)
+        lrow[row0] = m0 > NEG_BIG ? (m0 + log2f(l0)) * 0.6931471805599453f
+                                  : INFINITY;
+      if (row1 < S)
+        lrow[row1] = m1 > NEG_BIG ? (m1 + log2f(l1)) * 0.6931471805599453f
+                                  : INFINITY;
+    }
     const int r0 = 16 * warp + lane / 4;           // row in the box; r0 % 8
     const int sw = lane / 4;                       //   == (r0 + 8) % 8 == sw
 #pragma unroll
@@ -600,9 +617,9 @@ int make_map(CUtensorMap* map, const void* ptr, int hd, int heads, int rows,
 
 // HD is the tile's width, hd (<= HD) the tensors' head dim.
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Tk, int H, int KH, int hd, int causal, int window,
-           float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int Tk, int H, int KH, int hd, int causal,
+           int window, float scale, cudaStream_t stream) {
   using C = Cfg<HD>;
   CUtensorMap qm, km, vm, om;
   int err;
@@ -615,7 +632,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   if (attr != cudaSuccess) return (int)attr;
   const dim3 grid(H, B, (S + BQ - 1) / BQ);
   flash_wgmma<HD><<<grid, THREADS, C::SMEM, stream>>>(
-      qm, km, vm, om, S, Tk, H, KH, causal, window,
+      qm, km, vm, om, lse, S, Tk, H, KH, causal, window,
       scale * 1.4426950408889634f);   // log2(e): the softmax runs in exp2
   return (int)cudaGetLastError();
 }
@@ -623,13 +640,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 }  // namespace
 
 // q (B,S,H,hd), k/v (B,T,KH,hd), out (B,S,H,hd), all contiguous and
-// 16-byte aligned; dtype must be 1 (bfloat16; the signature is that of
-// flash_attention_launch); hd in {64, 80, 128, 256} (80 in the hd-128
-// tile). window <= 0: no window.
+// 16-byte aligned; lse null, or a contiguous (B,H,S) f32 output for the row
+// log-sum-exp (natural log; +inf on a row that saw no key); dtype must be 1
+// (bfloat16; the signature is that of flash_attention_launch); hd in {64,
+// 80, 128, 256} (80 in the hd-128 tile). window <= 0: no window.
 // Returns 0, a cudaError_t, or one of the tensor-map errors above; the
 // wrapper raises on anything but 0.
 extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
-                                            const void* v, void* o,
+                                            const void* v, void* o, void* lse,
                                             int dtype, int B, int S, int Tk,
                                             int H, int KH, int HD, int causal,
                                             int window, float scale,
@@ -641,11 +659,12 @@ extern "C" int flash_attention_wgmma_launch(const void* q, const void* k,
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o)) % 16)
     return (int)cudaErrorMisalignedAddress;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* L = static_cast<float*>(lse);
   switch (HD) {
-    case 64: return launch<64>(q, k, v, o, B, S, Tk, H, KH, 64, causal, window, scale, st);
-    case 80: return launch<128>(q, k, v, o, B, S, Tk, H, KH, 80, causal, window, scale, st);
-    case 128: return launch<128>(q, k, v, o, B, S, Tk, H, KH, 128, causal, window, scale, st);
-    case 256: return launch<256>(q, k, v, o, B, S, Tk, H, KH, 256, causal, window, scale, st);
+    case 64: return launch<64>(q, k, v, o, L, B, S, Tk, H, KH, 64, causal, window, scale, st);
+    case 80: return launch<128>(q, k, v, o, L, B, S, Tk, H, KH, 80, causal, window, scale, st);
+    case 128: return launch<128>(q, k, v, o, L, B, S, Tk, H, KH, 128, causal, window, scale, st);
+    case 256: return launch<256>(q, k, v, o, L, B, S, Tk, H, KH, 256, causal, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

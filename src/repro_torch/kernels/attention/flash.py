@@ -12,10 +12,21 @@ Two kernels compute the Pallas TPU kernel
   16/32, f32 FMAs on the CUDA cores (a tensor-core product would not hold
   the f32 cases).
 
-The backward, `flash_attention_bwd_cuda`, is one route for every dtype
-and head dim: `csrc/flash_attention_bwd.cu`, f32 FMAs on the CUDA cores
-(`bwd_prep` for the row log-sum-exp and rowsum(dout * out), `bwd_dkdv`,
-`bwd_dq`); `ops.FlashAttention` joins it to the forward under autograd.
+The backward, `flash_attention_bwd_cuda`, has two routes too;
+`bwd_route` picks it, in one place:
+
+* ``"wgmma"``: `csrc/flash_attention_bwd_wgmma.cu`, bf16 at hd 64/80/128,
+  on the tensor cores (`bwd_dot` for rowsum(dout * out), then `bwd_dkdv`
+  and `bwd_dq`, every product a wgmma fed by TMA; hd 80 in the hd-128
+  tile). It takes the row log-sum-exp L that the wgmma forward writes
+  when asked (`flash_attention_cuda(..., return_lse=True)`) and raises
+  without it;
+* ``"fma"``: `csrc/flash_attention_bwd.cu`, f32 at every hd and bf16 at
+  hd 16/32/256, f32 FMAs on the CUDA cores (`bwd_prep` recomputes L and
+  D, then `bwd_dkdv`, `bwd_dq`).
+
+`ops.FlashAttention` joins them to the forward under autograd, asking the
+forward for L when the backward's route takes it.
 
 Each source's header says what bounds it and how the design answers that.
 They are built at first use by `repro_torch.kernels._build` and launched
@@ -40,14 +51,19 @@ from repro_torch.kernels._grad import require_no_grad
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"                # the "fma" route
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"    # the "wgmma" route
-BWD_SOURCE = CSRC / "flash_attention_bwd.cu"        # the backward
+BWD_SOURCE = CSRC / "flash_attention_bwd.cu"        # the "fma" backward
+BWD_WGMMA_SOURCE = CSRC / "flash_attention_bwd_wgmma.cu"   # "wgmma" backward
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 WGMMA_HEAD_DIMS = (64, 80, 128, 256)
+BWD_WGMMA_HEAD_DIMS = (64, 80, 128)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 # route -> (source, prefix of its C functions `<prefix>_launch` and
 # `<prefix>_error_string`, which share one signature)
 ROUTES = {"wgmma": (WGMMA_SOURCE, "flash_attention_wgmma"),
           "fma": (SOURCE, "flash_attention")}
+# the backward's routes, the same way (each its own signature)
+BWD_ROUTES = {"wgmma": (BWD_WGMMA_SOURCE, "flash_attention_bwd_wgmma"),
+              "fma": (BWD_SOURCE, "flash_attention_bwd")}
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -63,6 +79,17 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
         return "fma"
     raise ValueError(f"flash_attention_cuda: dtype {dtype}; the kernels "
                      "take float32 or bfloat16")
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward kernel that q/k/v of `dtype` and `head_dim` take:
+    ``"wgmma"`` for bf16 at hd 64/80/128 (it needs the forward's L),
+    ``"fma"`` for f32 at any hd in `HEAD_DIMS` and bf16 at hd 16/32/256.
+    Raises on anything else."""
+    route(dtype, head_dim)                 # the same dtypes and head dims
+    if dtype == torch.bfloat16 and head_dim in BWD_WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "fma"
 
 
 def wgmma_tile(head_dim: int) -> int:
@@ -92,10 +119,17 @@ def kv_tile_range(qi: int, bq: int, bkv: int, causal: bool,
     return first, last
 
 
-def bwd_tiles(head_dim: int) -> tuple[int, int]:
-    """The backward kernel's (q rows, kv rows) per tile at `head_dim`:
-    64 q rows; 64 kv rows up to hd 128, 32 at hd 256 (shared memory)."""
-    return 64, (32 if head_dim > 128 else 64)
+def bwd_tiles(head_dim: int, route_name: str
+              ) -> tuple[tuple[int, int], tuple[int, int]]:
+    """The backward kernels' tiles on `route_name` at `head_dim`, as
+    ``((q rows, kv rows) of the dkdv walk, (q rows, kv rows) of the dq
+    walk)``. "wgmma": dkdv owns 128 kv rows and steps 64 q rows, dq owns
+    128 q rows and steps 64 kv rows. "fma": 64 q rows and 64 kv rows in
+    both, 32 kv rows at hd 256 (shared memory)."""
+    if route_name == "wgmma":
+        return (64, 128), (128, 64)
+    tiles = (64, 32 if head_dim > 128 else 64)
+    return tiles, tiles
 
 
 def q_tile_range(kj: int, bq: int, bkv: int, causal: bool,
@@ -121,7 +155,9 @@ def _library(route_name: str):
     lib = _build.load(source)
     launch = getattr(lib, f"{prefix}_launch")
     error = getattr(lib, f"{prefix}_error_string")
-    launch.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+    # q, k, v, out, lse (null: not written); dtype, B, S, T, H, KH, hd,
+    # causal, window; scale; stream
+    launch.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
     launch.restype = ctypes.c_int
     error.argtypes = [ctypes.c_int]
@@ -130,10 +166,11 @@ def _library(route_name: str):
 
 
 def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
-            v: torch.Tensor, causal: bool, window: int | None
-            ) -> torch.Tensor:
-    """One launch of the named route's kernel on checked inputs; counts
-    nothing. `flash_attention_cuda` is the wrapper."""
+            v: torch.Tensor, causal: bool, window: int | None,
+            lse: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of the named route's kernel on checked inputs, writing
+    the row log-sum-exp into `lse` when it is given; counts nothing.
+    `flash_attention_cuda` is the wrapper."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -141,6 +178,7 @@ def _launch(route_name: str, q: torch.Tensor, k: torch.Tensor,
     with torch.cuda.device(q.device):
         err = launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             DTYPE_IDS[q.dtype], b, s, t, h, kh, hd, int(causal),
             0 if window is None else int(window), 1.0 / math.sqrt(hd),
             torch.cuda.current_stream(q.device).cuda_stream)
@@ -187,22 +225,33 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool = True, window: int | None = None
-                         ) -> torch.Tensor:
+                         causal: bool = True, window: int | None = None,
+                         return_lse: bool = False):
     """GQA attention on the card. q: (B,S,H,hd); k/v: (B,T,KH,hd), all
     contiguous, 16-byte aligned CUDA tensors of one dtype (f32 or bf16),
-    H % KH == 0, hd in `HEAD_DIMS`. Returns (B,S,H,hd) in q's dtype. The
-    route is `route(q.dtype, hd)`. Raises on anything the kernels do not
-    take, and under grad mode when an input requires grad (use
-    `ops.flash_attention`); never falls back to the plain version or the
-    other route."""
+    H % KH == 0, hd in `HEAD_DIMS`. Returns (B,S,H,hd) in q's dtype; with
+    `return_lse` (the "wgmma" route only) also the (B,H,S) f32 row
+    log-sum-exp of the masked, scaled scores (natural log; +inf on a row
+    that sees no key), which the "wgmma" backward takes (plain version:
+    `ref.attention_lse_ref`). The route is `route(q.dtype, hd)`. Raises on
+    anything the kernels do not take, and under grad mode when an input
+    requires grad (use `ops.flash_attention`); never falls back to the
+    plain version or the other route."""
     require_no_grad("flash_attention_cuda",
                     "differentiate through ops.flash_attention", q, k, v)
     name = _check(q, k, v, window)
-    out = _launch(name, q, k, v, causal, window)
+    lse = None
+    if return_lse:
+        if name != "wgmma":
+            raise ValueError("flash_attention_cuda: return_lse needs the "
+                             f"wgmma route; {q.dtype} at hd {q.shape[3]} "
+                             f"takes {name!r}")
+        b, s, h = q.shape[:3]
+        lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    out = _launch(name, q, k, v, causal, window, lse)
     flash_attention_cuda.launches += 1
     flash_attention_cuda.route_launches[name] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0    # kernel launches since the last reset
@@ -210,14 +259,23 @@ flash_attention_cuda.route_launches = {"wgmma": 0, "fma": 0}   # by route
 
 
 @functools.cache
-def _bwd_library():
-    """The backward's built ``(launch, error_string)`` C functions."""
-    lib = _build.load(BWD_SOURCE)
-    launch = lib.flash_attention_bwd_launch
-    launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-                       + [ctypes.c_float, ctypes.c_void_p])
+def _bwd_library(route_name: str):
+    """The backward route's built ``(launch, error_string)`` C functions."""
+    source, prefix = BWD_ROUTES[route_name]
+    lib = _build.load(source)
+    launch = getattr(lib, f"{prefix}_launch")
+    error = getattr(lib, f"{prefix}_error_string")
+    if route_name == "wgmma":
+        # q, k, v, o, do, lse, dq, dk, dv, D; B, S, T, H, KH, hd, causal,
+        # window; scale; stream
+        launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                           + [ctypes.c_float, ctypes.c_void_p])
+    else:
+        # q, k, v, o, do, dq, dk, dv, L, D; dtype, B, S, T, H, KH, hd,
+        # causal, window; scale; stream
+        launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.c_void_p])
     launch.restype = ctypes.c_int
-    error = lib.flash_attention_bwd_error_string
     error.argtypes = [ctypes.c_int]
     error.restype = ctypes.c_char_p
     return launch, error
@@ -226,47 +284,80 @@ def _bwd_library():
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, causal: bool = True,
-                             window: int | None = None
+                             window: int | None = None,
+                             lse: torch.Tensor | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """The gradient of `flash_attention_cuda(q, k, v, causal, window)` = o
     for the output gradient `do`, on the card: (dq, dk, dv) in the inputs'
     dtype, accumulated in f32, dk/dv summed over each kv head's group of
     query heads. q, k, v as `flash_attention_cuda` takes them; o and do of
-    q's shape, dtype and device, contiguous and 16-byte aligned. One call
-    launches the three functions of `csrc/flash_attention_bwd.cu` (prep,
-    dkdv, dq) and counts once. Raises on anything the kernel does not take,
-    and under grad mode when an input requires grad (double backward is
-    not supported); never falls back to the plain version."""
+    q's shape, dtype and device, contiguous and 16-byte aligned. The route
+    is `bwd_route(q.dtype, hd)`: "wgmma" takes `lse`, the forward's (B,H,S)
+    f32 row log-sum-exp (`flash_attention_cuda(..., return_lse=True)`) and
+    raises without it; "fma" recomputes it and takes none. One call
+    launches the route's three functions and counts once. Raises on
+    anything the kernels do not take, and under grad mode when an input
+    requires grad (double backward is not supported); never falls back to
+    the plain version or the other route."""
     require_no_grad("flash_attention_bwd_cuda",
                     "double backward is not supported", q, k, v, o, do)
+    name = bwd_route(q.dtype, q.shape[-1])
+    if name == "wgmma" and lse is None:
+        raise ValueError("flash_attention_bwd_cuda: the wgmma backward "
+                         "takes the forward's row log-sum-exp: pass lse "
+                         "from flash_attention_cuda(..., return_lse=True)")
+    if name == "fma" and lse is not None:
+        raise ValueError("flash_attention_bwd_cuda: the fma backward "
+                         "recomputes L; pass lse=None")
     _check(q, k, v, window, "flash_attention_bwd_cuda")
-    for name, x in (("o", o), ("do", do)):
+    for label, x in (("o", o), ("do", do)):
         if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
-            raise ValueError(f"flash_attention_bwd_cuda: {name} "
+            raise ValueError(f"flash_attention_bwd_cuda: {label} "
                              f"{tuple(x.shape)} {x.dtype} on {x.device} "
                              f"does not match q {tuple(q.shape)} {q.dtype}")
         if not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"flash_attention_bwd_cuda: {name} must be "
+            raise ValueError(f"flash_attention_bwd_cuda: {label} must be "
                              "contiguous and 16-byte aligned")
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
+    if lse is not None and (lse.shape != (b, h, s)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd_cuda: lse {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}; want a contiguous "
+                         f"({b}, {h}, {s}) float32 tensor on {q.device}")
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    scratch = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
-    launch, error = _bwd_library()
+    launch, error = _bwd_library(name)
+    scale = 1.0 / math.sqrt(hd)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        err = launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            scratch[0].data_ptr(), scratch[1].data_ptr(), DTYPE_IDS[q.dtype],
-            b, s, t, h, kh, hd, int(causal),
-            0 if window is None else int(window), 1.0 / math.sqrt(hd),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        if name == "wgmma":
+            delta = torch.empty((b, h, s), dtype=torch.float32,
+                                device=q.device)
+            err = launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), delta.data_ptr(), b, s, t, h, kh, hd,
+                int(causal), 0 if window is None else int(window), scale,
+                stream)
+        else:
+            scratch = torch.empty((2, b, h, s), dtype=torch.float32,
+                                  device=q.device)
+            err = launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                scratch[0].data_ptr(), scratch[1].data_ptr(),
+                DTYPE_IDS[q.dtype], b, s, t, h, kh, hd, int(causal),
+                0 if window is None else int(window), scale, stream)
     if err:
-        raise RuntimeError("flash_attention_bwd kernel launch failed: "
-                           f"{error(err).decode()} ({err})")
+        raise RuntimeError(f"flash_attention_bwd ({name}) kernel launch "
+                           f"failed: {error(err).decode()} ({err})")
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.route_launches[name] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0    # calls (3 kernels each) since reset
+flash_attention_bwd_cuda.route_launches = {"wgmma": 0, "fma": 0}   # by route

@@ -4,8 +4,9 @@
 and the plain version that the CUDA kernel (`flash.flash_attention_cuda`)
 is held against: the full score matrix, masked with the reference's -1e30
 and softmaxed in f32. `attention_bwd_ref` is the plain version of the
-backward kernel (`flash.flash_attention_bwd_cuda`): the same gradient from
-explicit formulas, in f32.
+backward kernels (`flash.flash_attention_bwd_cuda`): the same gradient
+from explicit formulas, in f32. `attention_lse_ref` is the plain version of
+the row log-sum-exp that the "wgmma" forward writes for its backward.
 """
 from __future__ import annotations
 
@@ -50,6 +51,23 @@ def _mask(s: int, t: int, causal: bool, window: int | None,
     if window is not None:
         ok &= k_pos > q_pos - window
     return ok
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, causal: bool = True,
+                      window: int | None = None) -> torch.Tensor:
+    """The row log-sum-exp L of `attention_ref`'s masked, scaled scores,
+    (B,H,S) f32 in natural-log units, over the keys each row may see; +inf
+    on a row that sees no key (its backward P is then 0). q: (B,S,H,hd);
+    k: (B,T,KH,hd)."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    qr = q.to(torch.float32).reshape(b, s, kh, h // kh, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qr,
+                          k.to(torch.float32)) / math.sqrt(hd)
+    ok = _mask(s, t, causal, window, q.device)
+    lse = torch.logsumexp(torch.where(ok, scores, -math.inf), dim=-1)
+    lse = torch.where(ok.any(-1), lse, math.inf)
+    return lse.reshape(b, h, s)
 
 
 def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

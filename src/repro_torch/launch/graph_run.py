@@ -133,8 +133,8 @@ def main(argv=None):
                          "PyTorch version)")
     args = ap.parse_args(argv)
     args.compact = {"auto": "auto", "on": True, "off": False}[args.compact]
-    if args.engine == "op":                # deprecated spelling
-        args.engine, args.mode = "jax", "op"
+    args.engine, args.mode = flip.resolve_cli_engine(args.engine,
+                                                     args.mode)
     srcs = ([int(s) for s in args.srcs.split(",")]
             if args.srcs else None)
     if srcs is not None and args.engine == "sim":

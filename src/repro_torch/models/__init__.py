@@ -1,2 +1,6 @@
-"""The LM stack of the port (inference): config, layers, attention,
-mamba, the model, and the converter from the reference's parameters."""
+"""The LM stack of the port: config, layers, attention, mamba, MoE, the
+model (inference and training), and the converter from the reference's
+parameters."""
+from repro_torch.models.config import BlockSpec, ModelConfig
+
+__all__ = ["ModelConfig", "BlockSpec"]

@@ -40,7 +40,7 @@ from repro.kernels.ssd.ref import ssd_step_ref as jax_ssd_step_ref
 from repro.kernels.ssd.ssd import ssd_intra_pallas, ssd_pallas
 from repro_torch.kernels.attention import flash
 from repro_torch.kernels.attention.ops import flash_attention
-from repro_torch.kernels.attention.ref import attention_ref
+from repro_torch.kernels.attention.ref import attention_lse_ref, attention_ref
 from repro_torch.kernels.ssd import ssd
 from repro_torch.kernels.ssd.ops import ssd_chunked
 from repro_torch.kernels.ssd.ref import (chunk_inputs, ssd_intra_ref,
@@ -173,13 +173,16 @@ def test_flash_route_rule(dtype, hd):
     assert flash.ROUTES[want][0].exists()
 
 
-def _wgmma_emulation(q, k, v, causal, window):
+def _wgmma_emulation(q, k, v, causal, window, return_lse=False):
     """The "wgmma" route's arithmetic in f32 on the CPU: per 128-row q tile
     the kv tiles of `kv_tile_range`; S = q k^T of the bf16 inputs in f32;
     the online softmax in log2 units with the kernel's -1e30 mask; P
     rounded to bf16 before P.V; O / max(l, 1e-30) rounded to bf16. The
     tiles are `flash.wgmma_tile(hd)` columns wide: at hd 80, 128 columns
-    whose columns 80-127 are zero (TMA's fill), cut off at the store."""
+    whose columns 80-127 are zero (TMA's fill), cut off at the store. With
+    `return_lse`, also the row log-sum-exp the kernel writes for the
+    backward: (m + log2 l) ln 2 from the running max and sum, +inf on a
+    row whose max never rose above the -1e30 mask."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     tile = flash.wgmma_tile(hd)
@@ -190,6 +193,7 @@ def _wgmma_emulation(q, k, v, causal, window):
                   .transpose(1, 2) for x in (q, k, v))
     kf, vf = (x.repeat_interleave(h // kh, dim=1) for x in (kf, vf))
     out = torch.empty(b, h, s, tile)
+    lse = torch.empty(b, h, s)
     for qi in range(-(-s // bq)):
         rows = torch.arange(qi * bq, min(qi * bq + bq, s))
         m = torch.full((b, h, rows.numel()), -1e30)
@@ -212,7 +216,10 @@ def _wgmma_emulation(q, k, v, causal, window):
             o = o * corr[..., None] + p.bfloat16().float() @ vf[:, :, keys]
             m = mn
         out[:, :, rows] = o / l.clamp_min(1e-30)[..., None]
-    return out[..., :hd].transpose(1, 2).bfloat16()
+        lse[:, :, rows] = torch.where(m > -1e30, (m + torch.log2(l))
+                                      * 0.6931471805599453, math.inf)
+    out = out[..., :hd].transpose(1, 2).bfloat16()
+    return (out, lse) if return_lse else out
 
 
 @pytest.mark.parametrize("h,kh,hd,s,causal,window", [
@@ -240,6 +247,26 @@ def test_wgmma_route_numerics_hold_against_reference(h, kh, hd, s, causal,
         assert float((got - ref).abs().max()) <= 2e-2
         assert float((got - ref).norm() / ref.norm()) <= 1e-2
         assert not torch.equal(got, ref.bfloat16().float())   # P rounds
+
+
+@pytest.mark.parametrize("s,t,hd,causal,window", [
+    (512, 512, 128, True, None), (200, 200, 80, False, None),
+    (200, 200, 64, True, 50), (300, 100, 128, True, 64)])
+def test_wgmma_forward_lse_emulation(s, t, hd, causal, window):
+    """The L that the wgmma forward writes for its backward, emulated from
+    its running max and sum, equals `attention_lse_ref` (atol 1e-4, the
+    card's hold), with +inf on exactly the rows that see no key (at
+    S=300 > T=100 under window 64: rows 163-299)."""
+    rng = np.random.default_rng(s + t)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               .bfloat16() for shape in ((1, s, 4, hd), (1, t, 2, hd),
+                                         (1, t, 2, hd)))
+    _, got = _wgmma_emulation(q, k, v, causal, window, return_lse=True)
+    want = attention_lse_ref(q.float(), k.float(), causal, window)
+    empty = torch.isinf(want)
+    assert torch.equal(torch.isposinf(got), empty)
+    assert int(empty.sum()) == (4 * 137 if s == 300 else 0)
+    assert float((got[~empty] - want[~empty]).abs().max()) <= 1e-4
 
 
 # ------------------------------------------------------------------ #

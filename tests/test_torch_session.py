@@ -13,6 +13,7 @@ import json
 import os
 import subprocess
 import sys
+import warnings
 
 import numpy as np
 import pytest
@@ -148,6 +149,67 @@ def test_plan_validation():
         plan(relax_mode="torch").resolve(None, "cuda")
 
 
+@pytest.mark.parametrize("spelling", [("op", "data"), ("jax", "op"),
+                                      ("dist", "data"), ("sim", "data")])
+def test_cli_alias_resolution(spelling):
+    """The port's twin of the reference's `test_cli_alias_resolution`:
+    `flip_torch.resolve_cli_engine` gives `flip`'s result with the same
+    warnings (one DeprecationWarning for --engine op, none for a canonical
+    spelling), and `plan_from_cli` folds the alias through it."""
+    seen = []
+    for mod in (flip, flip_torch):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = mod.resolve_cli_engine(*spelling)
+        seen.append((got, [(w.category, str(w.message)) for w in caught]))
+    assert seen[0] == seen[1]
+    (engine, mode), warned = seen[1]
+    if spelling[0] == "op":
+        assert (engine, mode) == ("jax", "op")
+        assert [c for c, _ in warned] == [DeprecationWarning]
+        assert "--engine op" in warned[0][1]
+        with pytest.warns(DeprecationWarning, match="--engine op"):
+            plan = flip_torch.plan_from_cli(*spelling)
+        assert (plan.mode, plan.distributed) == ("op", False)
+    else:
+        assert (engine, mode) == spelling and warned == []
+    if engine == "sim":
+        with pytest.raises(ValueError, match="no ExecutionPlan"):
+            flip_torch.plan_from_cli(*spelling)
+    elif spelling[0] == "dist":
+        assert flip_torch.plan_from_cli(*spelling).distributed
+
+
+def test_graph_run_engine_op_warns(capsys):
+    """`graph_run --engine op` goes through `resolve_cli_engine`: it warns
+    and runs as --engine jax --mode op."""
+    from repro_torch.launch import graph_run
+    with pytest.warns(DeprecationWarning, match="--engine op"):
+        graph_run.main(["--algo", "bfs", "--dataset", "SRN", "--src", "3",
+                        "--engine", "op", "--device", "cpu", "--effort",
+                        "0"])
+    assert "[graph] correct vs reference: True" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("ref_name,port_name", [
+    ("flip", "flip_torch"), ("repro.api", "repro_torch.api"),
+    ("repro.models", "repro_torch.models")])
+def test_module_surfaces_match(ref_name, port_name):
+    """Each front module of the port exports the reference's names, each
+    resolving to the port's own object (never the reference's)."""
+    import importlib
+    ref, port = (importlib.import_module(n) for n in (ref_name, port_name))
+    assert sorted(port.__all__) == sorted(ref.__all__)
+    for name in port.__all__:
+        obj = getattr(port, name)
+        owner = getattr(obj, "__module__", None) or port_name
+        assert owner.split(".")[0] in ("repro_torch", "flip_torch"), (
+            name, owner)
+    if port_name == "repro_torch.models":
+        from repro_torch.models.config import BlockSpec, ModelConfig
+        assert (port.ModelConfig, port.BlockSpec) == (ModelConfig, BlockSpec)
+
+
 def test_scalar_program_at_feature_width():
     """A scalar program at d > 1 runs d broadcast lanes, like the
     reference."""
@@ -218,6 +280,9 @@ def test_port_imports_neither_jax_nor_repro():
         " 'data.pipeline', 'checkpoint.manager', 'launch.train',"
         " 'launch.steps', 'distributed.compression', 'kernels._grad'):\n"
         "    assert 'repro_torch.' + name in sys.modules, name\n"
+        "from repro_torch.models import BlockSpec, ModelConfig\n"
+        "assert ModelConfig.__module__ == 'repro_torch.models.config'\n"
+        "assert flip_torch.resolve_cli_engine('jax', 'op') == ('jax', 'op')\n"
         "print('clean')\n")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -3,12 +3,14 @@
 Every case feeds the same numpy-seeded inputs to the reference and to the
 port: AdamW and its schedule, the data pipeline, gradient compression,
 `step_guard`, the checkpoint manager, the plain backward of flash
-attention (`attention_bwd_ref`, also against `jax.grad`), the backward
-kernel's tile ranges and tile walk, `train_loss` with every gradient for
-four smoke configs, eight training steps, the grad-mode guards of the raw
-kernel wrappers, and the training launcher (checkpoint and exact resume).
-The backward kernel itself runs only on the card (`chip_smoke.py`, phase
-18).
+attention (`attention_bwd_ref`, also against `jax.grad`), the forward's
+row log-sum-exp (`attention_lse_ref`), both backward routes' tile ranges
+and tile walks (the "wgmma" route's with L given and P, dS rounded to
+bf16), the backward route table and the wrapper's refusals, `train_loss`
+with every gradient for four smoke configs, eight training steps, the
+grad-mode guards of the raw kernel wrappers, and the training launcher
+(checkpoint and exact resume). The backward kernels themselves run only on
+the card (`chip_smoke.py`, phase 18).
 """
 import dataclasses
 import functools
@@ -41,7 +43,9 @@ from repro_torch.distributed.compression import compress_grads, init_feedback
 from repro_torch.distributed.health import StepFailure, step_guard
 from repro_torch.kernels import _grad
 from repro_torch.kernels.attention import flash
-from repro_torch.kernels.attention.ref import attention_bwd_ref, attention_ref
+from repro_torch.kernels.attention.ref import (attention_bwd_ref,
+                                               attention_lse_ref,
+                                               attention_ref)
 from repro_torch.kernels.ssd import ssd
 from repro_torch.launch import steps, train
 from repro_torch.models import model as M
@@ -300,13 +304,15 @@ def test_attention_bwd_ref(causal, window, gqa, hd):
             np.testing.assert_allclose(g.numpy(), wt.numpy(), atol=1e-5)
 
 
-def test_bwd_tile_ranges_brute_force():
-    """q_tile_range(kj) is exactly the q tiles whose kv_tile_range holds
-    kj, and together the ranges visit every (q, key) pair the mask
-    allows."""
+@pytest.mark.parametrize("route_name", ["fma", "wgmma"])
+def test_bwd_tile_ranges_brute_force(route_name):
+    """For each tile pair of the route's two walks (`bwd_tiles`),
+    q_tile_range(kj) is exactly the q tiles whose kv_tile_range holds kj,
+    and together the ranges visit every (q, key) pair the mask allows."""
+    hds = (16, 128, 256) if route_name == "fma" else flash.BWD_WGMMA_HEAD_DIMS
+    pairs = {tile for hd in hds for tile in flash.bwd_tiles(hd, route_name)}
     for s, t in ((5, 5), (64, 64), (70, 200), (200, 70), (257, 257)):
-        for hd in (16, 128, 256):
-            bq, bkv = flash.bwd_tiles(hd)
+        for bq, bkv in sorted(pairs):
             nq, nk = -(-s // bq), -(-t // bkv)
             for causal in (True, False):
                 for window in (None, 1, 8, 50, 128):
@@ -334,13 +340,13 @@ def test_bwd_tile_ranges_brute_force():
 
 
 def _emulate_bwd(q, k, v, o, do, causal, window):
-    """The backward kernel's three functions, tile by tile, in f32: prep's
-    online L over kv_tile_range, dkdv's walk over the GQA group and
+    """The "fma" backward kernel's three functions, tile by tile, in f32:
+    prep's online L over kv_tile_range, dkdv's walk over the GQA group and
     q_tile_range, dq's over kv_tile_range; the forward's -1e30 mask."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
-    bq, bkv = flash.bwd_tiles(hd)
+    (bq, bkv), _ = flash.bwd_tiles(hd, "fma")
     nq, nk = -(-s // bq), -(-t // bkv)
     scale = 1.0 / math.sqrt(hd)
 
@@ -400,21 +406,227 @@ def _emulate_bwd(q, k, v, o, do, causal, window):
     return dq, dk, dv
 
 
-@pytest.mark.parametrize("case", [(True, None, 2, 16, 200),
-                                  (True, 50, 4, 64, 150),
-                                  (False, None, 1, 80, 70),
-                                  (True, 8, 2, 256, 100)])
-def test_bwd_kernel_tile_walk(case):
-    """The kernel's tiling (bwd_tiles, both ranges, the GQA sum inside the
-    dkdv walk) emulated in torch equals attention_bwd_ref (atol 1e-5)."""
+def _emulate_bwd_wgmma(q, k, v, o, do, lse, causal, window):
+    """The "wgmma" backward kernel's arithmetic, tile by tile, in f32 on
+    bf16 inputs: L taken as given (natural log, turned into log2 units as
+    the kernel does), D = rowsum(do * o); bwd_dkdv's walk at its tiles
+    (`bwd_tiles(hd, "wgmma")[0]`), S^T per kv tile for every query head
+    of the GQA group over q_tile_range, P^T and dS^T rounded to bf16
+    before dV += P^T do and dK += dS^T q; bwd_dq's own walk at its tiles
+    over kv_tile_range, dS rounded to bf16 before dQ += dS k. Disallowed
+    pairs (mask, keys past T) weigh 0. Returns (dq, dk, dv) in bf16."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    (bq_kv, bkv_kv), (bq_q, bkv_q) = flash.bwd_tiles(hd, "wgmma")
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    scale_log2 = scale * log2e
+    l2 = lse * log2e                                       # (b, h, s)
+    dd = (do * o).sum(-1).permute(0, 2, 1)                 # (b, h, s)
+    bf = lambda x: x.bfloat16().float()                    # noqa: E731
+
+    def p_ds(bi, hi, qs, ks):
+        kvh = hi // g
+        sc = q[bi, qs, hi] @ k[bi, ks, kvh].T
+        qr = torch.arange(s)[qs][:, None]
+        kr = torch.arange(t)[ks][None, :]
+        ok = torch.ones_like(sc, dtype=torch.bool)
+        if causal:
+            ok &= kr <= qr
+        if window is not None:
+            ok &= kr > qr - window
+        p = torch.where(ok, torch.exp2(sc * scale_log2
+                                       - l2[bi, hi, qs][:, None]), 0.0)
+        dp = do[bi, qs, hi] @ v[bi, ks, kvh].T
+        return p, p * (dp - dd[bi, hi, qs][:, None])
+
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    for bi in range(b):
+        for kvh in range(kh):
+            for kj in range(-(-t // bkv_kv)):
+                ks = slice(kj * bkv_kv, (kj + 1) * bkv_kv)
+                first, last = flash.q_tile_range(kj, bq_kv, bkv_kv, causal,
+                                                 window, s)
+                for hi in range(kvh * g, (kvh + 1) * g):
+                    for qi in range(first, last + 1):
+                        qs = slice(qi * bq_kv, (qi + 1) * bq_kv)
+                        p, ds = p_ds(bi, hi, qs, ks)
+                        dv[bi, ks, kvh] += bf(p).T @ do[bi, qs, hi]
+                        dk[bi, ks, kvh] += bf(ds).T @ q[bi, qs, hi]
+        for hi in range(h):
+            for qi in range(-(-s // bq_q)):
+                qs = slice(qi * bq_q, (qi + 1) * bq_q)
+                first, last = flash.kv_tile_range(qi, bq_q, bkv_q, causal,
+                                                  window, s, t)
+                for kt in range(first, last + 1):
+                    ks = slice(kt * bkv_q, (kt + 1) * bkv_q)
+                    _, ds = p_ds(bi, hi, qs, ks)
+                    dq[bi, qs, hi] += bf(ds) @ k[bi, ks, hi // g]
+    return ((dq * scale).bfloat16(), (dk * scale).bfloat16(),
+            dv.bfloat16())
+
+
+@pytest.mark.parametrize("route_name,case", [
+    ("fma", (True, None, 2, 16, 200)), ("fma", (True, 50, 4, 64, 150)),
+    ("fma", (False, None, 1, 80, 70)), ("fma", (True, 8, 2, 256, 100)),
+    ("wgmma", (True, None, 2, 128, 200)), ("wgmma", (True, 50, 4, 64, 150)),
+    ("wgmma", (False, None, 1, 80, 70)), ("wgmma", (True, 8, 2, 128, 300))])
+def test_bwd_kernel_tile_walk(route_name, case):
+    """Each backward route's tiling (bwd_tiles, both ranges, the GQA sum
+    inside the dkdv walk) emulated in torch holds against
+    attention_bwd_ref. "fma": f32 throughout, atol 1e-5. "wgmma": bf16
+    inputs, the forward's L given, P and dS rounded to bf16 before the
+    products and the outputs to bf16: the card's bf16 limits (atol 2e-2
+    plus the output's bf16 rounding 2^-8 |ref|, relative Frobenius 1e-2),
+    and the rounding shows (the result is not the reference's)."""
     causal, window, gqa, hd, s = case
     q, k, v, do = map(torch.from_numpy, _attn_inputs(1, s, 4, 4 // gqa, hd,
                                                      seed=hd))
-    o = attention_ref(q, k, v, causal=causal, window=window)
-    got = _emulate_bwd(q, k, v, o, do, causal, window)
+    if route_name == "fma":
+        o = attention_ref(q, k, v, causal=causal, window=window)
+        got = _emulate_bwd(q, k, v, o, do, causal, window)
+        want = attention_bwd_ref(q, k, v, o, do, causal, window)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+        return
+    q, k, v, do = (x.bfloat16().float() for x in (q, k, v, do))
+    o = attention_ref(q, k, v, causal=causal, window=window).bfloat16()
+    o = o.float()
+    lse = attention_lse_ref(q, k, causal, window)
+    got = _emulate_bwd_wgmma(q, k, v, o, do, lse, causal, window)
     want = attention_bwd_ref(q, k, v, o, do, causal, window)
     for a, b in zip(got, want):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
+        assert a.dtype == torch.bfloat16
+        diff = (a.float() - b).abs()
+        assert bool((diff <= 2e-2 + 2.0 ** -8 * b.abs()).all())
+        assert float((a.float() - b).norm() / b.norm()) <= 1e-2
+        assert not torch.equal(a, b.bfloat16())
+
+
+@pytest.mark.parametrize("s,t,causal,window", [
+    (64, 64, True, None), (200, 200, True, 50), (70, 200, False, None),
+    (300, 100, True, 64)])       # rows 163-299 see no key
+def test_attention_lse_ref(s, t, causal, window):
+    """The plain L: torch.logsumexp of the reference's scaled scores over
+    the keys each row may see (the scores as attention_ref forms them),
+    +inf on the rows that see none; equal to the log of softmax's
+    normaliser where a row sees a key."""
+    h, kh, hd = 4, 2, 32
+    q, k, _, _ = map(torch.from_numpy, _attn_inputs(2, s, h, kh, hd, seed=t))
+    k = torch.from_numpy(np.random.default_rng(t).normal(
+        size=(2, t, kh, hd)).astype(np.float32))
+    got = attention_lse_ref(q, k, causal, window)
+    assert got.shape == (2, h, s) and got.dtype == torch.float32
+    kf = k.repeat_interleave(h // kh, dim=2)
+    scores = torch.einsum("bshd,bthd->bhst", q, kf) / math.sqrt(hd)
+    pos_q, pos_k = torch.arange(s)[:, None], torch.arange(t)[None, :]
+    ok = torch.ones((s, t), dtype=torch.bool)
+    if causal:
+        ok &= pos_k <= pos_q
+    if window is not None:
+        ok &= pos_k > pos_q - window
+    seen = ok.any(-1)
+    want = torch.logsumexp(scores[..., seen, :].masked_fill(
+        ~ok[seen], -math.inf), dim=-1)
+    np.testing.assert_allclose(got[..., seen].numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    assert bool(torch.isposinf(got[..., ~seen]).all())
+    assert int((~seen).sum()) == (137 if s == 300 else 0)
+
+
+@pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                   torch.float16])
+def test_bwd_route_rule(dtype, hd):
+    """The backward's route table: bf16 at hd 64/80/128 takes the
+    tensor-core kernel, which needs the forward's L (on the forward's
+    "wgmma" route); f32 at every hd and bf16 at hd 16/32/256 the CUDA-core
+    kernel; anything else raises."""
+    if hd not in flash.HEAD_DIMS or dtype == torch.float16:
+        with pytest.raises(ValueError):
+            flash.bwd_route(dtype, hd)
+        return
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 80, 128)
+            else "fma")
+    assert flash.bwd_route(dtype, hd) == want
+    assert flash.BWD_ROUTES[want][0].exists()
+    if want == "wgmma":
+        assert flash.route(dtype, hd) == "wgmma"
+    src = flash.BWD_ROUTES[want][0].read_text()
+    assert "flash_attention_pallas" in src and "q_tile_range" in src
+
+
+def test_bwd_wrapper_refusals():
+    """`flash_attention_bwd_cuda` raises, launching nothing: on the wgmma
+    route without the forward's L, on the fma route with one, and on CPU
+    tensors; the forward's `return_lse` needs CUDA tensors too."""
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _attn_inputs(1, 64, 4, 2, 128, seed=3))
+    lse = torch.zeros((1, 4, 64))
+    launches = (flash.flash_attention_bwd_cuda.launches,
+                dict(flash.flash_attention_bwd_cuda.route_launches))
+    with pytest.raises(ValueError, match="row log-sum-exp"):
+        flash.flash_attention_bwd_cuda(q, k, v, q, do)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash.flash_attention_bwd_cuda(q, k, v, q, do, lse=lse)
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    with pytest.raises(ValueError, match="recomputes L"):
+        flash.flash_attention_bwd_cuda(q32, k32, v32, q32, do32, lse=lse)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash.flash_attention_bwd_cuda(q32, k32, v32, q32, do32)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash.flash_attention_cuda(q, k, v, return_lse=True)
+    assert (flash.flash_attention_bwd_cuda.launches,
+            flash.flash_attention_bwd_cuda.route_launches) == launches
+
+
+@pytest.mark.parametrize("dtype,hd,remat", [
+    (torch.bfloat16, 128, False), (torch.bfloat16, 80, True),
+    (torch.float32, 128, False), (torch.bfloat16, 256, True)])
+def test_flash_attention_function_passes_lse(monkeypatch, dtype, hd, remat):
+    """`ops.FlashAttention` asks the forward for L exactly when the
+    backward's route takes it and hands that L on; under a non-reentrant
+    checkpoint the backward gets the recomputed forward's L. The kernels
+    are stood in for by their plain versions (they run only on the card),
+    so the gradients equal attention_bwd_ref's on the same inputs."""
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.kernels.attention import ops
+    want_lse = flash.bwd_route(dtype, hd) == "wgmma"
+    seen = {"fwd": [], "bwd": []}
+
+    def fwd(q, k, v, causal=True, window=None, return_lse=False):
+        assert return_lse == want_lse
+        o = attention_ref(q, k, v, causal=causal, window=window)
+        if not return_lse:
+            seen["fwd"].append(None)
+            return o
+        lse = attention_lse_ref(q, k, causal, window)
+        seen["fwd"].append(lse)
+        return o, lse
+
+    def bwd(q, k, v, o, do, causal=True, window=None, lse=None):
+        assert (lse is not None) == want_lse
+        seen["bwd"].append(lse)
+        return attention_bwd_ref(q, k, v, o, do, causal, window)
+
+    monkeypatch.setattr(flash, "flash_attention_cuda", fwd)
+    monkeypatch.setattr(flash, "flash_attention_bwd_cuda", bwd)
+    q, k, v, do = (torch.from_numpy(x).to(dtype)
+                   for x in _attn_inputs(1, 70, 4, 2, hd, seed=hd))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    if remat:
+        o = checkpoint(lambda a, b, c: ops.FlashAttention.apply(
+            a, b, c, True, 8), *leaves, use_reentrant=False)
+    else:
+        o = ops.FlashAttention.apply(*leaves, True, 8)
+    got = torch.autograd.grad(o, leaves, do)
+    assert len(seen["fwd"]) == (2 if remat else 1) and len(seen["bwd"]) == 1
+    assert seen["bwd"][0] is seen["fwd"][-1]
+    want = attention_bwd_ref(q, k, v, attention_ref(q, k, v, window=8), do,
+                             True, 8)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
 # ------------------------------------------------------------------ #
