@@ -9,11 +9,13 @@ Phases (every failure raises and exits nonzero):
   2. build   -- compile the CUDA kernels (frontier relax, flash attention
                 on the CUDA cores and on the tensor cores, its backward on
                 the CUDA cores (`flash_attention_bwd.cu`) and on the tensor
-                cores (`flash_attention_bwd_wgmma.cu`), SSD intra-chunk)
+                cores (`flash_attention_bwd_wgmma.cu`), SSD intra-chunk and
+                its backward (`ssd_intra_bwd.cu`, the CUDA cores))
                 from the sources in this checkout, one nvcc each, all at
                 once (sm_90a); log ptxas registers, spills and warnings,
                 and fail if the tensor-core attention kernels (forward and
-                backward) or any function of the SSD kernel spill, if
+                backward) or any function of the SSD kernel or of its
+                backward spill, if
                 either tensor-core attention source's wgmma is serialized
                 (C7510) or its setmaxnreg ignored (C7508), if the SASS of
                 the SSD kernel or of the wgmma backward waits after every
@@ -242,6 +244,39 @@ Phases (every failure raises and exits nonzero):
                 `attention_ref`, then 3 steps. `launch.train` on the card
                 (fma): 8 steps, --resume to 12, and a 12-step run resumed
                 from its own step 8 against the uninterrupted run.
+ 19. train mamba -- K3's backward (`ssd_intra_bwd_cuda`, f32 FMAs on the
+                CUDA cores: `ssd_bwd_pair`, `ssd_bwd_dx`, `ssd_bwd_dcdb`)
+                against `ssd_intra_bwd_ref` on phase 7's eleven cases
+                (jamba's layer among them) with seeded cotangents: atol
+                1e-4 x max(1, max|ref|) per output, every output finite,
+                two calls bit-equal; again at mamba2's training shape
+                (f32 b=8, nc=16), what the main path gives it; the
+                autograd Function `ops.SSDIntra` against torch.autograd
+                through `ssd_intra_ref`, and
+                `ssd_chunked` under autograd against `ssd_ref` under
+                autograd (gradients of x, dt, Bm, Cm, A_log, D). Times at
+                mamba2's training shape (f32 b=8, nc=16) beside the
+                forward, the plain version and the bound (`ssd_bwd_work`:
+                3xTF32 on the tensor cores, the card's least time; no
+                library call computes it). The main path: mamba2-370m
+                whole, bf16, B=8 x 4,096 from `SyntheticTextDataset(50_280,
+                4_096, 8, seed=0)` through `make_train_step` with remat, 5
+                steps: finite, falling loss; every gradient finite;
+                A_log/D/dt_bias/wB/wC gradients non-zero in all 48 layers;
+                K3 forward launches 2 x 48 x 5, backward 48 x 5; tokens/s,
+                ms per step, peak memory, one profiled step. An f32 hold at
+                full width cut to 2 layers (B=2 x 512): one step through K3
+                against the same step with the SSD patched to `ssd_ref`
+                here (loss rtol 1e-5, gradients relative Frobenius 1e-4),
+                then 3 steps. jamba: block 0 (mamba + dense FFN) at full
+                width under autograd over (2, 4,096, 8,192) bf16, one K3
+                forward and one backward at H=128, P=128, every gradient
+                finite; the full-width f32 mamba layer at B=1 x 512, its
+                gradients against autograd of `ssd_intra_ref`; the smoke
+                model, 3 steps of `make_train_step` (K2 fma, K3, MoE).
+                `launch.train --arch mamba2_370m --preset tiny` on the
+                card: 8 steps, --resume to 12, against a 12-step run
+                resumed from its own step 8.
 
 In phases 4, 5, 9-15 every fixpoint step is one launch of the
 frontier-relax kernel: each path resets the launch count before it runs
@@ -251,7 +286,8 @@ warm-up and three timed segments per measured engine, which prices
 every bucket width on it; for phase 15b, on each rank).
 
 The last lines are one JSON object describing each kernel -- K2 and its
-backward once per route, every row with its launches by phase, K2's
+backward once per route, K3 and its backward, every row with its
+launches by phase, K2's
 forward rows also with their times at hubert's hd-80 shape, the wgmma
 backward's row with its seven-product floor, its L's error and the
 forward's time with and without L -- and then
@@ -303,9 +339,11 @@ from repro_torch.kernels.frontier import frontier as relax  # noqa: E402
 from repro_torch.kernels.frontier.ops import (BlockedGraph,  # noqa: E402
                                               build_blocks,
                                               frontier_relax_torch)
+from repro_torch.kernels.ssd import ops as ssd_ops  # noqa: E402
 from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.kernels.ssd.ref import (chunk_inputs,  # noqa: E402
-                                         ssd_intra_ref, ssd_ref)
+                                         ssd_intra_bwd_ref, ssd_intra_ref,
+                                         ssd_ref)
 from repro_torch.launch import graph_run, serve, steps, train  # noqa: E402
 from repro_torch.launch.serve_graph import GraphServer  # noqa: E402
 from repro_torch.models import attention, mamba, moe  # noqa: E402
@@ -493,7 +531,8 @@ def wgmma_waits(library: Path) -> dict:
 
 def phase_build() -> None:
     sources = (relax.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE,
-               flash.BWD_SOURCE, flash.BWD_WGMMA_SOURCE, ssd.SOURCE)
+               flash.BWD_SOURCE, flash.BWD_WGMMA_SOURCE, ssd.SOURCE,
+               ssd.BWD_SOURCE)
     wgmma_sources = (flash.WGMMA_SOURCE, flash.BWD_WGMMA_SOURCE)
     t0 = time.perf_counter()
     for source, (path, seconds, text) in zip(
@@ -514,7 +553,7 @@ def phase_build() -> None:
             require("C7510" not in text and "C7508" not in text,
                     f"{source.name}: ptxas serialized wgmma (C7510) or "
                     "ignored setmaxnreg (C7508)")
-        if source in (*wgmma_sources, ssd.SOURCE):
+        if source in (*wgmma_sources, ssd.SOURCE, ssd.BWD_SOURCE):
             require(" 0 bytes spill stores" in text
                     and text.count("spill stores") == text.count(
                         " 0 bytes spill stores"),
@@ -542,6 +581,7 @@ def phase_build() -> None:
     flash._bwd_library("fma")
     flash._bwd_library("wgmma")
     ssd._library()
+    ssd._bwd_library()
 
 
 def phase_kernel_small(rng) -> float:
@@ -1428,7 +1468,8 @@ ATTN_REL_TOL = 1e-2           # bf16 at the qwen3 layer, relative Frobenius
 SSD_ATOL = 1e-4               # scaled by max(1, max|ref|)
 LM_BATCH, LM_SEQ = 4, 4_096   # the prefill cell (prefill_32k cut to fit)
 KERNELS = (relax.frontier_relax_cuda, flash.flash_attention_cuda,
-           flash.flash_attention_bwd_cuda, ssd.ssd_intra_cuda)
+           flash.flash_attention_bwd_cuda, ssd.ssd_intra_cuda,
+           ssd.ssd_intra_bwd_cuda)
 REPLAY_LEN = 256              # float32 prefill-vs-decode prompt
 # an MoE's replay prompt: at T <= 8 tokens the capacity (8) holds every
 # (token, choice) pair, so prefill drops none, as decode (one token a
@@ -1668,42 +1709,52 @@ def ssd_work(b, nc, q, n, h, p) -> dict:
             "f32_bound_ms": max(t_bytes, ops / FP32_OPS_PER_S) * 1e3}
 
 
+def ssd_cases() -> list[tuple]:
+    """Phase 7's cases, held again for the backward in phase 19: (label,
+    b, l, h, p, n, chunk, A_log shift)."""
+    mcfg, jcfg = configs.get("mamba2_370m"), configs.get(JAMBA)
+    h, p, n, q = (mcfg.ssm_heads, mcfg.ssm_head_dim, mcfg.ssm_state,
+                  mcfg.ssm_chunk)
+    jamba = (jcfg.ssm_heads, jcfg.ssm_head_dim, jcfg.ssm_state,
+             jcfg.ssm_chunk)
+    return [
+        *((f"B={b} L={l} H={hh} P={pp} N={nn} chunk=16", b, l, hh, pp, nn,
+           16, 0.0)
+          for b, l, hh, pp, nn in ((1, 32, 2, 8, 4), (2, 64, 4, 16, 8),
+                                   (1, 128, 1, 32, 16))),
+        ("ragged B=1 L=200 H=3 P=24 N=20 chunk=100", 1, 200, 3, 24, 20, 100,
+         0.0),
+        ("ragged B=2 L=144 H=3 P=12 N=20 chunk=72", 2, 144, 3, 12, 20, 72,
+         0.0),
+        # N and P off a multiple of 4: the forward stages with 4-byte copies
+        ("ragged B=1 L=96 H=2 P=6 N=5 chunk=48", 1, 96, 2, 6, 5, 48, 0.0),
+        # P over 64: two 64-column slots per head, the second one ragged
+        # (P=100, and P=70 with 4-byte copies), and the widest head (P=128);
+        # H=9 puts a second head group behind a ragged chunk of three i
+        # tiles
+        ("two slots B=1 L=320 H=9 P=100 N=36 chunk=160", 1, 320, 9, 100, 36,
+         160, 0.0),
+        ("two slots B=1 L=200 H=3 P=70 N=20 chunk=100", 1, 200, 3, 70, 20,
+         100, 0.0),
+        (f"two slots B=1 L=512 H=3 P=128 N={n} chunk={q}", 1, 512, 3, 128,
+         n, q, 0.0),
+        (f"strong decay B=1 L=512 H=4 P={p} N={n} chunk={q} A_log+4", 1,
+         512, 4, p, n, q, 4.0),
+        (f"mamba2 B={LM_BATCH} L={LM_SEQ} H={h} P={p} N={n} chunk={q}",
+         LM_BATCH, LM_SEQ, h, p, n, q, 0.0),
+        ("jamba B=1 L=512 H={} P={} N={} chunk={}".format(*jamba), 1, 512,
+         *jamba, 0.0)]
+
+
 def phase_ssd(gen) -> tuple[float, dict]:
     mcfg = configs.get("mamba2_370m")
     h, p, n, q = (mcfg.ssm_heads, mcfg.ssm_head_dim, mcfg.ssm_state,
                   mcfg.ssm_chunk)
-    errs = [ssd_check(f"B={b} L={l} H={hh} P={pp} N={nn} chunk=16", gen,
-                      b, l, hh, pp, nn, 16)
-            for b, l, hh, pp, nn in ((1, 32, 2, 8, 4), (2, 64, 4, 16, 8),
-                                     (1, 128, 1, 32, 16))]
     log(f"ssd route: {ssd.ROUTE}")
-    errs.append(ssd_check("ragged B=1 L=200 H=3 P=24 N=20 chunk=100", gen,
-                          1, 200, 3, 24, 20, 100))
-    errs.append(ssd_check("ragged B=2 L=144 H=3 P=12 N=20 chunk=72", gen,
-                          2, 144, 3, 12, 20, 72))
-    # N and P off a multiple of 4: the kernel stages with 4-byte copies
-    errs.append(ssd_check("ragged B=1 L=96 H=2 P=6 N=5 chunk=48", gen, 1,
-                          96, 2, 6, 5, 48))
-    # P over 64: two 64-column slots per head, the second one ragged
-    # (P=100, and P=70 with 4-byte copies), and the widest head (P=128);
-    # H=9 puts a second head group behind a ragged chunk of three i tiles
-    errs.append(ssd_check("two slots B=1 L=320 H=9 P=100 N=36 chunk=160",
-                          gen, 1, 320, 9, 100, 36, 160))
-    errs.append(ssd_check("two slots B=1 L=200 H=3 P=70 N=20 chunk=100",
-                          gen, 1, 200, 3, 70, 20, 100))
-    errs.append(ssd_check(f"two slots B=1 L=512 H=3 P=128 N={n} chunk={q}",
-                          gen, 1, 512, 3, 128, n, q))
-    errs.append(ssd_check(f"strong decay B=1 L=512 H=4 P={p} N={n} "
-                          f"chunk={q} A_log+4", gen, 1, 512, 4, p, n, q,
-                          a_shift=4.0))
-    errs.append(ssd_check(f"mamba2 B={LM_BATCH} L={LM_SEQ} H={h} P={p} "
-                          f"N={n} chunk={q}", gen, LM_BATCH, LM_SEQ, h, p,
-                          n, q))
+    errs = [ssd_check(label, gen, *case) for label, *case in ssd_cases()]
     jcfg = configs.get(JAMBA)
     jamba = (jcfg.ssm_heads, jcfg.ssm_head_dim, jcfg.ssm_state,
              jcfg.ssm_chunk)
-    errs.append(ssd_check("jamba B=1 L=512 H={} P={} N={} chunk={}".format(
-        *jamba), gen, 1, 512, *jamba))
 
     x, dt, Bm, Cm, A_log, D = ssd_inputs(gen, LM_BATCH, LM_SEQ, h, p, n)
     C_c, B_c, dtx, cums = chunk_inputs(x, dt, Bm, Cm, A_log, q)
@@ -2750,7 +2801,9 @@ def bwd_timing(gen) -> dict:
     return t
 
 
-KERNEL_CLASSES = (("K2 forward", ("flash_wgmma", "flash_fwd")),
+KERNEL_CLASSES = (("K3 forward", ("ssd_intra_y", "ssd_intra_state")),
+                  ("K3 backward", ("ssd_bwd_",)),
+                  ("K2 forward", ("flash_wgmma", "flash_fwd")),
                   ("K2 backward", ("bwd_prep", "bwd_dot", "bwd_dkdv",
                                    "bwd_dq")),
                   ("cuBLAS GEMM", ("gemm", "xmma", "cutlass", "cublas",
@@ -2869,11 +2922,15 @@ def k2_launches() -> dict:
             "bwd_wgmma": bwd["wgmma"], "bwd_fma": bwd["fma"]}
 
 
-def train_main_path(gen) -> tuple[dict, dict]:
-    """qwen3-0.6b whole, bf16, B=8 x 4,096 through `make_train_step` with
-    remat, 5 steps. Returns the launches (K2 forward by route, backward)
-    and the logged numbers."""
-    cfg = configs.get(TRAIN_ARCH)
+def train_cell(arch: str, kind: str, leaves: tuple) -> tuple:
+    """`arch` whole, bf16, B=8 x 4,096 from `SyntheticTextDataset(vocab,
+    4,096, 8, seed=0)` through `make_train_step` with remat, 5 steps, the
+    counts set to 0 just before: a finite, falling loss; every gradient
+    finite; the gradients of `blocks.<layer>.<kind>.<leaf>` for `leaves`
+    non-zero in every layer (every layer is of that kind). Returns (cfg,
+    step_fn, state, ds, out) with the logged numbers in `out`; the caller
+    reads the launches before it launches anything else."""
+    cfg = configs.get(arch)
     free()
     torch.cuda.reset_peak_memory_stats()
     params = M.init_params(cfg, seed=0)
@@ -2896,29 +2953,21 @@ def train_main_path(gen) -> tuple[dict, dict]:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             losses.append(loss)
-            log(f"train step {step + 1}: loss {loss:.6f}, lr "
+            log(f"{arch} train step {step + 1}: loss {loss:.6f}, lr "
                 f"{float(metrics['lr']):.3e}, grad norm "
                 f"{float(metrics['grad_norm']):.4f}, wall {walls[-1]:.3f} s")
-    launches = k2_launches()
-    n = cfg.num_layers * TRAIN_STEPS
-    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd_wgmma": n,
-                         "bwd_fma": 0}
-            and flash.flash_attention_bwd_cuda.launches == n,
-            f"{TRAIN_ARCH} train: launches {launches}; want {2 * n} K2 "
-            f"forward (wgmma; remat runs each block twice) and {n} backward "
-            "(wgmma)")
     require(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-            f"{TRAIN_ARCH} train: losses {losses} not finite or not falling")
+            f"{arch} train: losses {losses} not finite or not falling")
     require(len(record) == TRAIN_STEPS, "the AdamW spy missed a step")
     for i, entry in enumerate(record):
         bad = [n_ for n_, ok in entry["finite"].items() if not ok]
         require(not bad, f"step {i + 1}: non-finite gradients {bad[:4]}")
         for layer in range(cfg.num_layers):
-            for leaf in ("wq", "wk", "wv", "q_norm", "k_norm"):
-                name = f"blocks.{layer}.attn.{leaf}"
+            for leaf in leaves:
+                name = f"blocks.{layer}.{kind}.{leaf}"
                 require(entry["nonzero"][name],
                         f"step {i + 1}: the gradient of {name} is zero: "
-                        "K2's backward did not reach it")
+                        "the kernel's backward did not reach it")
     adamw_ms = [e[0].elapsed_time(e[1]) for e in
                 (r["events"] for r in record)]
     ntok = TRAIN_BATCH * TRAIN_SEQ
@@ -2927,18 +2976,35 @@ def train_main_path(gen) -> tuple[dict, dict]:
     out = {"losses": losses, "walls": walls, "ms_per_step": med * 1e3,
            "tokens_per_s": ntok / med, "peak_gib": peak,
            "adamw_ms": float(np.median(adamw_ms))}
-    log(f"{TRAIN_ARCH} train B={TRAIN_BATCH} S={TRAIN_SEQ} bf16, remat, "
+    log(f"{arch} train B={TRAIN_BATCH} S={TRAIN_SEQ} bf16, remat, "
         f"{TRAIN_STEPS} steps: losses {[round(x, 6) for x in losses]}; "
-        f"every gradient finite; wq/wk/wv/q_norm/k_norm non-zero in all "
+        f"every gradient finite; {'/'.join(leaves)} non-zero in all "
         f"{cfg.num_layers} layers; {out['ms_per_step']:.1f} ms per step, "
         f"{out['tokens_per_s']:.1f} tokens/s (median of steps 2-"
-        f"{TRAIN_STEPS}); AdamW update {out['adamw_ms']:.2f} ms (device); "
-        f"K2 launches {launches}")
-    log_memory(f"{TRAIN_ARCH} train")
+        f"{TRAIN_STEPS}); AdamW update {out['adamw_ms']:.2f} ms (device)")
+    log_memory(f"{arch} train")
+    return cfg, step_fn, state, ds, out
+
+
+def train_main_path(gen) -> tuple[dict, dict]:
+    """qwen3-0.6b whole, bf16, B=8 x 4,096 through `make_train_step` with
+    remat, 5 steps (`train_cell`). Returns the launches (K2 forward by
+    route, backward) and the logged numbers."""
+    cfg, step_fn, state, ds, out = train_cell(
+        TRAIN_ARCH, "attn", ("wq", "wk", "wv", "q_norm", "k_norm"))
+    launches = k2_launches()
+    n = cfg.num_layers * TRAIN_STEPS
+    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd_wgmma": n,
+                         "bwd_fma": 0}
+            and flash.flash_attention_bwd_cuda.launches == n,
+            f"{TRAIN_ARCH} train: launches {launches}; want {2 * n} K2 "
+            f"forward (wgmma; remat runs each block twice) and {n} backward "
+            "(wgmma)")
+    log(f"{TRAIN_ARCH} train: K2 launches {launches}")
     batch = {k: torch.from_numpy(x).cuda()
              for k, x in ds.batch_at(TRAIN_STEPS).items()}
     profile_train_step(step_fn, state, batch)
-    del state, params, batch
+    del state, batch
     free()
     out["ce_ms"] = ce_timing(cfg)
     log(f"chunked CE alone (8 chunks, fwd + bwd, hidden ({TRAIN_BATCH}, "
@@ -3033,13 +3099,21 @@ def hold_f32(gen) -> dict:
     return launches
 
 
-def cli_resume() -> dict:
-    """`python -m repro_torch.launch.train --preset tiny` on the card (in
-    process): 8 steps, then --resume to 12; a 12-step run resumed from
-    its own step-8 checkpoint ends at the uninterrupted run's step-12 loss
-    (rtol 1e-4: the embedding's gradient sums in no fixed order on the
-    card). Returns K2's launches (wgmma, fma, backward)."""
-    base = ["--arch", TRAIN_ARCH, "--preset", "tiny", "--seq", "64",
+def launch_counts() -> dict:
+    """K2's launches by route (`k2_launches`) and K3's forward and
+    backward launches, since the last `reset_counts`."""
+    return {**k2_launches(), "ssd": ssd.ssd_intra_cuda.launches,
+            "ssd_bwd": ssd.ssd_intra_bwd_cuda.launches}
+
+
+def cli_resume(arch: str = TRAIN_ARCH) -> dict:
+    """`python -m repro_torch.launch.train --arch <arch> --preset tiny` on
+    the card (in process): 8 steps, then --resume to 12; a 12-step run
+    resumed from its own step-8 checkpoint ends at the uninterrupted run's
+    step-12 loss (rtol 1e-4: the embedding's gradient sums in no fixed
+    order on the card). Returns `launch_counts()`: K2 (fma) and K3 twice
+    forward (remat) and once backward per layer and step."""
+    base = ["--arch", arch, "--preset", "tiny", "--seq", "64",
             "--batch", "4", "--ckpt-every", "4", "--log-every", "4"]
     # the CLI's path: counts start at 0 here
     reset_counts()
@@ -3072,17 +3146,22 @@ def cli_resume() -> dict:
         l_full, l_again = loss_at(full, 12), loss_at(again, 12)
         ok = math.isfinite(l_full) and abs(l_again - l_full) <= 1e-4 * abs(
             l_full)
-        log(f"train CLI on the card (tiny, seq 64, batch 4): 8 steps, "
-            f"--resume to 12 ('resumed from step 8'); 12 steps {l_full!r} "
-            f"vs resumed from its step 8 {l_again!r} (rtol 1e-4): {ok}")
-        require(ok, "train CLI: the resumed step-12 loss differs")
+        log(f"train CLI on the card ({arch} tiny, seq 64, batch 4): 8 "
+            f"steps, --resume to 12 ('resumed from step 8'); 12 steps "
+            f"{l_full!r} vs resumed from its step 8 {l_again!r} (rtol "
+            f"1e-4): {ok}")
+        require(ok, f"train CLI {arch}: the resumed step-12 loss differs")
     # steps run: 8, 8 -> 12, 12, 8 -> 12; remat runs each block twice
-    n = configs.get_smoke(TRAIN_ARCH).num_layers * (8 + 4 + 12 + 4)
-    launches = k2_launches()
-    require(launches == {"wgmma": 0, "fma": 2 * n, "bwd_wgmma": 0,
-                         "bwd_fma": n},
-            f"train CLI: K2 launches {launches}; want {2 * n} forward (fma) "
-            f"and {n} backward (fma)")
+    cfg = configs.get_smoke(arch)
+    n_attn, n_ssd = (layers_of(cfg, kind) * (8 + 4 + 12 + 4)
+                     for kind in ("attn", "mamba"))
+    launches = launch_counts()
+    require(launches == {"wgmma": 0, "fma": 2 * n_attn, "bwd_wgmma": 0,
+                         "bwd_fma": n_attn, "ssd": 2 * n_ssd,
+                         "ssd_bwd": n_ssd},
+            f"train CLI {arch}: launches {launches}; want {2 * n_attn} K2 "
+            f"forward and {n_attn} backward (fma), {2 * n_ssd} K3 forward "
+            f"and {n_ssd} backward")
     return launches
 
 
@@ -3165,6 +3244,374 @@ def phase_train(gen) -> tuple[dict, dict, dict, dict]:
         "bwd_fma": {"18 bf16 hold (patched)": hold16["bwd_fma"],
                     "18 f32 hold": hold["bwd_fma"], "18 CLI": cli["bwd_fma"]}}
     return err, t_bwd, by_phase, train_out
+
+
+# ------------------------------------------------------------------ #
+# training mamba2-370m and jamba's mamba layers (19)
+# ------------------------------------------------------------------ #
+MAMBA_ARCH = "mamba2_370m"
+MAMBA_LEAVES = ("A_log", "D", "dt_bias", "wB", "wC")   # need dcums, dB, dC
+MAMBA_HOLD_SEQ = 512
+JAMBA_TRAIN_BATCH = 2
+
+
+def ssd_bwd_work(b, nc, q, n, h, p) -> dict:
+    """What the intra-chunk backward needs: per chunk G recomputed, dC =
+    dG.B and dB's dG^T.C over the i >= j pairs; per head the decay, dAtt =
+    dY.X^T and att^T.dY over the pairs, B.dS and X.dS^T over Q x N x P;
+    C, B, dtx, cums, dy, dS read once, dC, dB, ddtx, dcums written once.
+    `bound_ms` is the card's least time, as `ssd_work` puts it: every
+    product as three TF32 products on the tensor cores (3 x ops / 495
+    TFLOP/s, which meets SSD_ATOL) against the bytes; `f32_bound_ms` the
+    same work as f32 FMAs on the CUDA cores (ops / 67 TFLOP/s), the
+    kernel's present route."""
+    pairs = q * (q + 1) // 2
+    ops = b * nc * (6 * pairs * n + h * (pairs + 4 * pairs * p
+                                         + 4 * q * n * p))
+    nbytes = 4 * b * nc * (4 * q * n + 3 * q * h * p + 2 * q * h
+                           + h * n * p)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 3 * ops / TF32_OPS_PER_S
+    return {"bytes": nbytes, "ops": ops,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_rate": "3xTF32: 3 x ops / 495 TFLOP/s",
+            "f32_bound_ms": max(t_bytes, ops / FP32_OPS_PER_S) * 1e3}
+
+
+def ssd_grads_hold(label: str, got, want, names) -> float:
+    """Each gradient within SSD_ATOL x max(1, max|ref|) of its plain
+    counterpart, and finite. Returns the largest error."""
+    errs, ok = [], True
+    for name, g, w in zip(names, got, want):
+        err = float((g - w).abs().max())
+        tol = SSD_ATOL * max(1.0, float(w.abs().max()))
+        ok = ok and err <= tol and bool(torch.isfinite(g).all())
+        errs.append(f"{name} {err:.3e} (tol {tol:.3g})")
+    log(f"{label}: max|err| " + ", ".join(errs) + f": {ok}")
+    require(ok, f"{label}: disagrees with the plain version")
+    return max(float((g - w).abs().max()) for g, w in zip(got, want))
+
+
+def ssd_bwd_check(label: str, gen, b, l, h, p, n, chunk,
+                  a_shift=0.0) -> float:
+    """The backward kernel against `ssd_intra_bwd_ref` on phase 7's inputs
+    and seeded cotangents; two calls bit-equal."""
+    x, dt, Bm, Cm, A_log, D = ssd_inputs(gen, b, l, h, p, n, a_shift)
+    C_c, B_c, dtx, cums = chunk_inputs(x, dt, Bm, Cm, A_log, chunk)
+    if a_shift:
+        require(float(cums.min()) < -500,
+                f"ssd bwd {label}: cums min {float(cums.min()):.1f} is not "
+                "below -500")
+        label += f", cums min {float(cums.min()):.1f}"
+    nc = l // chunk
+    dy, dS = randn(gen, (b, nc, chunk, h, p)), randn(gen, (b, nc, h, n, p))
+    ins = (C_c, B_c, dtx, cums, dy, dS)
+    got = ssd.ssd_intra_bwd_cuda(*ins)
+    again = ssd.ssd_intra_bwd_cuda(*ins)
+    torch.cuda.synchronize()
+    bit = all(torch.equal(g, a) for g, a in zip(got, again))
+    require(bit, f"ssd bwd {label}: two calls differ")
+    return ssd_grads_hold(f"ssd bwd {label} (two calls bit-equal)", got,
+                          ssd_intra_bwd_ref(*ins),
+                          ("dC", "dB", "ddtx", "dcums"))
+
+
+def ssd_function_checks(gen) -> float:
+    """`ops.SSDIntra` against torch.autograd through `ssd_intra_ref`, and
+    `ssd_chunked` under autograd (the kernels) against `ssd_ref` under
+    autograd: the gradients of x, dt, Bm, Cm, A_log and D, f32, at a
+    ragged chunk and at mamba2's widths."""
+    err = 0.0
+    for b, l, h, p, n, chunk in ((1, 200, 3, 24, 20, 100),
+                                 (2, 512, 4, 64, 128, 256)):
+        label = f"B={b} L={l} H={h} P={p} N={n} chunk={chunk}"
+        x, dt, Bm, Cm, A_log, D = ssd_inputs(gen, b, l, h, p, n)
+        C_c, B_c, dtx, cums = chunk_inputs(x, dt, Bm, Cm, A_log, chunk)
+        nc = l // chunk
+        dy, dS = randn(gen, (b, nc, chunk, h, p)), randn(gen,
+                                                         (b, nc, h, n, p))
+        k = ssd.ssd_intra_bwd_cuda.launches
+        leaves = [t.clone().requires_grad_() for t in (C_c, B_c, dtx, cums)]
+        got = torch.autograd.grad(ssd_ops.SSDIntra.apply(*leaves), leaves,
+                                  (dy, dS))
+        require(ssd.ssd_intra_bwd_cuda.launches == k + 1,
+                "SSDIntra did not launch the backward kernel")
+        leaves = [t.clone().requires_grad_() for t in (C_c, B_c, dtx, cums)]
+        want = torch.autograd.grad(ssd_intra_ref(*leaves), leaves, (dy, dS))
+        err = max(err, ssd_grads_hold(
+            f"SSDIntra vs autograd of ssd_intra_ref {label}", got, want,
+            ("C", "B", "dtx", "cums")))
+        ins = [t.clone().requires_grad_() for t in (x, dt, Bm, Cm, A_log,
+                                                     D)]
+        y, hf = ssd_ops.ssd_chunked(*ins, chunk=chunk)
+        cot = (randn(gen, y.shape), randn(gen, hf.shape))
+        got = torch.autograd.grad((y, hf), ins, cot)
+        require(ssd.ssd_intra_bwd_cuda.launches == k + 2,
+                "ssd_chunked under autograd did not launch the backward")
+        ins = [t.clone().requires_grad_() for t in (x, dt, Bm, Cm, A_log,
+                                                     D)]
+        want = torch.autograd.grad(ssd_ref(*ins, chunk=chunk), ins, cot)
+        err = max(err, ssd_grads_hold(
+            f"ssd_chunked vs autograd of ssd_ref {label}", got, want,
+            ("x", "dt", "Bm", "Cm", "A_log", "D")))
+    return err
+
+
+def ssd_bwd_timing(gen) -> tuple[float, dict]:
+    """The backward kernel at mamba2's training shape (f32 b=8, nc=16,
+    Q=256, N=128, H=32, P=64; CUDA events), beside its plain version and
+    the bound of `ssd_bwd_work`. No single PyTorch call computes it. The
+    kernel is held against its plain version on these inputs, the shape
+    the main path gives it. Returns the largest error and the times."""
+    cfg = configs.get(MAMBA_ARCH)
+    h, p, n, q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
+    b, nc = TRAIN_BATCH, TRAIN_SEQ // q
+    x, dt, Bm, Cm, A_log, D = ssd_inputs(gen, b, TRAIN_SEQ, h, p, n)
+    ins = (*chunk_inputs(x, dt, Bm, Cm, A_log, q),
+           randn(gen, (b, nc, q, h, p)), randn(gen, (b, nc, h, n, p)))
+    del x, dt, Bm, Cm
+    w = ssd_bwd_work(b, nc, q, n, h, p)
+    ms = time_ms(lambda: ssd.ssd_intra_bwd_cuda(*ins), reps=10)
+    fwd_ms = time_ms(lambda: ssd.ssd_intra_cuda(*ins[:4]), reps=10)
+    plain_ms = time_ms(lambda: ssd_intra_bwd_ref(*ins), reps=2, warmup=1)
+    log(f"time ssd_intra_bwd f32 B={b} nc={nc} Q={q} N={n} H={h} P={p}: "
+        f"kernel {ms:.4f} ms (the forward {fwd_ms:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
+        f"{w['bound_rate']}; {w['ops']:.4g} ops, {w['bytes']} B), f32 "
+        f"CUDA-core bound {w['f32_bound_ms']:.4f} ms; "
+        f"{w['ops'] / ms / 1e9:.2f} TFLOP/s of needed work; library: none")
+    err = ssd_grads_hold(f"ssd bwd training shape B={b} nc={nc} H={h} P={p}",
+                         ssd.ssd_intra_bwd_cuda(*ins), ssd_intra_bwd_ref(*ins),
+                         ("dC", "dB", "ddtx", "dcums"))
+    del ins
+    free()
+    return err, dict(w, ms=ms, fwd_ms=fwd_ms, plain_ms=plain_ms,
+                     library_ms=None)
+
+
+def mamba_main_path() -> tuple[dict, dict]:
+    """mamba2-370m whole, bf16, B=8 x 4,096 through `make_train_step`
+    with remat, 5 steps (`train_cell`): K3 forward launches 2 x 48 x 5,
+    backward 48 x 5, no K2; A_log / D / dt_bias / wB / wC gradients
+    non-zero in all 48 layers; one profiled step. Returns K3's launches
+    and the logged numbers."""
+    cfg, step_fn, state, ds, out = train_cell(MAMBA_ARCH, "mamba",
+                                              MAMBA_LEAVES)
+    launches = launch_counts()
+    n = layers_of(cfg, "mamba") * TRAIN_STEPS
+    require(launches == {"wgmma": 0, "fma": 0, "bwd_wgmma": 0, "bwd_fma": 0,
+                         "ssd": 2 * n, "ssd_bwd": n},
+            f"{MAMBA_ARCH} train: launches {launches}; want {2 * n} K3 "
+            f"forward (remat runs each block twice) and {n} backward")
+    log(f"{MAMBA_ARCH} train: K3 launches forward {launches['ssd']}, "
+        f"backward {launches['ssd_bwd']}")
+    batch = {k: torch.from_numpy(x).cuda()
+             for k, x in ds.batch_at(TRAIN_STEPS).items()}
+    profile_train_step(step_fn, state, batch)
+    del state, batch
+    free()
+    return launches, out
+
+
+def mamba_hold_f32() -> dict:
+    """mamba2 at full width cut to 2 layers, f32, B=2 x 512: one train
+    step through K3 and its backward against the same step with the SSD
+    patched to `ssd_ref` here (unittest.mock; the package has no knob):
+    the loss within rtol 1e-5, every gradient within a relative Frobenius
+    error of 1e-4; then 3 steps each, losses rtol 1e-4. Returns the
+    launches of the kernel run (the plain run launches none)."""
+    cfg = dataclasses.replace(configs.get(MAMBA_ARCH),
+                              num_layers=HOLD_LAYERS, param_dtype="float32",
+                              activation_dtype="float32")
+    opt_cfg = AdamWConfig(total_steps=3, warmup_steps=1)
+    ds = SyntheticTextDataset(cfg.vocab_size, MAMBA_HOLD_SEQ, HOLD_BATCH,
+                              seed=1)
+
+    def plain(x, dt, Bm, Cm, A_log, D, chunk=64, h0=None):
+        return ssd_ref(x, dt, Bm, Cm, A_log, D, chunk=chunk, h0=h0)
+
+    runs = []
+    # the f32 hold's path: counts start at 0 here
+    reset_counts()
+    for swap in (False, True):
+        params = M.init_params(cfg, seed=3)
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        step_fn = steps.make_train_step(cfg, opt_cfg)
+        record: list = []
+        losses = []
+        with (mock.patch.object(mamba, "ssd_chunked", plain) if swap
+              else contextlib.nullcontext()), grad_spy(record, True):
+            for i in range(3):
+                batch = {k: torch.from_numpy(x).cuda()
+                         for k, x in ds.batch_at(i).items()}
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+        runs.append((losses, record[0]["grads"]))
+        del params, state, record
+    launches = launch_counts()
+    n = 3 * HOLD_LAYERS
+    require(launches["ssd"] == 2 * n and launches["ssd_bwd"] == n,
+            f"mamba f32 hold: launches {launches}; want {2 * n} K3 forward "
+            f"and {n} backward, none in the plain run")
+    (lk, gk), (lp, gp) = runs
+    rel = {k: float((gk[k] - gp[k]).norm() / gp[k].norm()) if float(
+        gp[k].norm()) else float((gk[k] - gp[k]).norm()) for k in gk}
+    worst = max(rel, key=rel.get)
+    ok = abs(lk[0] - lp[0]) <= 1e-5 * abs(lp[0]) and rel[worst] <= 1e-4
+    ssd_rel = max(v for k, v in rel.items()
+                  if any(k.endswith(f".{leaf}") for leaf in MAMBA_LEAVES))
+    log(f"mamba f32 hold ({HOLD_LAYERS} layers at full width, B={HOLD_BATCH}"
+        f" S={MAMBA_HOLD_SEQ}): step 1 loss {lk[0]!r} (K3) vs {lp[0]!r} "
+        f"(ssd_ref); worst gradient relative Frobenius {rel[worst]:.3e} "
+        f"({worst}), worst of {'/'.join(MAMBA_LEAVES)} {ssd_rel:.3e}: {ok}")
+    require(ok, "mamba f32 hold: the train step through K3 disagrees with "
+            "the same step on ssd_ref")
+    np_ok = bool(np.allclose(lk, lp, rtol=1e-4, atol=0))
+    log(f"mamba f32 hold, 3 steps: losses {lk} vs {lp} (rtol 1e-4): {np_ok}")
+    require(np_ok, "mamba f32 hold: 3-step losses disagree")
+    free()
+    return launches
+
+
+def jamba_train(gen) -> dict:
+    """jamba's mamba layers under autograd on the card: position 0 (mamba
+    + dense FFN) at full width over (2, 4,096, 8,192) bf16, every gradient
+    finite, one K3 forward and one backward at H=128, P=128; the
+    full-width f32 mamba layer at B=1 x 512, its gradients through K3's
+    backward against the same layer with `SSDIntra` patched to
+    `ssd_intra_ref` under autograd (relative Frobenius 1e-4 per
+    parameter); the whole smoke model, 3 steps of `make_train_step` (K2
+    fma at hd 16, K3 at P=32, the MoE). Returns K2's and K3's launches by
+    part."""
+    cfg = configs.get(JAMBA)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    spec = cfg.pattern[0]
+    blk = M.Block(cfg, spec, torch.bfloat16, torch.device("cuda"))
+    init_module(blk, gen)
+    blk.requires_grad_(True)
+    x = randn(gen, (JAMBA_TRAIN_BATCH, LM_SEQ, cfg.d_model),
+              torch.bfloat16).requires_grad_()
+    # the block's path: counts start at 0 here
+    reset_counts()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+    start.record()
+    y, _ = M._run_block(blk, x, cfg)
+    leaves = [x, *blk.parameters()]
+    grads = torch.autograd.grad(y, leaves, randn(gen, y.shape,
+                                                 torch.bfloat16),
+                                allow_unused=True)
+    end.record()
+    torch.cuda.synchronize()
+    block = launch_counts()
+    finite = all(g is not None and bool(torch.isfinite(g).all())
+                 for g in grads)
+    require(finite and block["ssd"] == 1 and block["ssd_bwd"] == 1,
+            f"{JAMBA} block 0 under autograd: finite {finite}, launches "
+            f"{block}; want one K3 forward and one backward")
+    log(f"{JAMBA} block 0 (mamba + dense FFN, H={cfg.ssm_heads} "
+        f"P={cfg.ssm_head_dim} N={cfg.ssm_state}) forward + backward over "
+        f"({JAMBA_TRAIN_BATCH}, {LM_SEQ}, {cfg.d_model}) bf16: "
+        f"{start.elapsed_time(end):.3f} ms on the card (one call), "
+        f"{len(grads)} gradients finite, K3 forward 1, backward 1")
+    log_memory(f"{JAMBA} block 0 train")
+    del blk, x, y, grads, leaves
+    free()
+
+    layer = mamba.Mamba(cfg, torch.float32, torch.device("cuda"))
+    init_module(layer, gen)
+    layer.requires_grad_(True)
+    xs = randn(gen, (1, 512, cfg.d_model))
+    dy = randn(gen, (1, 512, cfg.d_model))
+    params = list(layer.parameters())
+    k3 = launch_counts()
+    got = torch.autograd.grad(mamba.apply(layer, xs, cfg), params, dy)
+    layer_launches = {k: v - k3[k] for k, v in launch_counts().items()}
+    require(layer_launches["ssd"] == 1 and layer_launches["ssd_bwd"] == 1,
+            f"{JAMBA} f32 mamba layer: launches {layer_launches}")
+    with mock.patch.object(ssd_ops.SSDIntra, "apply", ssd_intra_ref):
+        want = torch.autograd.grad(mamba.apply(layer, xs, cfg), params, dy)
+    names = [n for n, _ in layer.named_parameters()]
+    rel = {n: float((g - w).norm() / w.norm()) if float(w.norm())
+           else float((g - w).norm()) for n, g, w in zip(names, got, want)}
+    worst = max(rel, key=rel.get)
+    ok = rel[worst] <= 1e-4 and all(bool(torch.isfinite(g).all())
+                                    for g in got)
+    log(f"{JAMBA} f32 mamba layer B=1 L=512: gradients through K3's "
+        f"backward vs autograd of ssd_intra_ref, worst relative Frobenius "
+        f"{rel[worst]:.3e} ({worst}; 1e-4): {ok}")
+    require(ok, f"{JAMBA} f32 mamba layer: gradients disagree")
+    del layer, xs, dy, params, got, want
+    free()
+
+    smoke = configs.get_smoke(JAMBA)
+    params = M.init_params(smoke, seed=0)
+    opt_cfg = AdamWConfig(total_steps=3, warmup_steps=1)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    step_fn = steps.make_train_step(smoke, opt_cfg)
+    ds = SyntheticTextDataset(smoke.vocab_size, 512, LM_BATCH, seed=0)
+    record: list = []
+    losses = []
+    # the smoke model's path: counts start at 0 here
+    reset_counts()
+    with grad_spy(record):
+        for i in range(3):
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in ds.batch_at(i).items()}
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+    launches = launch_counts()
+    n_attn, n_ssd = (3 * layers_of(smoke, kind) for kind in ("attn",
+                                                              "mamba"))
+    require(launches == {"wgmma": 0, "fma": 2 * n_attn, "bwd_wgmma": 0,
+                         "bwd_fma": n_attn, "ssd": 2 * n_ssd,
+                         "ssd_bwd": n_ssd},
+            f"{JAMBA} smoke train: launches {launches}")
+    bad = [n for e in record for n, f in e["finite"].items() if not f]
+    require(all(math.isfinite(v) for v in losses) and not bad,
+            f"{JAMBA} smoke train: losses {losses}, non-finite {bad[:4]}")
+    log(f"{JAMBA} smoke train ({smoke.num_layers} layers, B={LM_BATCH} "
+        f"S=512), 3 steps: losses {losses}; every gradient finite; "
+        f"launches {launches}")
+    del params, state
+    free()
+    return {"block": block, "layer": layer_launches, "smoke": launches}
+
+
+def phase_train_mamba(gen) -> tuple[float, dict, dict]:
+    """Phase 19. Returns the backward kernel's max error against its plain
+    version (phase 7's cases and the training shape), its times and K3's
+    forward and backward launches by phase."""
+    t0 = time.perf_counter()
+    log(f"ssd backward route: {ssd.BWD_ROUTE}")
+    errs = [ssd_bwd_check(label, gen, *case) for label, *case in ssd_cases()]
+    # through the Function and the torch glue: unscaled gradient errors,
+    # logged apart from the kernel's
+    t_bwd = {"function_max_abs_err": ssd_function_checks(gen)}
+    log(f"phase 19 backward cases: {time.perf_counter() - t0:.1f} s")
+    err, timing = ssd_bwd_timing(gen)
+    errs.append(err)
+    t_bwd.update(timing)
+    t0 = time.perf_counter()
+    main, _ = mamba_main_path()
+    log(f"phase 19 main path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hold = mamba_hold_f32()
+    log(f"phase 19 f32 hold: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    jam = jamba_train(gen)
+    log(f"phase 19 jamba: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    cli = cli_resume(MAMBA_ARCH)
+    log(f"phase 19 CLI: {time.perf_counter() - t0:.1f} s")
+    parts = {"19 mamba2 train": main, "19 f32 hold": hold,
+             f"19 {JAMBA} block": jam["block"],
+             f"19 {JAMBA} f32 layer": jam["layer"],
+             f"19 {JAMBA} smoke train": jam["smoke"], "19 CLI": cli}
+    by_phase = {k: {name: c[k] for name, c in parts.items()}
+                for k in ("ssd", "ssd_bwd", "fma", "bwd_fma")}
+    return max(errs), t_bwd, by_phase
 
 
 def kernel_row(name, source, replaces, launches, err, t, by_phase,
@@ -3278,16 +3725,22 @@ def main() -> None:
     err_bwd, t_bwd, k2_18, _ = phase_train(gen)
     log(f"phase 18 train: {time.perf_counter() - t0:.1f} s; K2 {k2_18}")
 
+    t0 = time.perf_counter()
+    err_ssd_bwd, t_ssd_bwd, k3_19 = phase_train_mamba(gen)
+    log(f"phase 19 train mamba: {time.perf_counter() - t0:.1f} s; K3 "
+        f"{k3_19}")
+
     k1_main = sum(v for k, v in k1_phases.items() if "rank" not in k)
     wgmma_by_phase = {"8 qwen3": qwen3_routes["wgmma"],
                       "16 granite": granite_routes["wgmma"], **wgmma17,
                       **k2_18["wgmma"]}
     fma_by_phase = {"8 qwen3 f32 replay": qwen3_routes["fma"],
                     "16 granite f32 replay": granite_routes["fma"], **fma17,
-                    **k2_18["fma"]}
+                    **k2_18["fma"], **k3_19["fma"]}
     bwd_wgmma_by_phase = k2_18["bwd_wgmma"]
-    bwd_fma_by_phase = k2_18["bwd_fma"]
-    ssd_by_phase = {"8 mamba2": ssd_launches, **k3_17}
+    bwd_fma_by_phase = {**k2_18["bwd_fma"], **k3_19["bwd_fma"]}
+    ssd_by_phase = {"8 mamba2": ssd_launches, **k3_17, **k3_19["ssd"]}
+    ssd_bwd_by_phase = k3_19["ssd_bwd"]
     print(json.dumps({"kernels": [
         kernel_row("frontier_relax",
                    "src/repro_torch/kernels/frontier/csrc/frontier_relax.cu",
@@ -3342,6 +3795,18 @@ def main() -> None:
                         sum(ssd_by_phase.values()), err_ssd, t_ssd,
                         ssd_by_phase),
              bound_rate=t_ssd["bound_rate"], jamba_shape=t_ssd["jamba"]),
+        dict(kernel_row("ssd_intra_bwd",
+                        "src/repro_torch/kernels/ssd/csrc/ssd_intra_bwd.cu",
+                        "src/repro/kernels/ssd/ssd.py:50",
+                        sum(ssd_bwd_by_phase.values()), err_ssd_bwd,
+                        t_ssd_bwd, ssd_bwd_by_phase),
+             reference_backward="none: the reference differentiates its jnp "
+             "ssd_ref (src/repro/kernels/ssd/ref.py:20)",
+             shape="f32 b=8 nc=16 Q=256 N=128 H=32 P=64 (mamba2 training)",
+             bound_rate=t_ssd_bwd["bound_rate"],
+             f32_bound_ms=t_ssd_bwd["f32_bound_ms"],
+             function_max_abs_err=t_ssd_bwd["function_max_abs_err"],
+             forward_ms_same_shape=t_ssd_bwd["fwd_ms"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

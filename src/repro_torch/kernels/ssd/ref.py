@@ -56,9 +56,48 @@ def ssd_intra_ref(C, B, dtx, cums):
     return y_intra, S
 
 
+def ssd_intra_bwd_ref(C, B, dtx, cums, dy, dS):
+    """The intra-chunk form's backward, in f32, as explicit formulas (the
+    plain version of the CUDA kernel `ssd.ssd_intra_bwd_cuda`). dy:
+    (b,nc,Q,H,P) and dS: (b,nc,H,N,P) are the cotangents of `ssd_intra_ref`'s
+    y and S. Returns (dC, dB (b,nc,Q,N), ddtx (b,nc,Q,H,P), dcums
+    (b,nc,Q,H)).
+
+    With att_ij = G_ij decay_ij (decay_ij = exp(c_i - c_j) for i >= j, else
+    0), w_j = exp(c_last - c_j) and dAtt = dY.X^T per head:
+      ddtx_j = sum_i att_ij dY_i + w_j (B_j . dS)
+      dC = dG.B, dB = dG^T.C + sum_h w^h (X^h . dS^hT), dG = sum_h dAtt decay
+      dcums_i = sum_j (dAtt att)_ij - sum_i' (dAtt att)_i'i - g_i
+                + [i = last] sum_j g_j,  g_j = w_j sum_{n,p} B_jn dS_np X_jp
+    B and C are shared by every head, so dC and dB sum over heads."""
+    q = C.shape[2]
+    G = torch.einsum("bcin,bcjn->bcij", C, B)                 # (b,nc,Q,Q)
+    diff = cums[:, :, :, None, :] - cums[:, :, None, :, :]     # (b,nc,Q,Q,H)
+    mask = torch.tril(torch.ones((q, q), dtype=torch.bool,
+                                 device=C.device))
+    # mask BEFORE exp, as the forward does: no inf, so no inf * 0 = NaN
+    decay = torch.exp(torch.where(mask[None, None, :, :, None], diff,
+                                  -torch.inf))
+    att = G[..., None] * decay                                 # (b,nc,Q,Q,H)
+    dAtt = torch.einsum("bcihp,bcjhp->bcijh", dy, dtx) * decay
+    w = torch.exp(cums[:, :, -1:, :] - cums)                   # (b,nc,Q,H)
+    BdS = torch.einsum("bcjn,bchnp->bcjhp", B, dS)
+    ddtx = (torch.einsum("bcijh,bcihp->bcjhp", att, dy)
+            + w[..., None] * BdS)
+    dG = dAtt.sum(-1)                                          # (b,nc,Q,Q)
+    dC = torch.einsum("bcij,bcjn->bcin", dG, B)
+    dB = (torch.einsum("bcij,bcin->bcjn", dG, C)
+          + torch.einsum("bcjh,bcjhp,bchnp->bcjn", w, dtx, dS))
+    da = dAtt * G[..., None]                                   # dAtt o att
+    g = w * (BdS * dtx).sum(-1)                                # (b,nc,Q,H)
+    dcums = da.sum(3) - da.sum(2) - g
+    dcums[:, :, -1] += g.sum(2)
+    return dC, dB, ddtx, dcums
+
+
 def ssd_from_intra(x, D, C_c, cums, y_intra, S, h0=None):
     """The inter-chunk recurrence and output around an intra-chunk result
-    (shared by `ssd_ref` and the kernel path `ssd.ssd_cuda`). Returns
+    (shared by the plain and the kernel paths, `ssd_with_intra`). Returns
     (y (B,L,H,P) in x's dtype, h_final (B,H,N,P) f32)."""
     b, l, h, p = x.shape
     nc, n = C_c.shape[1], C_c.shape[-1]
@@ -79,11 +118,21 @@ def ssd_from_intra(x, D, C_c, cums, y_intra, S, h0=None):
     return y.to(x.dtype), hprev
 
 
+def ssd_with_intra(intra, x, dt, Bm, Cm, A_log, D, chunk: int = 64,
+                   h0=None):
+    """Full SSD around an intra-chunk function `intra(C, B, dtx, cums) ->
+    (y_intra, S)`: `chunk_inputs`, `intra`, `ssd_from_intra`. The plain
+    path passes `ssd_intra_ref`; the kernel paths pass K3, raw or under
+    autograd. Returns (y (B,L,H,P), h_final (B,H,N,P))."""
+    C_c, B_c, dtx, cums = chunk_inputs(x, dt, Bm, Cm, A_log, chunk)
+    y_intra, S = intra(C_c.contiguous(), B_c.contiguous(), dtx, cums)
+    return ssd_from_intra(x, D, C_c, cums, y_intra, S, h0)
+
+
 def ssd_ref(x, dt, Bm, Cm, A_log, D, chunk: int = 64, h0=None):
     """Returns (y (B,L,H,P), h_final (B,H,N,P))."""
-    C_c, B_c, dtx, cums = chunk_inputs(x, dt, Bm, Cm, A_log, chunk)
-    y_intra, S = ssd_intra_ref(C_c, B_c, dtx, cums)
-    return ssd_from_intra(x, D, C_c, cums, y_intra, S, h0)
+    return ssd_with_intra(ssd_intra_ref, x, dt, Bm, Cm, A_log, D,
+                          chunk=chunk, h0=h0)
 
 
 def ssd_step_ref(x, dt, Bm, Cm, A_log, D, hprev):

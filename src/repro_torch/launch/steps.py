@@ -14,19 +14,6 @@ from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
 
 
-def check_trainable(cfg: ModelConfig, device) -> None:
-    """Raise NotImplementedError when `cfg` cannot train on `device`: on a
-    CUDA device every mamba layer's SSD runs through K3, whose backward is
-    not ported yet. On the CPU every config trains (the plain versions)."""
-    if torch.device(device).type == "cuda" and any(
-            spec.kind == "mamba" for spec in cfg.pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training a mamba layer on the card needs the K3 "
-            "backward (the SSD intra-chunk kernel's), not ported yet: "
-            "ROADMAP item 11.3. Attention-only configs train on the card; "
-            "any config trains with device='cpu'.")
-
-
 def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
                     impl: str = "auto", moe_dispatch: str = "gspmd",
                     remat: bool = True, grad_compression=None, device=None):
@@ -40,15 +27,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
 
     `impl` and `moe_dispatch` are accepted for parity with the reference:
     the tensors' device picks the attention route (K2 under autograd on
-    the card, `attention_ref` on the CPU), and the MoE runs its one-group
-    dispatch. `device` (default: the CUDA device) is checked with
-    `check_trainable`."""
+    the card, `attention_ref` on the CPU; K3 under autograd through
+    `ssd.ops.SSDIntra` on the card, `ssd_ref` on the CPU), and the MoE runs
+    its one-group dispatch. Every config trains on either device, as in the
+    reference. `device` (default: the CUDA device, which must exist) is
+    where the caller will place the state."""
     del impl, moe_dispatch
-    check_trainable(cfg, resolve_device(device, "make_train_step"))
+    resolve_device(device, "make_train_step")
 
     def train_step(state, batch):
         params = state["params"]
-        check_trainable(cfg, params.device)
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         with torch.enable_grad():

@@ -14,11 +14,16 @@ error feedback between the gradient and the optimizer.
         --preset tiny --steps 50                   # on the CUDA device
 
 Presets: `tiny` is the config's smoke variant with vocab_size=512 at
---seq x --batch; `full` is the full config at seq 4,096, batch 256. On the
-card, configs with a mamba block refuse to train (the K3 backward is
-ROADMAP item 11.3). --mesh takes "none" only: a device mesh is ROADMAP
-item 11.4. --attn-impl and --moe-dispatch are accepted for parity; the
-device picks the attention route, as everywhere in the port.
+--seq x --batch; `full` is the full config at seq 4,096, batch 256. Every
+config trains on the card, mamba blocks included (K3's forward and
+backward kernels under `ssd.ops.SSDIntra`):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2_370m \\
+        --preset tiny --steps 50
+
+--mesh takes "none" only: a device mesh is ROADMAP item 11.4. --attn-impl
+and --moe-dispatch are accepted for parity; the device picks the attention
+route, as everywhere in the port.
 """
 from __future__ import annotations
 

@@ -7,10 +7,11 @@ attention (`attention_bwd_ref`, also against `jax.grad`), the forward's
 row log-sum-exp (`attention_lse_ref`), both backward routes' tile ranges
 and tile walks (the "wgmma" route's with L given and P, dS rounded to
 bf16), the backward route table and the wrapper's refusals, `train_loss`
-with every gradient for four smoke configs, eight training steps, the
+with every gradient for five smoke configs, eight training steps, the
 grad-mode guards of the raw kernel wrappers, and the training launcher
 (checkpoint and exact resume). The backward kernels themselves run only on
-the card (`chip_smoke.py`, phase 18).
+the card (`chip_smoke.py`, phases 18 and 19; K3's backward is held in
+`tests/test_torch_ssd_bwd.py`).
 """
 import dataclasses
 import functools
@@ -633,7 +634,8 @@ def test_flash_attention_function_passes_lse(monkeypatch, dtype, hd, remat):
 # train_loss and every gradient against jax.value_and_grad
 # ------------------------------------------------------------------ #
 GRAD_ARCHS = ["qwen3_0_6b", "granite_moe_3b_a800m", "hubert_xlarge",
-              "mamba2_370m"]
+              "mamba2_370m", "jamba_1_5_large_398b"]
+FLOOR_CAP = {"jamba_1_5_large_398b": 1e-3}     # see the test's docstring
 
 
 def _loss_batch(cfg, b, s, seed):
@@ -659,17 +661,15 @@ def _port_grads(params, batch, cfg, remat):
                          for (n, p), g in zip(named.items(), grads)}
 
 
-@pytest.mark.parametrize("arch", GRAD_ARCHS)
-def test_train_loss_and_grads_match_reference(arch):
-    """Loss within 1e-5 x max(1, |loss|) (the smoke losses are ~5-25,
-    where one f32 ulp is up to 1.9e-6). Each gradient within a relative
-    Frobenius error of 1e-4, or of four times its own f32 noise floor
-    where that is larger: the port's gradient moved by parameters scaled
-    by (1 + 1e-7 N(0, 1)). The worst floor is 1.1e-4 for granite's smoke
-    MoE (its router), 3.1e-5 for hubert's (saturated softmaxes), 8.7e-6
-    for mamba2's and 3.5e-6 for qwen3's; a floor above 2.5e-4 (a flipped
-    routing choice, say) fails rather than widening the tolerance. Remat
-    on and off give the same gradients."""
+def grad_report(arch):
+    """One seeded smoke batch through the port's `train_loss` (remat on)
+    against `jax.value_and_grad` of the reference's, and again with the
+    parameters scaled by (1 + 1e-7 N(0, 1)). Returns the loss, the
+    reference's loss, each leaf's (f32 noise floor, error against the
+    reference), both relative Frobenius, and (params, batch, grads, the
+    reference's leaf names) for the test's further checks. Print one
+    architecture's floors with `PYTHONPATH=src:tests python -c "import
+    test_torch_train as t; print(t.grad_report('mamba2_370m')[2])"`."""
     rcfg = ref_configs.get_smoke(arch)
     cfg = configs.get_smoke(arch)
     rparams = _np_tree(ref_model.init_params(rcfg, jax.random.PRNGKey(0)))
@@ -682,19 +682,41 @@ def test_train_loss_and_grads_match_reference(arch):
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     params = params_from_jax(cfg, rparams, device="cpu")
     loss, grads = _port_grads(params, tbatch, cfg, remat=True)
-    assert abs(loss - float(rloss)) <= 1e-5 * max(1.0, abs(float(rloss)))
-    assert set(grads) == set(want)
     rng = np.random.default_rng(1)
     noisy = jax.tree_util.tree_map(
         lambda a: (a * (1 + 1e-7 * rng.normal(size=a.shape))).astype(
             a.dtype), rparams)
     _, moved = _port_grads(params_from_jax(cfg, noisy, device="cpu"),
                            tbatch, cfg, remat=True)
-    for n, g in grads.items():
-        floor = _rel(moved[n].numpy(), g.numpy())
-        assert floor <= 2.5e-4, (n, floor)
-        tol = max(1e-4, 4 * floor)
-        assert _rel(g.numpy(), want[n].detach().numpy()) <= tol, n
+    leaves = {n: (_rel(moved[n].numpy(), g.numpy()),
+                  _rel(g.numpy(), want[n].detach().numpy()))
+              for n, g in grads.items() if n in want}
+    return loss, float(rloss), leaves, (params, tbatch, grads, set(want))
+
+
+@pytest.mark.parametrize("arch", GRAD_ARCHS)
+def test_train_loss_and_grads_match_reference(arch):
+    """Loss within 1e-5 x max(1, |loss|) (the smoke losses are ~5-25,
+    where one f32 ulp is up to 1.9e-6). Each gradient within a relative
+    Frobenius error of 1e-4, or of four times its own f32 noise floor
+    where that is larger: the port's gradient moved by parameters scaled
+    by (1 + 1e-7 N(0, 1)). The worst floor is 1.1e-4 for granite's smoke
+    MoE (its router), 3.1e-5 for hubert's (saturated softmaxes), 8.7e-6
+    for mamba2's and 3.5e-6 for qwen3's; a floor above 2.5e-4 (a flipped
+    routing choice, say) fails rather than widening the tolerance. jamba's
+    smoke stack (mamba, MoE and attention) has mamba parameters whose
+    gradients are ~1e-3 of the others' norms, with floors up to 5.8e-4
+    (blocks.2.mamba.dt_bias; the port's error there is 2.8e-4): its cap is
+    1e-3, under the 1/64 share of one token that a flipped routing choice
+    would move.
+    Remat on and off give the same gradients."""
+    cfg = configs.get_smoke(arch)
+    loss, rloss, leaves, (params, tbatch, grads, want) = grad_report(arch)
+    assert abs(loss - rloss) <= 1e-5 * max(1.0, abs(rloss))
+    assert set(grads) == want
+    for n, (floor, err) in leaves.items():
+        assert floor <= FLOOR_CAP.get(arch, 2.5e-4), (n, floor)
+        assert err <= max(1e-4, 4 * floor), n
     loss2, grads2 = _port_grads(params, tbatch, cfg, remat=False)
     assert loss2 == loss
     for n, g in grads.items():
@@ -790,7 +812,8 @@ def test_raw_wrappers_refuse_grad_mode():
     assert (flash.flash_attention_cuda.launches,
             flash.flash_attention_bwd_cuda.launches,
             ssd.ssd_intra_cuda.launches) == launches
-    with pytest.raises(RuntimeError, match="11.3"):
+    # the hint names where the gradient through K3 is taken instead
+    with pytest.raises(RuntimeError, match="ops.SSDIntra"):
         calls[2]()
     assert _grad.records_grad(q, kv) and not _grad.records_grad(kv, None)
     with torch.no_grad():
@@ -798,14 +821,19 @@ def test_raw_wrappers_refuse_grad_mode():
 
 
 def test_make_train_step_refuses_mamba_on_cuda():
+    """No config is refused any more: with K3's backward ported,
+    `make_train_step` builds for every architecture on either device,
+    mamba2 and jamba included (the name is the refusal this test pinned
+    before). Without a device and without a card it raises."""
     opt_cfg = AdamWConfig()
-    for arch in ("mamba2_370m", "jamba_1_5_large_398b"):
-        cfg = configs.get(arch)
-        with pytest.raises(NotImplementedError, match="K3 backward.*11.3"):
-            steps.make_train_step(cfg, opt_cfg, device="cuda")
-        steps.make_train_step(cfg, opt_cfg, device="cpu")     # plain: ok
-    for arch in ("qwen3_0_6b", "granite_moe_3b_a800m", "hubert_xlarge"):
-        steps.check_trainable(configs.get(arch), torch.device("cuda"))
+    assert len(configs.ARCH_IDS) == 10
+    for arch in configs.ARCH_IDS:
+        for device in ("cuda", "cpu"):
+            assert callable(steps.make_train_step(configs.get(arch), opt_cfg,
+                                                  device=device))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            steps.make_train_step(configs.get("mamba2_370m"), opt_cfg)
 
 
 # ------------------------------------------------------------------ #
