@@ -10,7 +10,8 @@ Phases (every failure raises and exits nonzero):
                 on the CUDA cores and on the tensor cores, its backward on
                 the CUDA cores (`flash_attention_bwd.cu`) and on the tensor
                 cores (`flash_attention_bwd_wgmma.cu`), SSD intra-chunk and
-                its backward (`ssd_intra_bwd.cu`, the CUDA cores))
+                its backward (`ssd_intra_bwd.cu`, 3xTF32 wgmma and
+                mma.sync))
                 from the sources in this checkout, one nvcc each, all at
                 once (sm_90a); log ptxas registers, spills and warnings,
                 and fail if the tensor-core attention kernels (forward and
@@ -20,7 +21,9 @@ Phases (every failure raises and exits nonzero):
                 (C7510) or its setmaxnreg ignored (C7508), if the SASS of
                 the SSD kernel or of the wgmma backward waits after every
                 wgmma (fewer waits than half the HGMMA count, per
-                function), or if `bwd_dkdv` or `bwd_dq` has no HGMMA;
+                function; the SSD backward's too), if `bwd_dkdv` or
+                `bwd_dq` has no HGMMA, if `ssd_bwd_dxw` has no HGMMA, or
+                if `ssd_bwd_dx` or `ssd_bwd_dcdb` has no HMMA;
   3. kernel  -- hold the kernel against its plain PyTorch version,
                 `frontier_relax_torch`, on the card: 4 semirings x dense /
                 frontier-masked / empty states x B in {1, 8} x d in {1, 8},
@@ -244,27 +247,32 @@ Phases (every failure raises and exits nonzero):
                 `attention_ref`, then 3 steps. `launch.train` on the card
                 (fma): 8 steps, --resume to 12, and a 12-step run resumed
                 from its own step 8 against the uninterrupted run.
- 19. train mamba -- K3's backward (`ssd_intra_bwd_cuda`, f32 FMAs on the
-                CUDA cores: `ssd_bwd_pair`, `ssd_bwd_dx`, `ssd_bwd_dcdb`)
-                against `ssd_intra_bwd_ref` on phase 7's eleven cases
-                (jamba's layer among them) with seeded cotangents: atol
-                1e-4 x max(1, max|ref|) per output, every output finite,
+ 19. train mamba -- K3's backward (`ssd_intra_bwd_cuda`, 3xTF32 on the
+                tensor cores: `ssd_bwd_dxw` (wgmma, P <= 64) or
+                `ssd_bwd_dx` (mma.sync, P > 64), `ssd_bwd_dgsum`,
+                `ssd_bwd_dcdb`) against `ssd_intra_bwd_ref` on phase 7's
+                eleven cases (jamba's layer among them) with seeded
+                cotangents: atol 1e-4 x max(1, max|ref|) per output, every
+                output finite,
                 two calls bit-equal; again at mamba2's training shape
                 (f32 b=8, nc=16), what the main path gives it; the
                 autograd Function `ops.SSDIntra` against torch.autograd
                 through `ssd_intra_ref`, and
                 `ssd_chunked` under autograd against `ssd_ref` under
                 autograd (gradients of x, dt, Bm, Cm, A_log, D). Times at
-                mamba2's training shape (f32 b=8, nc=16) beside the
-                forward, the plain version and the bound (`ssd_bwd_work`:
+                mamba2's training shape (f32 b=8, nc=16) and at jamba's
+                (f32 b=2, nc=16, H=128, P=128), each held there too, beside
+                the forward, the plain version, the bound (`ssd_bwd_work`:
                 3xTF32 on the tensor cores, the card's least time; no
-                library call computes it). The main path: mamba2-370m
-                whole, bf16, B=8 x 4,096 from `SyntheticTextDataset(50_280,
-                4_096, 8, seed=0)` through `make_train_step` with remat, 5
-                steps: finite, falling loss; every gradient finite;
+                library call computes it) and the CUDA cores' floor. The
+                main path: mamba2-370m whole, bf16, B=8 x 4,096 from
+                `SyntheticTextDataset(50_280, 4_096, 8, seed=0)` through
+                `make_train_step` with remat, 5 steps: finite, falling
+                loss; every gradient finite;
                 A_log/D/dt_bias/wB/wC gradients non-zero in all 48 layers;
                 K3 forward launches 2 x 48 x 5, backward 48 x 5; tokens/s,
-                ms per step, peak memory, one profiled step. An f32 hold at
+                ms per step, peak memory, one profiled step (with each
+                `ssd_bwd_*` function's time). An f32 hold at
                 full width cut to 2 layers (B=2 x 512): one step through K3
                 against the same step with the SSD patched to `ssd_ref`
                 here (loss rtol 1e-5, gradients relative Frobenius 1e-4),
@@ -507,13 +515,12 @@ def demangle(names: list[str]) -> list[str]:
     return short if len(short) == len(names) else names
 
 
-def wgmma_waits(library: Path) -> dict:
-    """Per kernel of a built library, (HGMMA, WARPGROUP.DEPBAR) counts in
-    its SASS, through the toolkit's cuobjdump. A wait after every HGMMA
-    means ptxas serialized the wgmma batch."""
+def sass_counts(library: Path, marks: tuple[str, ...]) -> dict:
+    """Per kernel of a built library, how many SASS instructions contain
+    each of `marks`, through the toolkit's cuobjdump."""
     tool = Path(_build.nvcc()).parent / "cuobjdump"
-    require(tool.exists(), f"no {tool}: the SSD kernel's wgmma batches "
-            "cannot be checked")
+    require(tool.exists(), f"no {tool}: the SASS of {library.name} cannot "
+            "be checked")
     sass = subprocess.run([str(tool), "-sass", str(library)],
                           capture_output=True, text=True, timeout=120,
                           check=True).stdout
@@ -521,12 +528,17 @@ def wgmma_waits(library: Path) -> dict:
     for ln in sass.splitlines():
         if "Function :" in ln:
             names.append(ln.split("Function :", 1)[1].strip())
-            counts.append([0, 0])
-        elif names and "HGMMA" in ln:
-            counts[-1][0] += 1
-        elif names and "WARPGROUP.DEPBAR" in ln:
-            counts[-1][1] += 1
+            counts.append([0] * len(marks))
+        elif names:
+            for k, mark in enumerate(marks):
+                counts[-1][k] += mark in ln
     return dict(zip(demangle(names), map(tuple, counts)))
+
+
+def wgmma_waits(library: Path) -> dict:
+    """Per kernel, (HGMMA, WARPGROUP.DEPBAR) counts in its SASS. A wait
+    after every HGMMA means ptxas serialized the wgmma batch."""
+    return sass_counts(library, ("HGMMA", "WARPGROUP.DEPBAR"))
 
 
 def phase_build() -> None:
@@ -558,7 +570,7 @@ def phase_build() -> None:
                     and text.count("spill stores") == text.count(
                         " 0 bytes spill stores"),
                     f"{source.name}: ptxas reports spills")
-        if source in (flash.BWD_WGMMA_SOURCE, ssd.SOURCE):
+        if source in (flash.BWD_WGMMA_SOURCE, ssd.SOURCE, ssd.BWD_SOURCE):
             # ptxas gives no C7510 when it serializes these wgmma (a
             # register-A operand): only the SASS shows it
             waits = wgmma_waits(path)
@@ -574,6 +586,20 @@ def phase_build() -> None:
                     require(any(fn in name and n_mma
                                 for name, (n_mma, _) in waits.items()),
                             f"{source.name}: no HGMMA in {fn}")
+        if source == ssd.BWD_SOURCE:
+            # the tensor-core route: wgmma (HGMMA) in ssd_bwd_dxw, mma.sync
+            # (HMMA) in ssd_bwd_dx and ssd_bwd_dcdb
+            mmas = sass_counts(path, ("HMMA", "HGMMA"))
+            for name, (n_mma, n_gmma) in mmas.items():
+                log(f"  {name}: {n_mma} HMMA, {n_gmma} HGMMA in the SASS")
+            for fn, k in (("ssd_bwd_dxw", 1), ("ssd_bwd_dx", 0),
+                          ("ssd_bwd_dcdb", 0)):
+                # demangled "<unnamed>::fn", or mangled "...<len>fn..."
+                found = [c[k] for name, c in mmas.items()
+                         if name.endswith("::" + fn) or f"{len(fn)}{fn}E"
+                         in name]
+                require(found and all(found),
+                        f"{source.name}: no {('HMMA', 'HGMMA')[k]} in {fn}")
     log(f"all kernels built in {time.perf_counter() - t0:.2f} s")
     relax._library()
     flash._library("fma")
@@ -2892,6 +2918,11 @@ def profile_train_step(step_fn, state, batch) -> None:
         + ", ".join(f"{n} {parts.get(n, 0.0):.1f} ms" for n in spans))
     for key, ms, count in sorted(kernels, key=lambda r: -r[1])[:14]:
         log(f"  device {ms:9.3f} ms {count:6d}x  {key[:90]}")
+    for key, ms, count in kernels:   # K3's backward, function by function
+        if "ssd_bwd_" in key:
+            name = key[key.index("ssd_bwd_"):].split("(")[0]
+            log(f"  K3 backward {name}: "
+                f"{ms:.3f} ms in {count} calls, {ms / count:.4f} ms each")
 
 
 def ce_timing(cfg) -> float:
@@ -3263,8 +3294,8 @@ def ssd_bwd_work(b, nc, q, n, h, p) -> dict:
     `bound_ms` is the card's least time, as `ssd_work` puts it: every
     product as three TF32 products on the tensor cores (3 x ops / 495
     TFLOP/s, which meets SSD_ATOL) against the bytes; `f32_bound_ms` the
-    same work as f32 FMAs on the CUDA cores (ops / 67 TFLOP/s), the
-    kernel's present route."""
+    same work as f32 FMAs on the CUDA cores (ops / 67 TFLOP/s), the floor
+    of the route the kernel left."""
     pairs = q * (q + 1) // 2
     ops = b * nc * (6 * pairs * n + h * (pairs + 4 * pairs * p
                                          + 4 * q * n * p))
@@ -3358,15 +3389,14 @@ def ssd_function_checks(gen) -> float:
     return err
 
 
-def ssd_bwd_timing(gen) -> tuple[float, dict]:
-    """The backward kernel at mamba2's training shape (f32 b=8, nc=16,
-    Q=256, N=128, H=32, P=64; CUDA events), beside its plain version and
-    the bound of `ssd_bwd_work`. No single PyTorch call computes it. The
-    kernel is held against its plain version on these inputs, the shape
-    the main path gives it. Returns the largest error and the times."""
-    cfg = configs.get(MAMBA_ARCH)
-    h, p, n, q = cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
-    b, nc = TRAIN_BATCH, TRAIN_SEQ // q
+def ssd_bwd_time(gen, label: str, b, h, p, n, q) -> tuple[float, dict]:
+    """The backward kernel at one training shape (f32, nc = TRAIN_SEQ / q;
+    CUDA events), beside the forward at the same shape, its plain version,
+    the bound and the CUDA cores' floor of `ssd_bwd_work`; the kernel held
+    against its plain version on these inputs. Returns the error and the
+    times. Each function's time comes from the profiled mamba2 step: a
+    profiler session around this call left that step's profile short."""
+    nc = TRAIN_SEQ // q
     x, dt, Bm, Cm, A_log, D = ssd_inputs(gen, b, TRAIN_SEQ, h, p, n)
     ins = (*chunk_inputs(x, dt, Bm, Cm, A_log, q),
            randn(gen, (b, nc, q, h, p)), randn(gen, (b, nc, h, n, p)))
@@ -3375,19 +3405,41 @@ def ssd_bwd_timing(gen) -> tuple[float, dict]:
     ms = time_ms(lambda: ssd.ssd_intra_bwd_cuda(*ins), reps=10)
     fwd_ms = time_ms(lambda: ssd.ssd_intra_cuda(*ins[:4]), reps=10)
     plain_ms = time_ms(lambda: ssd_intra_bwd_ref(*ins), reps=2, warmup=1)
-    log(f"time ssd_intra_bwd f32 B={b} nc={nc} Q={q} N={n} H={h} P={p}: "
-        f"kernel {ms:.4f} ms (the forward {fwd_ms:.4f} ms), plain "
+    log(f"time ssd_intra_bwd f32 {label} B={b} nc={nc} Q={q} N={n} H={h} "
+        f"P={p}: kernel {ms:.4f} ms (the forward {fwd_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, bound {w['bound_ms']:.4f} ms ({w['bound_by']}, "
         f"{w['bound_rate']}; {w['ops']:.4g} ops, {w['bytes']} B), f32 "
-        f"CUDA-core bound {w['f32_bound_ms']:.4f} ms; "
-        f"{w['ops'] / ms / 1e9:.2f} TFLOP/s of needed work; library: none")
-    err = ssd_grads_hold(f"ssd bwd training shape B={b} nc={nc} H={h} P={p}",
-                         ssd.ssd_intra_bwd_cuda(*ins), ssd_intra_bwd_ref(*ins),
+        f"CUDA-core floor {w['f32_bound_ms']:.4f} ms; "
+        f"{w['ops'] / ms / 1e9:.2f} TFLOP/s of needed work, "
+        f"{ms / w['bound_ms']:.2f}x the bound; library: none")
+    err = ssd_grads_hold(f"ssd bwd {label} training shape B={b} nc={nc} "
+                         f"H={h} P={p}", ssd.ssd_intra_bwd_cuda(*ins),
+                         ssd_intra_bwd_ref(*ins),
                          ("dC", "dB", "ddtx", "dcums"))
     del ins
     free()
     return err, dict(w, ms=ms, fwd_ms=fwd_ms, plain_ms=plain_ms,
                      library_ms=None)
+
+
+def ssd_bwd_timing(gen) -> tuple[float, dict]:
+    """`ssd_bwd_time` at mamba2's training shape (b=8, H=32, P=64), the
+    main path's, and at jamba's mamba layer (b=2, H=128, P=128); N=128,
+    Q=256 in both. Returns the larger error and mamba2's times with
+    jamba's under "jamba"."""
+    err, t = ssd_bwd_time(gen, "mamba2", TRAIN_BATCH,
+                          *ssd_widths(MAMBA_ARCH))
+    jerr, jt = ssd_bwd_time(gen, "jamba", JAMBA_TRAIN_BATCH,
+                            *ssd_widths(JAMBA))
+    t["jamba"] = {k: jt[k] for k in ("ms", "fwd_ms", "plain_ms", "bound_ms",
+                                     "bound_by", "f32_bound_ms")}
+    return max(err, jerr), t
+
+
+def ssd_widths(arch: str) -> tuple[int, int, int, int]:
+    """(H, P, N, Q) of an architecture's mamba layers."""
+    cfg = configs.get(arch)
+    return cfg.ssm_heads, cfg.ssm_head_dim, cfg.ssm_state, cfg.ssm_chunk
 
 
 def mamba_main_path() -> tuple[dict, dict]:
@@ -3800,13 +3852,16 @@ def main() -> None:
                         "src/repro/kernels/ssd/ssd.py:50",
                         sum(ssd_bwd_by_phase.values()), err_ssd_bwd,
                         t_ssd_bwd, ssd_bwd_by_phase),
+             kernel_route=ssd.BWD_ROUTE,
              reference_backward="none: the reference differentiates its jnp "
              "ssd_ref (src/repro/kernels/ssd/ref.py:20)",
              shape="f32 b=8 nc=16 Q=256 N=128 H=32 P=64 (mamba2 training)",
              bound_rate=t_ssd_bwd["bound_rate"],
              f32_bound_ms=t_ssd_bwd["f32_bound_ms"],
              function_max_abs_err=t_ssd_bwd["function_max_abs_err"],
-             forward_ms_same_shape=t_ssd_bwd["fwd_ms"]),
+             forward_ms_same_shape=t_ssd_bwd["fwd_ms"],
+             jamba_shape=dict(t_ssd_bwd["jamba"], shape="f32 b=2 nc=16 "
+                              "Q=256 N=128 H=128 P=128")),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
 

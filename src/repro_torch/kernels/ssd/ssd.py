@@ -14,8 +14,11 @@ torch around the kernel.
 
 `csrc/ssd_intra_bwd.cu` is the backward of the same function (the
 reference differentiates its jnp form; it has no backward kernel of its
-own): f32 FMAs on the CUDA cores, deterministic, wrapped by
-`ssd_intra_bwd_cuda`; its plain version is `ref.ssd_intra_bwd_ref`.
+own): 3xTF32 products on the tensor cores (wgmma for dAtt and att^T.dY
+where P <= 64, mma.sync elsewhere), G shared by a group of heads, the
+diagonal's sub-tiles wholly above it skipped, no atomics, wrapped by
+`ssd_intra_bwd_cuda`; its plain version is `ref.ssd_intra_bwd_ref`. Every
+shape the wrapper takes goes to the tensor cores.
 `ops.SSDIntra` joins the two under autograd. The raw wrappers here carry
 no gradient, so they raise under grad mode when an input requires grad.
 """
@@ -41,8 +44,13 @@ K3_BACKWARD = ("the gradient through K3 is taken by ops.SSDIntra, which "
                "ops.ssd_chunked runs on CUDA tensors")
 ROUTE = (f"3xTF32 tensor cores, f32 accumulate (wgmma m64n64k8 for y and S, "
          f"mma.sync m16n8k8 for G); G = C.B^T shared by {HEAD_GROUP} heads")
-BWD_ROUTE = ("f32 FMAs on the CUDA cores: ssd_bwd_pair (G, dG over the heads), "
-             "ssd_bwd_dx (ddtx), ssd_bwd_dcdb (dC, dB, dcums); no atomics")
+BWD_ROUTE = (f"3xTF32 tensor cores, f32 accumulate: ssd_bwd_dxw (P <= 64: "
+             f"wgmma m64n32k8 for dAtt and att^T.dY, mma.sync m16n8k8 for "
+             f"G and B.dS) or ssd_bwd_dx (P > 64: mma.sync) with G shared "
+             f"by {HEAD_GROUP} heads, ddtx and dG^T per group; "
+             f"ssd_bwd_dgsum (the groups' dG^T in order); ssd_bwd_dcdb "
+             f"(mma.sync: dC, dB with its state term as one H.P-long "
+             f"product, dcums); no atomics")
 
 
 @functools.cache

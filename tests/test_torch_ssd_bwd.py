@@ -2,8 +2,9 @@
 
 The plain backward `ssd_intra_bwd_ref` (explicit formulas) against
 torch.autograd through `ssd_intra_ref`; the kernel's tile walk
-(`csrc/ssd_intra_bwd.cu`: the pair, dx and dcdb functions and their
-scratch) emulated in numpy against it; the autograd path of the port's
+(`csrc/ssd_intra_bwd.cu`: the dx, dgsum and dcdb functions and their
+scratch) emulated in numpy against it, in f32 and in the kernel's 3xTF32
+arithmetic; the autograd path of the port's
 SSD (`ssd_with_intra` around `ops.SSDIntra`, what `ssd_chunked` runs
 on CUDA tensors), with the Function's kernels replaced by their plain
 versions,
@@ -81,16 +82,56 @@ def test_ssd_intra_bwd_ref_matches_autograd(case):
     _hold(ssd_intra_bwd_ref(C, B, dtx, cums, dy, dS), want)
 
 
-def _tile_walk(C, B, dtx, cums, dy, dS, br=64):
-    """`ssd_intra_bwd.cu`'s decomposition in numpy f32, tile by tile.
-    ssd_bwd_pair, per (i tile >= j tile): G = C_i.B_j^T; per head dAtt =
-    dY_i.X_j^T, masked to i >= j before the exp of c_i - c_j; dG summed
-    over the heads; each head's row sums of dAtt o att (a partial per j
-    tile). ssd_bwd_dx, per (j tile, head): ddtx = sum_i att^T.dY_i + w (B_j
-    . dS), att from the stored G; X . ddtx per row; the tile's sum of g.
-    ssd_bwd_dcdb: dC_i = sum_j dG_ij.B_j; dB_j = sum_i dG_ij^T.C_i + sum_h
-    (w X_j).dS^T; dcums = the row-sum partials - X . ddtx, plus the g sums
-    on the last row."""
+# the kernel's tiles (`ssd_intra_bwd.cu`): j tiles of BJ rows, HG heads
+# per G panel, i tiles from the j tile's first row of 2 BI rows in
+# ssd_bwd_dxw (P <= 64, wgmma) and of BI rows in ssd_bwd_dx (P > 64,
+# mma.sync: its 16-row stripes by 8-column n-tiles)
+BJ, BI, HG = 32, 64, 8
+
+
+def _tf32(x):
+    """Round f32 to TF32 as `cvt.rna.tf32.f32` does: to nearest with ties
+    away from zero, 10 mantissa bits kept (the low 13 bits cleared)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(np.float32)
+
+
+def _mm_tf32(a, b):
+    """a @ b as the kernel's MMAs take it: x = hi + lo with hi = tf32(x),
+    lo = tf32(x - hi), and a.b = a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, exact
+    products of TF32 operands summed in f32."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _computed(nj_rows, ni_cols):
+    """The MMA sub-tiles the kernel runs in a (j tile, its i columns from
+    j0) panel: a 16-row stripe by 8-column n-tile is skipped when its
+    last column lies before its first row (wholly above the diagonal)."""
+    stripe = np.arange(nj_rows)[:, None] // 16
+    ntile = np.arange(ni_cols)[None, :] // 8
+    return 8 * ntile + 7 >= 16 * stripe
+
+
+def _tile_walk(C, B, dtx, cums, dy, dS, mm=np.matmul):
+    """`ssd_intra_bwd.cu`'s decomposition in numpy f32, with `mm` for
+    every product (`_mm_tf32` for the kernel's 3xTF32 arithmetic).
+
+    The dx function, per (BJ-row j tile, group of HG heads): the panel
+    G^T = B_j.C^T over i >= j0 once for the group; per head, the state
+    part first, B_j.dS (its g_j = w_j X_j . B_j dS summed over the tile),
+    then acc = w o B_j dS; per i tile (2 BI rows for P <= 64, else BI)
+    dAtt^T = X_j.dY_i^T (for P > 64 on the computed sub-tiles only: the
+    wgmma tiles of P <= 64 have none wholly above the diagonal), masked to
+    i >= j before the exp of c_i - c_j,
+    dL = dAtt^T o decay, att^T = G^T o decay, the tile's row sums of dL o
+    G per i, dG^T (the group's partial) += dL, acc += att^T.dY_i; ddtx_j =
+    acc and X_j . ddtx_j. ssd_bwd_dcdb: dG = the group partials summed in
+    group order and masked to i >= j; dC = dG.B; dB = dG^T.C + [w o X]
+    (Q x H.P) . [dS stacked] (H.P x N), the state term as one product;
+    dcums = the j tiles' row sums - X . ddtx, plus the g sums on the last
+    row."""
     C, B, dtx, cums, dy, dS = (t.numpy().astype(np.float32) for t in
                                (C, B, dtx, cums, dy, dS))
     b, nc, q, n = C.shape
@@ -99,68 +140,98 @@ def _tile_walk(C, B, dtx, cums, dy, dS, br=64):
     C, B = C.reshape(bc, q, n), B.reshape(bc, q, n)
     X, dY = dtx.reshape(bc, q, h, p), dy.reshape(bc, q, h, p)
     c, dS = cums.reshape(bc, q, h), dS.reshape(bc, h, n, p)
-    nit = -(-q // br)
-    tiles = [np.arange(t * br, min(q, (t + 1) * br)) for t in range(nit)]
-
-    def decay(I, J, hh):          # masked before the exp, as the kernel
-        on = I[:, None] >= J[None, :]
-        d = c[:, I, hh][:, :, None] - c[:, J, hh][:, None, :]
-        return np.exp(np.where(on, d, -np.inf)).astype(np.float32)
-
-    Gs = np.zeros((bc, q, q), np.float32)
-    dGs = np.zeros((bc, q, q), np.float32)
-    rs = np.zeros((bc, nit, q, h), np.float32)
-    for it, I in enumerate(tiles):                       # ssd_bwd_pair
-        for jt, J in enumerate(tiles[:it + 1]):
-            G = C[:, I] @ B[:, J].transpose(0, 2, 1)
-            dg = np.zeros_like(G)
-            for hh in range(h):
-                dl = (dY[:, I, hh] @ X[:, J, hh].transpose(0, 2, 1)) \
-                    * decay(I, J, hh)
-                dg += dl
-                rs[:, jt, I, hh] = (dl * G).sum(-1)
-            Gs[:, I[:, None], J] = G
-            dGs[:, I[:, None], J] = dg
+    nj, ng = -(-q // BJ), -(-h // HG)
+    last = c[:, -1]
+    dGp = np.zeros((bc, ng, q, q), np.float32)        # [j][i] per group
+    rs = np.zeros((bc, h, nj, q), np.float32)
+    gsum = np.zeros((bc, h, nj), np.float32)
     ddtx = np.zeros_like(X)
     dcol = np.zeros((bc, q, h), np.float32)
-    gsum = np.zeros((bc, nit, h), np.float32)
-    last = c[:, -1]
-    for jt, J in enumerate(tiles):                       # ssd_bwd_dx
-        for hh in range(h):
-            acc = sum((Gs[:, I[:, None], J] * decay(I, J, hh))
-                      .transpose(0, 2, 1) @ dY[:, I, hh]
-                      for I in tiles[jt:])
-            sacc = B[:, J] @ dS[:, hh]
-            w = np.exp(last[:, None, hh] - c[:, J, hh])
-            d = acc + w[..., None] * sacc
-            ddtx[:, J, hh] = d
-            dcol[:, J, hh] = (X[:, J, hh] * d).sum(-1)
-            gsum[:, jt, hh] = (w * (X[:, J, hh] * sacc).sum(-1)).sum(-1)
-    dC, dB = np.zeros_like(C), np.zeros_like(B)
-    dcums = np.zeros_like(c)
-    for t, T in enumerate(tiles):                        # ssd_bwd_dcdb
-        dC[:, T] = sum(dGs[:, T[:, None], J] @ B[:, J] for J in tiles[:t + 1])
-        dB[:, T] = sum(dGs[:, I[:, None], T].transpose(0, 2, 1) @ C[:, I]
-                       for I in tiles[t:])
-        for hh in range(h):
-            w = np.exp(last[:, None, hh] - c[:, T, hh])
-            dB[:, T] += (w[..., None] * X[:, T, hh]) @ dS[:, hh].transpose(
-                0, 2, 1)
-        dcums[:, T] = rs[:, :t + 1, T].sum(1) - dcol[:, T]
-    dcums[:, -1] += gsum.sum(1)
+    for jt in range(nj):                                 # ssd_bwd_dx
+        J = np.arange(jt * BJ, min(q, (jt + 1) * BJ))
+        I = np.arange(jt * BJ, q)
+        Gt = mm(B[:, J], C[:, I].transpose(0, 2, 1))
+        on = I[None, :] >= J[:, None]
+        run = (_computed(len(J), len(I)) if p > 64
+               else np.ones((len(J), len(I)), bool))
+        for g in range(ng):
+            dGt = np.zeros_like(Gt)
+            for hh in range(g * HG, min(h, (g + 1) * HG)):
+                Xj, cj = X[:, J, hh], c[:, J, hh]
+                w = np.exp(last[:, None, hh] - cj)
+                sacc = mm(B[:, J], dS[:, hh])
+                gsum[:, hh, jt] = (w * (Xj * sacc).sum(-1)).sum(-1)
+                acc = w[..., None] * sacc
+                with np.errstate(over="ignore"):
+                    decay = np.exp(np.where(on, c[:, I, hh][:, None, :]
+                                            - cj[:, :, None], -np.inf))
+                ti = 2 * BI if p <= 64 else BI
+                for i0 in range(0, len(I), ti):
+                    sl = slice(i0, min(len(I), i0 + ti))
+                    dYi = dY[:, I[sl], hh]
+                    dA = np.where(run[:, sl],
+                                  mm(Xj, dYi.transpose(0, 2, 1)), 0)
+                    dL = dA * decay[..., sl]
+                    att = Gt[..., sl] * decay[..., sl]
+                    rs[:, hh, jt, I[sl]] = (dL * Gt[..., sl]).sum(1)
+                    dGt[..., sl] += dL
+                    acc = acc + mm(att, dYi)
+                ddtx[:, J, hh] = acc
+                dcol[:, J, hh] = (Xj * acc).sum(-1)
+            dGp[:, g, J[:, None], I[None, :]] = dGt
+    dG = dGp[:, 0]                                       # ssd_bwd_dcdb
+    for g in range(1, ng):
+        dG = dG + dGp[:, g]
+    dG = np.where(np.tril(np.ones((q, q), bool)).T, dG, 0)   # [j][i], i >= j
+    w = np.exp(last[:, None, :] - c)                     # (bc, Q, H)
+    wx = (w[..., None] * X).reshape(bc, q, h * p)
+    dC = mm(dG.transpose(0, 2, 1), B)
+    dB = mm(dG, C) + mm(wx, dS.transpose(0, 1, 3, 2).reshape(bc, h * p, n))
+    dcums = rs.sum(2).transpose(0, 2, 1) - dcol
+    dcums[:, -1] += gsum.sum(2)
     return tuple(torch.from_numpy(a) for a in (
         dC.reshape(b, nc, q, n), dB.reshape(b, nc, q, n),
         ddtx.reshape(b, nc, q, h, p), dcums.reshape(b, nc, q, h)))
 
 
+@functools.cache
+def _case(case):
+    """A case's inputs and the plain backward's outputs, shared by the
+    tests of that case."""
+    ins = _inputs(*case)
+    return ins, ssd_intra_bwd_ref(*ins)
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_bwd_kernel_tile_walk(case):
-    """The kernel's decomposition (its column part of dcums as X . ddtx,
-    the last row's g sums, dG summed over heads before dC and dB) holds
-    against the plain backward at the kernel's tolerance, strong decay
-    included."""
-    ins = _inputs(*case)
-    _hold(_tile_walk(*ins), ssd_intra_bwd_ref(*ins))
+    """The kernel's decomposition (j tiles of 32 rows, i tiles of 128 rows
+    for P <= 64 and of 64 with the diagonal's sub-tiles wholly above it
+    skipped for P > 64, G^T once per group of 8 heads, dG as group
+    partials summed in order, dB's state term as one H.P-long product,
+    dcums's column part as X . ddtx, the last row's g sums) holds against
+    the plain backward at the kernel's tolerance, strong decay included."""
+    ins, want = _case(case)
+    _hold(_tile_walk(*ins), want)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_bwd_3xtf32_emulation(case):
+    """The kernel's arithmetic: every product of that decomposition as
+    three TF32 products (each operand split hi + lo), summed in f32,
+    holds against the plain backward at 1e-4 x max(1, max|ref|) per
+    output, at mamba2's widths and under strong decay too."""
+    ins, want = _case(case)
+    _hold(_tile_walk(*ins, mm=_mm_tf32), want)
+
+
+def test_bwd_one_tf32_product_misses_the_hold():
+    """Why the kernel splits every operand: at mamba2's widths one TF32
+    product per multiply in the same decomposition misses the hold."""
+    ins, want = _case(CASES[6])
+    got = _tile_walk(*ins, mm=lambda a, b: _tf32(a) @ _tf32(b))
+    assert any(float((g - w).abs().max())
+               > SSD_ATOL * max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
 
 
 # the autograd path against jax.vjp of the reference's ssd_ref
@@ -304,10 +375,21 @@ def test_ssd_intra_bwd_cuda_refuses():
 
 def test_ssd_bwd_source_matches_wrapper():
     """The backward source names the TPU kernel it stands beside and the
-    reference form it differentiates, and takes the wrapper's limits."""
+    reference form it differentiates, takes the wrapper's limits, has the
+    tiles `_tile_walk` emulates, runs its products on the tensor cores in
+    3xTF32 (cvt.rna.tf32 splits, mma.sync), and uses no atomics."""
     src = ssd.BWD_SOURCE.read_text()
     assert "ssd_intra_pallas" in src and "ssd_ref" in src
     for name, want in (("MAXQ", ssd.MAX_CHUNK), ("MAXN", ssd.MAX_STATE),
-                       ("MAXP", ssd.MAX_HEAD_DIM)):
+                       ("MAXP", ssd.MAX_HEAD_DIM), ("HG", ssd.HEAD_GROUP),
+                       ("BJ", BJ), ("BI", BI)):
         assert f"constexpr int {name} = {want};" in src
+    assert HG == ssd.HEAD_GROUP
+    assert "cvt.rna.tf32.f32" in src and "mma.sync.aligned.m16n8k8" in src
+    assert "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32" in src
+    for small, big in (("mma_tf32(d[u], alo, bh[u][0]", "mma_tf32(d[u], ahi, "
+                        "bh[u][0]"), ("wgmma_n32(d, alo[kk], dh);",
+                                      "wgmma_n32(d, ahi[kk], dh);")):
+        assert src.index(small) < src.index(big)   # the small terms first
     assert "atomic" not in src.replace("no atomics", "")
+    assert "mma.sync" in ssd.BWD_ROUTE and "3xTF32" in ssd.BWD_ROUTE
