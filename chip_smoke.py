@@ -285,6 +285,38 @@ Phases (every failure raises and exits nonzero):
                 `launch.train --arch mamba2_370m --preset tiny` on the
                 card: 8 steps, --resume to 12, against a 12-step run
                 resumed from its own step 8.
+ 20. mesh     -- the mesh surface (`distributed.sharding`, `launch.mesh`,
+                `launch.steps.shard_state` / `shard_batch`): K2 and K3 run
+                on each rank's shard inside `local_map` regions. (a) NCCL
+                at world 1 under a (1, 1) data x model mesh: qwen3-0.6b
+                whole, bf16, B=8 x 4,096 from phase 18's dataset and seed,
+                3 steps of `make_train_step` on a sharded state; the first
+                step's loss and grad norm against phase 18's (rtol 1e-3,
+                bit-equality logged), K2 launches 2 x 28 x 3 forward and
+                28 x 3 backward, all wgmma; ms per step, tokens/s and peak
+                memory beside phase 18's. (b) Two gloo ranks on the one
+                card (spawned as in 15b): the probe of the four collectives
+                DTensor needs on CUDA tensors (all_reduce,
+                all_gather_into_tensor, reduce_scatter_tensor,
+                all_to_all_single); then under (2,) data and (1, 2) data x
+                model: qwen3 at full width cut to 2 layers, f32, B=2 x 256,
+                one step against the one-device step (loss rtol 1e-5,
+                gradients relative Frobenius 1e-4, updated parameters 1e-6
+                plus AdamW's bound); under (1, 2) mamba2 the same at B=2 x
+                512, K3 forward and backward on 16 SSM heads per rank;
+                qwen3 whole in bf16, global B=4 x 2,048, 2 steps (finite
+                losses, K2 2 x 28 x 2 forward and 28 x 2 backward per rank,
+                all wgmma, each rank holding a shard of the parameters); a
+                granite MoE layer at full width in f32 with every group's
+                capacity binding: under (2,) the grouped dispatch (G=2, a
+                group per rank) against the one-device G=2 dispatch (1e-4 x
+                max|y|, aux rtol 1e-5, each rank's drops = its group's),
+                under (1, 2) `dispatch="all_to_all"` against the grouped
+                dispatch on the same mesh.
+
+Phase 20's launches on the gloo ranks are listed by rank in each kernel
+row's `launches_by_phase` and left out of its `launches`, as phase 15b's
+are in K1's.
 
 In phases 4, 5, 9-15 every fixpoint step is one launch of the
 frontier-relax kernel: each path resets the launch count before it runs
@@ -321,6 +353,7 @@ from unittest import mock
 import numpy as np
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import distribute_tensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -334,6 +367,9 @@ from repro_torch.autotune.tuner import DEFAULT_BUDGET_S  # noqa: E402
 from repro_torch.core import (baselines, compile_mapping,  # noqa: E402
                               mapping_order, simulate)
 from repro_torch.distributed.health import HeartbeatMonitor  # noqa: E402
+from repro_torch.distributed.sharding import (NamedSharding,  # noqa: E402
+                                              logical_to_pspec,
+                                              mesh_context)
 from repro_torch.graphs import (Graph, make_dataset,  # noqa: E402
                                 make_road_network, reference)
 from repro_torch.kernels import _build  # noqa: E402
@@ -352,7 +388,9 @@ from repro_torch.kernels.ssd import ssd  # noqa: E402
 from repro_torch.kernels.ssd.ref import (chunk_inputs,  # noqa: E402
                                          ssd_intra_bwd_ref, ssd_intra_ref,
                                          ssd_ref)
-from repro_torch.launch import graph_run, serve, steps, train  # noqa: E402
+from repro_torch.launch import (graph_run, serve, steps,  # noqa: E402
+                                train)
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.launch.serve_graph import GraphServer  # noqa: E402
 from repro_torch.models import attention, mamba, moe  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
@@ -2971,7 +3009,7 @@ def train_cell(arch: str, kind: str, leaves: tuple) -> tuple:
     step_fn = steps.make_train_step(cfg, opt_cfg)
     ds = SyntheticTextDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
     record: list = []
-    losses, walls = [], []
+    losses, walls, gnorms = [], [], []
     # the main path: counts start at 0 here
     reset_counts()
     with grad_spy(record):
@@ -2984,6 +3022,7 @@ def train_cell(arch: str, kind: str, leaves: tuple) -> tuple:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             losses.append(loss)
+            gnorms.append(float(metrics["grad_norm"]))
             log(f"{arch} train step {step + 1}: loss {loss:.6f}, lr "
                 f"{float(metrics['lr']):.3e}, grad norm "
                 f"{float(metrics['grad_norm']):.4f}, wall {walls[-1]:.3f} s")
@@ -3004,7 +3043,8 @@ def train_cell(arch: str, kind: str, leaves: tuple) -> tuple:
     ntok = TRAIN_BATCH * TRAIN_SEQ
     med = float(np.median(walls[1:]))
     peak = torch.cuda.max_memory_allocated() / 2**30
-    out = {"losses": losses, "walls": walls, "ms_per_step": med * 1e3,
+    out = {"losses": losses, "grad_norms": gnorms, "walls": walls,
+           "ms_per_step": med * 1e3,
            "tokens_per_s": ntok / med, "peak_gib": peak,
            "adamw_ms": float(np.median(adamw_ms))}
     log(f"{arch} train B={TRAIN_BATCH} S={TRAIN_SEQ} bf16, remat, "
@@ -3041,6 +3081,39 @@ def train_main_path(gen) -> tuple[dict, dict]:
     log(f"chunked CE alone (8 chunks, fwd + bwd, hidden ({TRAIN_BATCH}, "
         f"{TRAIN_SEQ}, {cfg.d_model}) bf16): {out['ce_ms']:.2f} ms")
     return launches, out
+
+
+def grads_rel(gk: dict, gp: dict) -> dict:
+    """Each gradient's relative Frobenius error (absolute where the
+    reference is 0)."""
+    return {n: float((gk[n] - gp[n]).norm() / gp[n].norm()) if float(
+        gp[n].norm()) else float((gk[n] - gp[n]).norm()) for n in gk}
+
+
+def update_hold(gk: dict, gp: dict, pk: dict, pp: dict,
+                opt_cfg) -> tuple[dict, int, int, float]:
+    """The first AdamW step's parameters pk (from gradients gk) against pp
+    (from gp). AdamW's first step moves an element by lr * g/(|g| + eps)
+    on the clipped gradient g: between two runs' gradients a and b that
+    update differs by at most lr * eps |a - b| / (m + eps)^2, m = min(|a|,
+    |b|) (0 when the signs differ). Returns (each parameter's worst excess
+    over atol 1e-6 plus that bound, the elements past 1e-6, the elements,
+    max |diff|)."""
+    lr = float(adamw.cosine_schedule(1, opt_cfg))
+    eps = opt_cfg.eps
+    clip = [min(1.0, opt_cfg.clip_norm / max(float(adamw.global_norm(g)),
+                                             1e-9)) for g in (gk, gp)]
+    excess, over = {}, 0
+    total = sum(p.numel() for p in pk.values())
+    for n in pk:
+        a, b = gk[n].float() * clip[0], gp[n].float() * clip[1]
+        m = torch.where(a * b > 0, torch.minimum(a.abs(), b.abs()), 0.0)
+        sens = lr * eps * (a - b).abs() / (m + eps) ** 2
+        diff = (pk[n] - pp[n]).abs()
+        over += int((diff > 1e-6).sum())
+        excess[n] = float((diff - 1e-6 - sens).max())
+    dp_max = max(float((pk[n] - pp[n]).abs().max()) for n in pk)
+    return excess, over, total, dp_max
 
 
 def hold_f32(gen) -> dict:
@@ -3088,28 +3161,10 @@ def hold_f32(gen) -> dict:
             f"f32 hold: K2 launches {launches}; the plain run must launch "
             "none")
     (lk, gk, pk), (lp, gp, pp) = runs
-    rel = {n: float((gk[n] - gp[n]).norm() / gp[n].norm()) if float(
-        gp[n].norm()) else float((gk[n] - gp[n]).norm()) for n in gk}
+    rel = grads_rel(gk, gp)
     worst = max(rel, key=rel.get)
-    # AdamW's first step moves an element by lr * g/(|g| + eps) on the
-    # clipped gradient g: between the two runs' gradients a and b that
-    # update differs by at most lr * eps |a - b| / (m + eps)^2, m = min(|a|,
-    # |b|) (0 when the signs differ): atol 1e-6 plus that bound
-    lr = float(adamw.cosine_schedule(1, opt_cfg))
-    eps = opt_cfg.eps
-    clip = [min(1.0, opt_cfg.clip_norm / max(float(adamw.global_norm(g)),
-                                             1e-9)) for g in (gk, gp)]
-    excess, over = {}, 0
-    total = sum(p.numel() for p in pk.values())
-    for n in pk:
-        a, b = gk[n].float() * clip[0], gp[n].float() * clip[1]
-        m = torch.where(a * b > 0, torch.minimum(a.abs(), b.abs()), 0.0)
-        sens = lr * eps * (a - b).abs() / (m + eps) ** 2
-        diff = (pk[n] - pp[n]).abs()
-        over += int((diff > 1e-6).sum())
-        excess[n] = float((diff - 1e-6 - sens).max())
+    excess, over, total, dp_max = update_hold(gk, gp, pk, pp, opt_cfg)
     worst_p = max(excess, key=excess.get)
-    dp_max = max(float((pk[n] - pp[n]).abs().max()) for n in pk)
     # the bound is loose where the signs differ, so few elements may use it
     ok = (abs(lk[0] - lp[0]) <= 1e-5 * abs(lp[0]) and rel[worst] <= 1e-4
           and excess[worst_p] <= 0 and over <= 1e-4 * total)
@@ -3666,6 +3721,459 @@ def phase_train_mamba(gen) -> tuple[float, dict, dict]:
     return max(errs), t_bwd, by_phase
 
 
+# ------------------------------------------------------------------ #
+# the mesh surface (20)
+# ------------------------------------------------------------------ #
+MESH_STEPS = 3                # the NCCL (1, 1) run of phase 18's cell
+MESH_WORLD = 2                # gloo ranks on the one card
+MESH_SHAPES = {"2": ((2,), ("data",)), "1x2": ((1, 2), ("data", "model"))}
+MESH_BF16_BATCH, MESH_BF16_SEQ, MESH_BF16_STEPS = 4, 2_048, 2
+MESH_BF16_LAYERS = 4          # of 28: 2 steps took 57.4 s at full depth
+MESH_MOE_BATCH, MESH_MOE_SEQ = 2, 2_048
+MESH_MOE_SKEW = 0.01          # on router column 0: every group drops
+MESH_MOE_TOL = 1e-4           # f32, relative to max|y|
+PROBE = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+         "all_to_all_single")
+
+
+def probe_collectives(rank: int, world: int) -> dict:
+    """Each collective that DTensor's redistributions need, once on CUDA
+    tensors over the gloo group, its result checked: rank r sends
+    (r + 1) in world chunks of 4."""
+    x = torch.full((world * 4,), float(rank + 1), device="cuda")
+    total = world * (world + 1) / 2
+    ranks = torch.arange(1, world + 1, device="cuda",
+                         dtype=torch.float32)[:, None]
+    t = x.clone()
+    dist.all_reduce(t)
+    g = torch.empty((world * world * 4,), device="cuda")
+    dist.all_gather_into_tensor(g, x)
+    r = torch.empty(4, device="cuda")
+    dist.reduce_scatter_tensor(r, x)
+    a = torch.empty((world * 4,), device="cuda")
+    dist.all_to_all_single(a, x)
+    torch.cuda.synchronize()
+    g, a = g.view(world, world * 4), a.view(world, 4)
+    return {"all_reduce": bool((t == total).all()),
+            "all_gather_into_tensor": bool((g == ranks).all()),
+            "reduce_scatter_tensor": bool((r == total).all()),
+            "all_to_all_single": bool((a == ranks).all())}
+
+
+def mesh_grad_spy(record: list):
+    """`adamw.adamw_update` that first keeps each gradient whole
+    (`full_tensor()`, a collective every rank joins)."""
+    update = adamw.adamw_update
+
+    def spying(grads, opt_state, params, cfg):
+        record.append({n: g.full_tensor().detach().clone()
+                       for n, g in grads.items()})
+        return update(grads, opt_state, params, cfg)
+    return mock.patch.object(adamw, "adamw_update", spying)
+
+
+def shard_bytes(params) -> tuple[int, int]:
+    """(this rank's parameter bytes, the whole model's)."""
+    local = sum(p.to_local().numel() * p.element_size()
+                for p in params.parameters())
+    whole = sum(p.numel() * p.element_size() for p in params.parameters())
+    return local, whole
+
+
+def mesh_hold(arch: str, mesh, rank: int, seq: int) -> dict:
+    """`arch` at full width cut to 2 layers, f32, B=2 x `seq`: one train
+    step under `mesh` (the state `shard_state`'s, the batch
+    `shard_batch`'s) with the counts set to 0 just before it; then, on
+    rank 0, the same step on one device, and the holds of phases 18 and
+    19: the loss rtol 1e-5, every gradient relative Frobenius 1e-4, the
+    updated parameters within 1e-6 plus AdamW's bound (at most 0.01% of
+    them past 1e-6). Records the SSM heads each rank's K3 sees."""
+    cfg = dataclasses.replace(configs.get(arch), num_layers=HOLD_LAYERS,
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    opt_cfg = AdamWConfig(total_steps=3, warmup_steps=1)
+    ds = SyntheticTextDataset(cfg.vocab_size, seq, HOLD_BATCH, seed=1)
+    batch = {k: torch.from_numpy(x).cuda()
+             for k, x in ds.batch_at(0).items()}
+    heads = []
+    ssd_local = mamba._ssd
+
+    def spy(xc, *a):
+        heads.append(xc.shape[-1] // cfg.ssm_head_dim)
+        return ssd_local(xc, *a)
+    params = M.init_params(cfg, seed=3)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    steps.shard_state(state, cfg, mesh, opt_cfg)
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    record: list = []
+    # the mesh hold's path: counts start at 0 here
+    reset_counts()
+    with mesh_context(mesh), mesh_grad_spy(record), \
+            mock.patch.object(mamba, "_ssd", spy):
+        state, metrics = step_fn(state, steps.shard_batch(batch, mesh))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+    torch.cuda.synchronize()
+    out = {"launches": launch_counts(), "loss": loss, "gnorm": gnorm,
+           "heads": sorted(set(heads)),
+           "bytes": shard_bytes(state["params"])}
+    after = {n: p.detach().full_tensor() for n, p in
+             state["params"].named_parameters()}
+    gk = record[0]
+    del state, params, record
+    if rank:
+        return out
+    params = M.init_params(cfg, seed=3)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    record = []
+    with grad_spy(record, True):
+        state, metrics = steps.make_train_step(cfg, opt_cfg)(state, batch)
+    lp, gp = float(metrics["loss"]), record[0]["grads"]
+    pp = {n: p.detach() for n, p in params.named_parameters()}
+    rel = grads_rel(gk, gp)
+    worst = max(rel, key=rel.get)
+    excess, over, total, dp_max = update_hold(gk, gp, after, pp, opt_cfg)
+    worst_p = max(excess, key=excess.get)
+    out.update(loss_one=lp, gnorm_one=float(metrics["grad_norm"]),
+               worst=(worst, rel[worst]), worst_p=(worst_p, excess[worst_p]),
+               over=over, total=total, dp_max=dp_max,
+               ok=(abs(loss - lp) <= 1e-5 * abs(lp) and rel[worst] <= 1e-4
+                   and excess[worst_p] <= 0 and over <= 1e-4 * total))
+    del state, params, record, after, gk, gp
+    free()
+    return out
+
+
+def mesh_bf16(mesh) -> dict:
+    """qwen3-0.6b at full width in bf16, cut to 4 of its 28 layers (two
+    full-depth steps took 57.4 s over gloo's host copies), under `mesh`,
+    global B=4 x 2,048, 2 steps, the counts set to 0 just before: the
+    losses, the K2 launches, this rank's parameter bytes, ms per step."""
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              num_layers=MESH_BF16_LAYERS)
+    opt_cfg = AdamWConfig(total_steps=MESH_BF16_STEPS, warmup_steps=1)
+    params = M.init_params(cfg, seed=0)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    steps.shard_state(state, cfg, mesh, opt_cfg)
+    del params
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    ds = SyntheticTextDataset(cfg.vocab_size, MESH_BF16_SEQ,
+                              MESH_BF16_BATCH, seed=0)
+    losses, walls = [], []
+    # the bf16 mesh path: counts start at 0 here
+    reset_counts()
+    with mesh_context(mesh):
+        for _, batch in make_batches(ds, 0, MESH_BF16_STEPS):
+            batch = steps.shard_batch({k: torch.from_numpy(x).cuda()
+                                       for k, x in batch.items()}, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    out = {"launches": k2_launches(), "losses": losses, "walls": walls,
+           "bytes": shard_bytes(state["params"]),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del state
+    free()
+    return out
+
+
+def moe_layer_inputs(cfg):
+    """A granite MoE layer at full width in f32 (seed 0), router column 0
+    skewed, and x (2, 2,048, d) biased positive, so that most tokens pick
+    expert 0 and every group's capacity binds."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layer = DeclModule(moe.decls(cfg), torch.float32, torch.device("cuda"))
+    init_module(layer, gen)
+    p = {n: t.detach() for n, t in layer.named_parameters()}
+    p["router"][:, 0] += MESH_MOE_SKEW
+    x = randn(gen, (MESH_MOE_BATCH, MESH_MOE_SEQ, cfg.d_model)) + 0.3
+    return p, x
+
+
+@torch.no_grad()
+def mesh_moe(mname: str, mesh, rank: int) -> dict:
+    """Under (2,): the grouped dispatch (G=2, one group per rank) against
+    the one-device G=2 dispatch on rank 0, drops per group. Under (1,
+    2): `dispatch="all_to_all"` over the model axis's gloo group against
+    the grouped dispatch on the same mesh."""
+    cfg = configs.get(GRANITE)
+    p, x = moe_layer_inputs(cfg)
+    decls = moe.decls(cfg)
+    pd = {n: distribute_tensor(t, mesh, NamedSharding(
+        mesh, logical_to_pspec(decls[n].shape, decls[n].logical_axes,
+                               mesh)).placements)
+          for n, t in p.items()}
+    xd = distribute_tensor(x, mesh, NamedSharding(mesh, logical_to_pspec(
+        x.shape, ("batch", "seq", None), mesh)).placements)
+    drops: list = []
+    with mesh_context(mesh), drop_counter(drops):
+        y, aux = moe.apply(pd, xd, cfg)
+        y, aux = y.full_tensor(), float(aux.full_tensor())
+    out = {"drops": [int(d) for d in drops]}
+    if mname == "1x2":
+        with mesh_context(mesh):
+            y2, aux2 = moe.apply(pd, xd, cfg, dispatch="all_to_all")
+            y2, aux2 = y2.full_tensor(), float(aux2.full_tensor())
+        out.update(err=float((y2 - y).abs().max()),
+                   scale=float(y.abs().max()), aux=(aux, aux2))
+    elif rank == 0:
+        one: list = []
+        with mock.patch.object(moe, "_num_groups", lambda b, s: (2, 1)), \
+                drop_counter(one):
+            y1, aux1 = moe.apply(p, x, cfg)
+        out.update(err=float((y1 - y).abs().max()),
+                   scale=float(y1.abs().max()), aux=(aux, float(aux1)),
+                   drops_one=[int(d) for d in one])
+    free()
+    return out
+
+
+def mesh_rank(rank: int, world: int, store: str, q) -> None:
+    """One rank of the one-card gloo run (a spawned process): the probe,
+    then each mesh's f32 holds, bf16 steps and MoE layer."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group("gloo", init_method=f"file://{store}",
+                                rank=rank, world_size=world)
+        out = {"probe": probe_collectives(rank, world)}
+        for mname, (shape, axes) in MESH_SHAPES.items():
+            mesh = mesh_lib.make_mesh(shape, axes)
+            t0 = time.perf_counter()
+            cases = {"qwen3 hold": lambda: mesh_hold(TRAIN_ARCH, mesh, rank,
+                                                     HOLD_SEQ),
+                     "bf16": lambda: mesh_bf16(mesh),
+                     "moe": lambda: mesh_moe(mname, mesh, rank)}
+            if mname == "1x2":
+                cases["mamba2 hold"] = lambda: mesh_hold(
+                    MAMBA_ARCH, mesh, rank, MAMBA_HOLD_SEQ)
+            for case, fn in cases.items():
+                t1 = time.perf_counter()
+                out[f"{mname}/{case}"] = fn()
+                if rank == 0:
+                    log(f"mesh {mname} gloo rank 0: {case} "
+                        f"{time.perf_counter() - t1:.1f} s")
+            out[f"{mname}/s"] = time.perf_counter() - t0
+        dist.destroy_process_group()
+        q.put((rank, out))
+    except BaseException as e:  # noqa: BLE001 -- reported to the parent
+        q.put((rank, repr(e)))
+        raise
+
+
+def mesh_nccl(train18: dict) -> tuple[dict, dict]:
+    """qwen3-0.6b whole, bf16, B=8 x 4,096 from phase 18's dataset and
+    seed, `MESH_STEPS` steps of `make_train_step` on a `shard_state`
+    state under a (1, 1) data x model mesh over NCCL (world 1), the
+    counts set to 0 just before: the first step's loss and grad norm
+    against phase 18's (rtol 1e-3), K2 launches 2 x 28 x 3 forward and
+    28 x 3 backward, all wgmma; ms per step and tokens/s beside phase
+    18's, peak memory."""
+    cfg = configs.get(TRAIN_ARCH)
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS,
+                          warmup_steps=TRAIN_STEPS // 10 + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+            free()
+            torch.cuda.reset_peak_memory_stats()
+            params = M.init_params(cfg, seed=0)
+            state = {"params": params,
+                     "opt": init_opt_state(params, opt_cfg)}
+            steps.shard_state(state, cfg, mesh, opt_cfg)
+            del params
+            step_fn = steps.make_train_step(cfg, opt_cfg)
+            ds = SyntheticTextDataset(cfg.vocab_size, TRAIN_SEQ,
+                                      TRAIN_BATCH, seed=0)
+            losses, gnorms, walls = [], [], []
+            # the mesh main path: counts start at 0 here
+            reset_counts()
+            with mesh_context(mesh):
+                for _, batch in make_batches(ds, 0, MESH_STEPS):
+                    batch = steps.shard_batch(
+                        {k: torch.from_numpy(x).cuda()
+                         for k, x in batch.items()}, mesh)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, metrics = step_fn(state, batch)
+                    losses.append(float(metrics["loss"]))
+                    gnorms.append(float(metrics["grad_norm"]))
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+            launches = k2_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            del state
+        finally:
+            dist.destroy_process_group()
+    free()
+    n = cfg.num_layers * MESH_STEPS
+    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd_wgmma": n,
+                         "bwd_fma": 0},
+            f"mesh (1, 1) train: K2 launches {launches}; want {2 * n} "
+            f"forward and {n} backward, all wgmma")
+    l18, g18 = train18["losses"][0], train18["grad_norms"][0]
+    ok = (all(math.isfinite(x) for x in losses)
+          and abs(losses[0] - l18) <= 1e-3 * abs(l18)
+          and abs(gnorms[0] - g18) <= 1e-3 * abs(g18))
+    med = float(np.median(walls[1:]))
+    ntok = TRAIN_BATCH * TRAIN_SEQ
+    log(f"mesh (1, 1) data x model over NCCL (world 1), {TRAIN_ARCH} whole, "
+        f"bf16, B={TRAIN_BATCH} S={TRAIN_SEQ}, {MESH_STEPS} steps: losses "
+        f"{losses}, grad norms {gnorms}; step 1 vs phase 18's: loss "
+        f"{losses[0]!r} / {l18!r}, grad norm {gnorms[0]!r} / {g18!r} (rtol "
+        f"1e-3; bit-equal: {losses[0] == l18 and gnorms[0] == g18}): {ok}; "
+        f"K2 launches {launches}")
+    log(f"mesh (1, 1) train: {med * 1e3:.1f} ms per step, "
+        f"{ntok / med:.1f} tokens/s (median of steps 2-{MESH_STEPS}; phase "
+        f"18: {train18['ms_per_step']:.1f} ms, "
+        f"{train18['tokens_per_s']:.1f} tokens/s); peak {peak:.2f} GiB "
+        f"(phase 18: {train18['peak_gib']:.2f})")
+    require(ok, "mesh (1, 1) train: step 1 differs from phase 18's")
+    return launches, {"ms_per_step": med * 1e3, "tokens_per_s": ntok / med,
+                      "peak_gib": peak}
+
+
+def check_mesh_ranks(got: dict) -> dict:
+    """Phase 20's requirements over the gloo ranks' results. Returns the
+    launches by rank: K2 by route, K3."""
+    cfg = configs.get(TRAIN_ARCH)
+    by_rank = {}
+    for rank in range(MESH_WORLD):
+        res = got.get(rank)
+        require(isinstance(res, dict), f"mesh gloo rank {rank} failed: {res}")
+        by_rank[rank] = {k: 0 for k in ("wgmma", "fma", "bwd_wgmma",
+                                        "bwd_fma", "ssd", "ssd_bwd")}
+        log(f"gloo probe (rank {rank}, CUDA tensors): {res['probe']}")
+        require(all(res["probe"].values()),
+                f"gloo refuses a collective for CUDA tensors: {res['probe']}")
+        for mname in MESH_SHAPES:
+            n = HOLD_LAYERS
+            h = res[f"{mname}/qwen3 hold"]
+            require(h["launches"] == {"wgmma": 0, "fma": 2 * n,
+                                      "bwd_wgmma": 0, "bwd_fma": n,
+                                      "ssd": 0, "ssd_bwd": 0},
+                    f"mesh {mname} qwen3 hold rank {rank}: launches "
+                    f"{h['launches']}")
+            holds = [("qwen3", h)]
+            if mname == "1x2":
+                hm = res[f"{mname}/mamba2 hold"]
+                mcfg = configs.get(MAMBA_ARCH)
+                require(hm["launches"]["ssd"] == 2 * n
+                        and hm["launches"]["ssd_bwd"] == n
+                        and hm["heads"] == [mcfg.ssm_heads // 2],
+                        f"mesh {mname} mamba2 hold rank {rank}: launches "
+                        f"{hm['launches']}, heads per rank {hm['heads']}")
+                holds.append(("mamba2", hm))
+            for arch, hh in holds:
+                local, whole = hh["bytes"]
+                line = (f"mesh {mname} gloo rank {rank}: {arch} f32 hold "
+                        f"({HOLD_LAYERS} layers at full width): loss "
+                        f"{hh['loss']!r}, grad norm {hh['gnorm']!r}; "
+                        f"parameters {local} of {whole} B on this rank; "
+                        f"launches {hh['launches']}; SSM heads per rank "
+                        f"{hh['heads']}")
+                if rank == 0:
+                    line += (f"; one device: loss {hh['loss_one']!r}, grad "
+                             f"norm {hh['gnorm_one']!r}; worst gradient "
+                             f"relative Frobenius {hh['worst'][1]:.3e} "
+                             f"({hh['worst'][0]}); updated parameters max "
+                             f"|diff| {hh['dp_max']:.3e}, {hh['over']} of "
+                             f"{hh['total']} past 1e-6, worst margin "
+                             f"{hh['worst_p'][1]:.3e} ({hh['worst_p'][0]}): "
+                             f"{hh['ok']}")
+                log(line)
+                if rank == 0:
+                    require(hh["ok"], f"mesh {mname} {arch} f32 hold: the "
+                            "sharded step disagrees with one device")
+                for k, v in hh["launches"].items():
+                    by_rank[rank][k] += v
+            b = res[f"{mname}/bf16"]
+            nb = MESH_BF16_LAYERS * MESH_BF16_STEPS
+            local, whole = b["bytes"]
+            require(b["launches"] == {"wgmma": 2 * nb, "fma": 0,
+                                      "bwd_wgmma": nb, "bwd_fma": 0}
+                    and all(math.isfinite(x) for x in b["losses"])
+                    and local < whole,
+                    f"mesh {mname} bf16 rank {rank}: {b}")
+            for k, v in b["launches"].items():
+                by_rank[rank][k] += v
+            log(f"mesh {mname} gloo rank {rank}: {TRAIN_ARCH} at full width, "
+                f"{MESH_BF16_LAYERS} of {cfg.num_layers} layers, bf16, "
+                f"global B={MESH_BF16_BATCH} S={MESH_BF16_SEQ}, "
+                f"{MESH_BF16_STEPS} steps: losses {b['losses']}, walls "
+                f"{[round(w * 1e3, 1) for w in b['walls']]} ms; parameters "
+                f"{local} of {whole} B ({local / whole:.1%}) on this rank; "
+                f"peak {b['peak_gib']:.2f} GiB; K2 launches {b['launches']}")
+            mo = res[f"{mname}/moe"]
+            if mname == "1x2" or rank == 0:
+                tol = MESH_MOE_TOL * mo["scale"]
+                a1, a2 = mo["aux"]
+                ok = (mo["err"] <= tol and abs(a1 - a2) <= 1e-5 * abs(a2))
+                what = ("all_to_all vs grouped (both on the mesh)"
+                        if mname == "1x2" else
+                        "grouped G=2 vs one device G=2")
+                log(f"mesh {mname} gloo rank {rank}: {GRANITE} layer f32 "
+                    f"({MESH_MOE_BATCH}, {MESH_MOE_SEQ}), {what}: max|diff| "
+                    f"{mo['err']:.3e} (tol {tol:.3e}), aux {a1!r} / {a2!r}; "
+                    f"drops per group {mo['drops']}"
+                    + (f", one device {mo['drops_one']}"
+                       if "drops_one" in mo else "") + f": {ok}")
+                require(ok, f"mesh {mname} MoE layer disagrees")
+            log(f"mesh {mname} gloo rank {rank}: {res[f'{mname}/s']:.1f} s")
+    # each rank's group drops what one device's group of that rank drops
+    d2 = got[0]["2/moe"]
+    require(all(d > 0 for d in d2["drops_one"])
+            and [got[r]["2/moe"]["drops"][0] for r in range(MESH_WORLD)]
+            == d2["drops_one"],
+            f"mesh 2 MoE: drops by rank differ from one device's groups "
+            f"{d2['drops_one']}")
+    return by_rank
+
+
+def phase_mesh(train18: dict) -> dict:
+    """Phase 20: NCCL at world 1 under a (1, 1) mesh, then two gloo ranks
+    on the one card. Returns the launches: "nccl" (this process, K2) and
+    by gloo rank."""
+    t0 = time.perf_counter()
+    launches, _ = mesh_nccl(train18)
+    log(f"phase 20 NCCL (1, 1): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.get_context("spawn")
+    q = ctx.Queue()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=mesh_rank,
+                             args=(r, MESH_WORLD, os.path.join(tmp, "gloo"),
+                                   q))
+                 for r in range(MESH_WORLD)]
+        for p in procs:
+            p.start()
+        try:
+            got = dict(q.get(timeout=900) for _ in procs)
+        finally:
+            for p in procs:
+                p.join(timeout=60)
+                if p.is_alive():
+                    p.kill()
+    by_rank = check_mesh_ranks(got)
+    log(f"phase 20 gloo ranks: {time.perf_counter() - t0:.1f} s with the "
+        "ranks' start-up")
+    return {"nccl": launches, "by_rank": by_rank}
+
+
+def process_launches(by_phase: dict) -> int:
+    """A kernel's launches in this process; the spawned gloo ranks' are
+    listed by phase beside them, as phase 15b's are."""
+    return sum(n for k, n in by_phase.items() if "rank" not in k)
+
+
 def kernel_row(name, source, replaces, launches, err, t, by_phase,
                route="cuda") -> dict:
     return {"name": name, "route": route, "source": source,
@@ -3774,7 +4282,7 @@ def main() -> None:
         f"{wgmma17}, fma {fma17}; K3 {k3_17}")
 
     t0 = time.perf_counter()
-    err_bwd, t_bwd, k2_18, _ = phase_train(gen)
+    err_bwd, t_bwd, k2_18, train18 = phase_train(gen)
     log(f"phase 18 train: {time.perf_counter() - t0:.1f} s; K2 {k2_18}")
 
     t0 = time.perf_counter()
@@ -3782,17 +4290,29 @@ def main() -> None:
     log(f"phase 19 train mamba: {time.perf_counter() - t0:.1f} s; K3 "
         f"{k3_19}")
 
+    t0 = time.perf_counter()
+    m20 = phase_mesh(train18)
+    k20 = {"wgmma": {"20 mesh (1, 1) NCCL": m20["nccl"]["wgmma"]},
+           "bwd_wgmma": {"20 mesh (1, 1) NCCL": m20["nccl"]["bwd_wgmma"]}}
+    for kind in ("wgmma", "fma", "bwd_wgmma", "bwd_fma", "ssd", "ssd_bwd"):
+        k20.setdefault(kind, {}).update(
+            {f"20 gloo rank {r}": n[kind]
+             for r, n in m20["by_rank"].items()})
+    log(f"phase 20 mesh: {time.perf_counter() - t0:.1f} s; {k20}")
+
     k1_main = sum(v for k, v in k1_phases.items() if "rank" not in k)
     wgmma_by_phase = {"8 qwen3": qwen3_routes["wgmma"],
                       "16 granite": granite_routes["wgmma"], **wgmma17,
-                      **k2_18["wgmma"]}
+                      **k2_18["wgmma"], **k20["wgmma"]}
     fma_by_phase = {"8 qwen3 f32 replay": qwen3_routes["fma"],
                     "16 granite f32 replay": granite_routes["fma"], **fma17,
-                    **k2_18["fma"], **k3_19["fma"]}
-    bwd_wgmma_by_phase = k2_18["bwd_wgmma"]
-    bwd_fma_by_phase = {**k2_18["bwd_fma"], **k3_19["bwd_fma"]}
-    ssd_by_phase = {"8 mamba2": ssd_launches, **k3_17, **k3_19["ssd"]}
-    ssd_bwd_by_phase = k3_19["ssd_bwd"]
+                    **k2_18["fma"], **k3_19["fma"], **k20["fma"]}
+    bwd_wgmma_by_phase = {**k2_18["bwd_wgmma"], **k20["bwd_wgmma"]}
+    bwd_fma_by_phase = {**k2_18["bwd_fma"], **k3_19["bwd_fma"],
+                        **k20["bwd_fma"]}
+    ssd_by_phase = {"8 mamba2": ssd_launches, **k3_17, **k3_19["ssd"],
+                    **k20["ssd"]}
+    ssd_bwd_by_phase = {**k3_19["ssd_bwd"], **k20["ssd_bwd"]}
     print(json.dumps({"kernels": [
         kernel_row("frontier_relax",
                    "src/repro_torch/kernels/frontier/csrc/frontier_relax.cu",
@@ -3803,7 +4323,7 @@ def main() -> None:
             "flash_attention",
             "src/repro_torch/kernels/attention/csrc/flash_attention_wgmma.cu",
             "src/repro/kernels/attention/flash.py:84",
-            sum(wgmma_by_phase.values()), err_attn, t_attn, wgmma_by_phase),
+            process_launches(wgmma_by_phase), err_attn, t_attn, wgmma_by_phase),
             kernel_route="wgmma", hubert_hd80={
                 k: t_attn["hd80"][k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -3812,7 +4332,7 @@ def main() -> None:
             "flash_attention",
             "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
             "src/repro/kernels/attention/flash.py:84",
-            sum(fma_by_phase.values()), err_attn,
+            process_launches(fma_by_phase), err_attn,
             dict(t_attn, ms=t_attn["fma_ms"]), fma_by_phase),
             kernel_route="fma", hubert_hd80={
                 "ms": t_attn["hd80"]["fma_ms"],
@@ -3822,7 +4342,7 @@ def main() -> None:
             "src/repro_torch/kernels/attention/csrc/"
             "flash_attention_bwd_wgmma.cu",
             "src/repro/kernels/attention/flash.py:84",
-            sum(bwd_wgmma_by_phase.values()), err_bwd["wgmma"], t_bwd,
+            process_launches(bwd_wgmma_by_phase), err_bwd["wgmma"], t_bwd,
             bwd_wgmma_by_phase),
             kernel_route="wgmma",
             shape="bf16 q (8, 4096, 16, 128), k/v (8, 4096, 8, 128), causal",
@@ -3835,7 +4355,7 @@ def main() -> None:
             "flash_attention_bwd",
             "src/repro_torch/kernels/attention/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/attention/flash.py:84",
-            sum(bwd_fma_by_phase.values()), err_bwd["fma"],
+            process_launches(bwd_fma_by_phase), err_bwd["fma"],
             dict(t_bwd, ms=t_bwd["fma_ms"]), bwd_fma_by_phase),
             kernel_route="fma",
             shape="bf16 q (8, 4096, 16, 128), k/v (8, 4096, 8, 128), causal",
@@ -3844,13 +4364,13 @@ def main() -> None:
         dict(kernel_row("ssd_intra",
                         "src/repro_torch/kernels/ssd/csrc/ssd_intra.cu",
                         "src/repro/kernels/ssd/ssd.py:50",
-                        sum(ssd_by_phase.values()), err_ssd, t_ssd,
+                        process_launches(ssd_by_phase), err_ssd, t_ssd,
                         ssd_by_phase),
              bound_rate=t_ssd["bound_rate"], jamba_shape=t_ssd["jamba"]),
         dict(kernel_row("ssd_intra_bwd",
                         "src/repro_torch/kernels/ssd/csrc/ssd_intra_bwd.cu",
                         "src/repro/kernels/ssd/ssd.py:50",
-                        sum(ssd_bwd_by_phase.values()), err_ssd_bwd,
+                        process_launches(ssd_bwd_by_phase), err_ssd_bwd,
                         t_ssd_bwd, ssd_bwd_by_phase),
              kernel_route=ssd.BWD_ROUTE,
              reference_backward="none: the reference differentiates its jnp "

@@ -6,8 +6,8 @@ meanings; `relax_mode` names the port's routes ('auto' | 'cuda' |
 'torch'). `resolve(algebra, device)` validates every combination up
 front and collapses every ``"auto"``, so a resolved plan is a complete
 record of how a query ran. The reference's `mesh` (a jax Mesh) is a
-`torch.distributed` process group here; a group is one axis, so the
-reference's `mesh_axis` has no counterpart.
+`torch.distributed` `DeviceMesh` here, whose `mesh_axis` dim's process
+group the distributed fixpoint runs over, or a process group itself.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import dataclasses
 import warnings
 
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.algebra import VertexAlgebra
 from repro_torch.device import resolve_device
@@ -43,10 +44,14 @@ class ExecutionPlan:
     distributed -- run the distributed fixpoint: destination tiles split
                    over the ranks of `mesh`, queries replicated, one
                    all-gather per step.
-    mesh        -- the `torch.distributed` process group of a
-                   distributed run (None = the default group when one is
-                   initialised, else one rank with no collective);
-                   supplying a group implies distributed=True.
+    mesh        -- a `DeviceMesh` (the tiles shard over its
+                   `mesh_axis`), or the `torch.distributed` process group
+                   of a distributed run (None = the default group when
+                   one is initialised, else one rank with no
+                   collective); supplying either implies
+                   distributed=True.
+    mesh_axis   -- the mesh axis the tiles shard over (a `DeviceMesh`
+                   mesh only).
     warm        -- incremental-recompute policy for `query(..., warm=)`:
                    'auto' resumes from the prior result whenever sound
                    (monotone algebra + monotone update delta) and
@@ -74,7 +79,8 @@ class ExecutionPlan:
     tile: int = 128
     batch: int = 0
     distributed: bool = False
-    mesh: object = None          # torch.distributed ProcessGroup | None
+    mesh: object = None          # DeviceMesh | ProcessGroup | None
+    mesh_axis: str = "data"
     warm: str = "auto"
     feature_dim: int = 0
     max_steps: int = 100_000
@@ -87,9 +93,17 @@ class ExecutionPlan:
         different groups never share a session."""
         return (self.mode, self.relax_mode, self.compact, self.tile,
                 self.batch, self.distributed,
-                None if self.mesh is None else id(self.mesh), self.warm,
+                None if self.mesh is None else id(self.mesh),
+                self.mesh_axis, self.warm,
                 self.feature_dim, self.max_steps, self.deadline_s,
                 self.tuned)
+
+    def group(self):
+        """The process group of a distributed run: `mesh[mesh_axis]`'s
+        for a `DeviceMesh`, else `mesh` itself (a group, or None)."""
+        if isinstance(self.mesh, DeviceMesh):
+            return self.mesh[self.mesh_axis].get_group()
+        return self.mesh
 
     @classmethod
     def auto(cls, **overrides) -> "ExecutionPlan":
@@ -123,6 +137,11 @@ class ExecutionPlan:
             raise ValueError(
                 f"plan.batch must be an int >= 0 (0 = one fixpoint over "
                 f"the whole source sequence), got {self.batch!r}")
+        if isinstance(self.mesh, DeviceMesh) \
+                and self.mesh_axis not in self.mesh.mesh_dim_names:
+            raise ValueError(
+                f"plan.mesh_axis={self.mesh_axis!r} is not an axis of the "
+                f"mesh {self.mesh.mesh_dim_names}")
         if self.warm not in WARM_POLICIES:
             raise ValueError(
                 f"plan.warm must be one of {WARM_POLICIES}, got "

@@ -299,7 +299,7 @@ class CompiledQuery:
         t0 = time.perf_counter()
         det = self.engine.execute(
             srcs, warm=ws, distributed=self.plan.distributed,
-            mesh=self.plan.mesh, trace=trace, max_steps=budgets,
+            mesh=self.plan.group(), trace=trace, max_steps=budgets,
             deadline_s=remaining, detail=True)
         wall = time.perf_counter() - t0
         self._dispatched.add(sig)

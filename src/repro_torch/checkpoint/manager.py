@@ -21,6 +21,13 @@ joins the writer. `keep` newest committed steps are retained.
 Restore reads the newest committed step into the structure of a tree
 like the one saved; each leaf goes to the device of the matching tensor
 leaf. A different structure raises.
+
+Under a device mesh (the reference's elastic resharding path): `save` of
+a tree of DTensors gathers each leaf (`full_tensor()`, a collective every
+rank joins) and, with a process group up, only rank 0 writes; `restore`
+with `shardings` (a matching tree of `distributed.sharding.NamedSharding`)
+distributes each leaf onto its mesh, so a state saved under one mesh
+restores under another.
 """
 from __future__ import annotations
 
@@ -31,6 +38,8 @@ import threading
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 
 def _flatten(tree, prefix: str = "") -> list[tuple[str, object]]:
@@ -53,6 +62,8 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     """(storable numpy array, logical dtype name). The array owns its
     memory: the trainer updates its tensors in place, so a snapshot that
     shared a CPU tensor's storage would change under the writer."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -63,13 +74,24 @@ def _to_host(leaf) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
-def _from_host(a: np.ndarray, dtype_name: str, like) -> torch.Tensor:
+def _from_host(a: np.ndarray, dtype_name: str, like,
+               sharding=None) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(a))
     if dtype_name == "bfloat16":
         t = t.view(torch.int16).view(torch.bfloat16)
+    if sharding is not None:
+        mesh = sharding.mesh
+        return distribute_tensor(t.to(mesh.device_type), mesh,
+                                 sharding.placements)
     if isinstance(like, torch.Tensor):
         t = t.to(like.device)
     return t
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0 when a process group is up."""
+    return not (dist.is_available() and dist.is_initialized()) \
+        or dist.get_rank() == 0
 
 
 def _snapshot(tree) -> list[tuple[str, np.ndarray, str]]:
@@ -100,8 +122,12 @@ def _write(snap, directory: str, step: int, extras: dict | None) -> str:
 
 def save_pytree(tree, directory: str, step: int,
                 extras: dict | None = None) -> str:
-    """Synchronous save with atomic commit. Returns the step's directory."""
-    return _write(_snapshot(tree), directory, step, extras)
+    """Synchronous save with atomic commit (rank 0 writes when a process
+    group is up). Returns the step's directory."""
+    snap = _snapshot(tree)
+    if not _writer():
+        return os.path.join(directory, f"step_{step:08d}")
+    return _write(snap, directory, step, extras)
 
 
 def committed_steps(directory: str) -> list[int]:
@@ -115,12 +141,15 @@ def committed_steps(directory: str) -> list[int]:
     return sorted(out)
 
 
-def load_pytree(tree_like, directory: str, step: int | None = None):
+def load_pytree(tree_like, directory: str, step: int | None = None,
+                shardings=None):
     """Restore into the structure of `tree_like`: the newest committed step
     (or `step`). Returns ``(tree, step, extras)``; leaves are tensors, on
-    the device of the matching tensor leaf of `tree_like` (else the CPU).
-    Raises FileNotFoundError without a committed step, ValueError when
-    the saved leaf paths differ from `tree_like`'s."""
+    the device of the matching tensor leaf of `tree_like` (else the CPU),
+    or, with `shardings` (a tree of `NamedSharding` matching `tree_like`),
+    DTensors distributed onto each leaf's mesh (a collective every rank
+    joins). Raises FileNotFoundError without a committed step, ValueError
+    when the saved leaf paths differ from `tree_like`'s."""
     steps = committed_steps(directory)
     if not steps:
         raise FileNotFoundError(f"no committed checkpoint in {directory}")
@@ -134,8 +163,12 @@ def load_pytree(tree_like, directory: str, step: int | None = None):
         raise ValueError(f"checkpoint tree structure mismatch: saved "
                          f"{manifest['paths'][:4]}..., restoring into "
                          f"{paths[:4]}...")
+    sh = (dict(_flatten(shardings)) if shardings is not None
+          else dict.fromkeys(paths))
+    if set(sh) != set(paths):
+        raise ValueError("shardings do not match the tree's leaves")
     leaves = {p: _from_host(np.load(os.path.join(d, f"arr_{i}.npy")),
-                            manifest["dtypes"][i], like)
+                            manifest["dtypes"][i], like, sh[p])
               for i, (p, like) in enumerate(flat)}
     return (_unflatten(tree_like, leaves), manifest["step"],
             manifest.get("extras", {}))
@@ -151,8 +184,13 @@ class CheckpointManager:
 
     def save(self, tree, step: int, extras: dict | None = None,
              blocking: bool = False) -> None:
+        """Snapshot `tree` to host memory now (every rank joins the
+        gathers of DTensor leaves) and write it, on a background thread
+        unless `blocking`; with a process group up, rank 0 writes."""
         self.wait()
         snap = _snapshot(tree)        # device -> host on the caller
+        if not _writer():
+            return
 
         def write():
             _write(snap, self.directory, step, extras)
@@ -169,8 +207,8 @@ class CheckpointManager:
             self._thread.join()
             self._thread = None
 
-    def restore(self, tree_like, step: int | None = None):
-        return load_pytree(tree_like, self.directory, step)
+    def restore(self, tree_like, shardings=None, step: int | None = None):
+        return load_pytree(tree_like, self.directory, step, shardings)
 
     def latest_step(self) -> int | None:
         steps = committed_steps(self.directory)

@@ -41,12 +41,14 @@ def shard_experts(p, rank: int, world: int) -> dict:
     return out
 
 
-def moe_all_to_all(p, x: torch.Tensor, cfg: ModelConfig, group=None):
+def moe_all_to_all(p, x: torch.Tensor, cfg: ModelConfig, group=None,
+                   aux_group=None):
     """x: (B, S, d), this rank's tokens; `p` the replicated router (d, E)
     and this rank's E/M experts (`shard_experts`). `group` is the
     expert-parallel process group (None = the default group); E % M must
-    be 0. Returns (y (B, S, d), aux loss), the aux over every rank's
-    tokens (`all_reduce` in place of the reference's psum)."""
+    be 0. Returns (y (B, S, d), aux loss), the aux over the tokens of
+    every rank of `aux_group` (default: `group`; `all_reduce` in place of
+    the reference's psum over the mesh)."""
     m = dist.get_world_size(group)
     e, k = cfg.num_experts, cfg.top_k
     if e % m:
@@ -66,7 +68,7 @@ def moe_all_to_all(p, x: torch.Tensor, cfg: ModelConfig, group=None):
         torch.bincount(ids.reshape(-1), minlength=e).float(),
         torch.softmax(logits, dim=-1).sum(dim=0),
         torch.full((1,), float(t), device=x.device)])
-    dist.all_reduce(stats, group=group)
+    dist.all_reduce(stats, group=group if aux_group is None else aux_group)
     occ, pm, n_tok = stats[:e], stats[e:2 * e], stats[2 * e]
     aux = ((occ / (n_tok * k)) * (pm / n_tok)).sum() * e
 

@@ -9,7 +9,8 @@ explicit `scale` where given, 1 for `embed`, and constant `zeros`/`ones`.
 The two frameworks draw different numbers from one seed; tests carry the
 reference's own tensors across with `repro_torch.models.convert`.
 
-`constrain` has no counterpart: without a device mesh it is the identity.
+`swiglu` states the reference's sequence-parallel transitions with
+`distributed.sharding.constrain` (the identity without a device mesh).
 """
 from __future__ import annotations
 
@@ -19,6 +20,8 @@ import math
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from repro_torch.distributed.sharding import constrain
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
@@ -112,6 +115,12 @@ def rotary(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_in: torch.Tensor,
-           w_out: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN: (silu(x W_gate) * x W_in) W_out; weights (d, f), (f, d)."""
-    return (F.silu(x @ w_gate) * (x @ w_in)) @ w_out
+           w_out: torch.Tensor, act_axis: str = "act_mlp") -> torch.Tensor:
+    """SwiGLU FFN: (silu(x W_gate) * x W_in) W_out; weights (d, f), (f, d).
+    Under a mesh: the sequence gathered on entry, tensor-parallel over
+    the ffn axis, and the caller's residual constraint scatters the
+    output back (the Megatron SP pattern, as the reference states it)."""
+    x = constrain(x, "batch", None, None)
+    h = F.silu(x @ w_gate) * (x @ w_in)
+    h = constrain(h, "batch", None, act_axis)
+    return h @ w_out

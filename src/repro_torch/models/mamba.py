@@ -2,13 +2,17 @@
 
 The port of `repro.models.mamba`. Prefill runs the chunked SSD
 (`kernels/ssd`: the CUDA intra-chunk kernel on the card); decode carries
-(conv_state, ssm_state), O(1) per token, through `ssd_step_ref`.
+(conv_state, ssm_state), O(1) per token, through `ssd_step_ref`. Under a
+device mesh the SSD runs in a `local_map` region on each rank's SSM heads
+(batch over the data axes, heads over `model` when it divides them), so
+K3 and its backward see plain local tensors.
 """
 from __future__ import annotations
 
 import torch
 from torch.nn import functional as F
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels.ssd.ops import ssd_chunked
 from repro_torch.kernels.ssd.ref import ssd_step_ref
 from repro_torch.models.config import ModelConfig
@@ -54,6 +58,22 @@ def _causal_conv(x, w):
     return out
 
 
+def _conv_silu(x, w, channels: str):
+    """SiLU of the causal conv. Under a mesh: in a `local_map` region on
+    each rank's channels (the conv is depthwise), batch over the data
+    axes; the weight's channels split as x's. DTensor (PyTorch 2.11)
+    fails to redistribute the conv's padded shifts of a channel-sharded x
+    on its own."""
+    mesh = sh.current_mesh()
+    if mesh is None:
+        return F.silu(_causal_conv(x, w))
+    xpl = sh.activation_placements(x.shape, "batch", None, channels)
+    wpl = tuple(sh.Shard(1) if p == sh.Shard(2) else sh.Replicate()
+                for p in xpl)
+    return sh.local_region(lambda x, w: F.silu(_causal_conv(x, w)), xpl,
+                           (xpl, wpl), mesh)(x, w)
+
+
 def _conv_step(state, xt, w):
     """One-token conv. state: (B,K-1,C) past inputs; xt: (B,C)."""
     window = torch.cat([state, xt[:, None]], dim=1)          # (B,K,C)
@@ -61,22 +81,48 @@ def _conv_step(state, xt, w):
     return y, window[:, 1:]
 
 
+def _ssd(xc, dt, Bc, Cc, A_log, D, cfg: ModelConfig, chunk: int):
+    """The chunked SSD over (B,L,di) inputs split into heads; (B,L,di)."""
+    b, l, di = xc.shape
+    xh = xc.reshape(b, l, di // cfg.ssm_head_dim, cfg.ssm_head_dim)
+    y, _ = ssd_chunked(xh, dt, Bc, Cc, A_log, D, chunk=chunk)
+    return y.reshape(b, l, di)
+
+
+def _ssd_sharded(xc, dt, Bc, Cc, A_log, D, cfg: ModelConfig, chunk: int):
+    """`_ssd` in a `local_map` region: batch over the data axes, and the
+    SSM heads over `model` where it divides them (strict, so a rank's
+    columns of xc are whole heads), else replicated."""
+    mesh = sh.current_mesh()
+    base = sh.activation_placements(xc.shape, "batch", None, None)
+    heads = sh.placements(sh.logical_to_pspec(
+        (cfg.ssm_heads,), ("ssm_heads",), mesh, strict=True), mesh)
+    xpl = tuple(sh.Shard(2) if isinstance(hp, sh.Shard) else bp
+                for bp, hp in zip(base, heads))
+    return sh.local_region(
+        lambda *a: _ssd(*a, cfg, chunk), xpl,
+        (xpl, xpl, base, base, heads, heads), mesh)(xc, dt, Bc, Cc, A_log,
+                                                    D)
+
+
 def apply(p, x, cfg: ModelConfig):
     """Full-sequence SSD block. x: (B,L,d) -> (B,L,d)."""
+    # whole sequences for the projections and the causal conv (the
+    # reference leaves this gather to GSPMD)
+    x = sh.constrain(x, "batch", None, None)
     z = x @ p["wz"]
     xc = x @ p["wx"]
     Bc = x @ p["wB"]
     Cc = x @ p["wC"]
     dt = F.softplus(x @ p["wdt"] + p["dt_bias"])
-    xc = F.silu(_causal_conv(xc, p["conv_x"]))
-    Bc = F.silu(_causal_conv(Bc, p["conv_B"]))
-    Cc = F.silu(_causal_conv(Cc, p["conv_C"]))
+    xc = _conv_silu(xc, p["conv_x"], "ssm_inner")
+    Bc = _conv_silu(Bc, p["conv_B"], "state")
+    Cc = _conv_silu(Cc, p["conv_C"], "state")
+    xc = sh.constrain(xc, "batch", None, "act_heads")
 
-    b, l, di = xc.shape
-    xh = xc.reshape(b, l, cfg.ssm_heads, cfg.ssm_head_dim)
-    chunk = min(cfg.ssm_chunk, l)
-    y, _ = ssd_chunked(xh, dt, Bc, Cc, p["A_log"], p["D"], chunk=chunk)
-    y = y.reshape(b, l, di)
+    chunk = min(cfg.ssm_chunk, xc.shape[1])
+    ssd = _ssd_sharded if sh.current_mesh() is not None else _ssd
+    y = ssd(xc, dt, Bc, Cc, p["A_log"], p["D"], cfg, chunk)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.rms_eps)
     return y @ p["w_out"]
 

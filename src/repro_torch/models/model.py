@@ -26,8 +26,16 @@ one module per layer (`convert.params_from_jax` splits the stacked axis).
                   an encoder (`frames`) has none and raises;
   init_cache / cache_len -- the caches, ring-sized for windowed layers.
 
-An FFN is dense SwiGLU, or MoE (`models.moe`, one token group, as the
-reference runs without a mesh); serving drops the MoE's aux loss. A
+Under a device mesh (`distributed.mesh_context`, the parameters and the
+batch DTensors: `launch.steps.shard_state`, `shard_batch`) the same code
+runs on each rank's shards: `constrain` at the reference's points
+(`model.py:99,109,123,158,219,394`) redistributes the activations, and
+DTensor's sharding propagation does the rest. `abstract_params`,
+`abstract_cache` and `cache_logical_axes` describe the parameters and
+caches without allocating them (meta tensors).
+
+An FFN is dense SwiGLU, or MoE (`models.moe`, G token groups: one without
+a mesh, as the reference); serving drops the MoE's aux loss. A
 `frames` model still declares `embed` (and an untied `lm_head`), as the
 reference does. Parameters are created with ``requires_grad=False``; the
 train step (`launch.steps.make_train_step`) turns gradients on.
@@ -38,9 +46,14 @@ import math
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (Partial, Replicate, Shard,
+                                              activation_placements,
+                                              constrain, current_mesh,
+                                              local_region, replicated_like)
 from repro_torch.models import attention, mamba, moe
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import (DTYPES, DeclModule, ParamDecl,
@@ -127,6 +140,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     return init_module(model, gen)
 
 
+def abstract_params(cfg: ModelConfig) -> LM:
+    """The `LM` on the meta device: every parameter's shape and dtype, no
+    storage (the reference's ShapeDtypeStruct tree)."""
+    return LM(cfg, device="meta")
+
+
 # --------------------------------------------------------------------- #
 # forward (train / prefill)
 # --------------------------------------------------------------------- #
@@ -139,12 +158,19 @@ def _run_block(blk: Block, x, cfg: ModelConfig):
         a, _ = attention.apply(blk.attn, h, cfg, spec.window)
     else:
         a = mamba.apply(blk.mamba, h, cfg)
-    x = x + a
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # the branch reduce-scattered to the residual's placements before the
+    # add, explicitly: an add that redistributes on its own hands the
+    # branch a sequence-sharded gradient, which the projection's backward
+    # cannot view as (B*S, d)
+    x = x + constrain(a, "batch", "seq", None)
+    x = constrain(x, "batch", "seq", None)
+    aux = replicated_like(x, torch.zeros((), dtype=torch.float32,
+                                         device=x.device))
     if spec.has_ffn:
         f, moe_aux = _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps),
                           cfg)
-        x = x + f
+        x = x + constrain(f, "batch", "seq", None)
+        x = constrain(x, "batch", "seq", None)
         if moe_aux is not None:
             aux = moe_aux
     return x, aux
@@ -155,7 +181,9 @@ def backbone(params: LM, x, cfg: ModelConfig, remat: bool = True):
     loss scalar). With `remat`, each block is one non-reentrant checkpoint:
     its input is saved and its internals are recomputed in the backward,
     so the live set is one layer plus every block's input."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = constrain(x, "batch", "seq", None)
+    aux = replicated_like(x, torch.zeros((), dtype=torch.float32,
+                                         device=x.device))
     for blk in params.blocks:
         if remat:
             x, a = checkpoint(_run_block, blk, x, cfg, use_reentrant=False,
@@ -166,9 +194,40 @@ def backbone(params: LM, x, cfg: ModelConfig, remat: bool = True):
     return rms_norm(x, params.final["final_norm"], cfg.rms_eps), aux
 
 
+def _embed_sharded(tokens, w):
+    """The lookup in a `local_map` region, vocab-parallel (Megatron's):
+    tokens with batch over the data axes, the table whole over `data` and
+    split by rows over the axes that split its vocab; each rank looks up
+    the ids in its rows (zeros elsewhere), and the sum over those axes
+    (`Partial`) is the lookup. DTensor's own embedding strategy over a
+    table split both ways fails on such indices."""
+    mesh = current_mesh()
+    tpl = activation_placements(tokens.shape, "batch", None)
+    wpl = tuple(p if p == Shard(0) else Replicate() for p in w.placements)
+    out = tuple(Partial() if wp == Shard(0) else tp
+                for wp, tp in zip(wpl, tpl))
+    coord = mesh.get_coordinate()
+    lo, rows = 0, w.shape[0]
+    for j, wp in enumerate(wpl):        # rows: torch.chunk's split
+        if wp == Shard(0):
+            rows = -(-rows // mesh.shape[j])
+            lo += coord[j] * rows
+
+    def local(t, wl):
+        ids = t.long() - lo
+        mine = (ids >= 0) & (ids < wl.shape[0])
+        emb = F.embedding(torch.where(mine, ids, 0), wl)
+        return torch.where(mine[..., None], emb, 0)
+    return local_region(local, out, (tpl, wpl), mesh)(tokens, w)
+
+
 def embed_tokens(params: LM, tokens, cfg: ModelConfig):
     act = DTYPES[cfg.activation_dtype]
-    emb = params.embedding["embed"][tokens]
+    w = params.embedding["embed"]
+    if current_mesh() is None:
+        emb = w[tokens]
+    else:
+        emb = constrain(_embed_sharded(tokens, w), "batch", "seq", None)
     return (emb.float() * math.sqrt(cfg.d_model)).to(act)
 
 
@@ -185,7 +244,12 @@ def ce_chunk_loss(w, h_c, y_c, cfg: ModelConfig):
     over all `padded_vocab` rows of `w` in f32, log-sum-exp minus the
     label's logit."""
     logits = torch.einsum("bsd,vd->bsv", h_c, w).float()
+    logits = constrain(logits, "batch", None, "act_vocab")
     lse = torch.logsumexp(logits, dim=-1)
+    # DTensor's gather over a vocab-sharded dim (its MaskPartial) fails on
+    # this index shape: the label's logit is read from whole rows
+    logits = constrain(logits, "batch", None, None)
+    y_c = constrain(y_c, "batch", None)
     lbl = logits.gather(-1, y_c[..., None].long())[..., 0]
     return (lse - lbl).sum()
 
@@ -202,12 +266,15 @@ def chunked_ce(params: LM, hidden, labels, cfg: ModelConfig,
                          f"{num_chunks} chunks")
     cs = s // num_chunks
     w = params.head_weights()
-    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    # whole sequences, so that the chunks slice no sharded dim
+    hidden = constrain(hidden, "batch", None, None)
+    labels = constrain(labels, "batch", None)
+    total = None
     for i in range(num_chunks):
         sl = slice(i * cs, (i + 1) * cs)
-        total = total + checkpoint(ce_chunk_loss, w, hidden[:, sl],
-                                   labels[:, sl], cfg, use_reentrant=False,
-                                   preserve_rng_state=False)
+        loss = checkpoint(ce_chunk_loss, w, hidden[:, sl], labels[:, sl],
+                          cfg, use_reentrant=False, preserve_rng_state=False)
+        total = loss if total is None else total + loss
     return total / (b * s)
 
 
@@ -235,7 +302,8 @@ def prefill(params: LM, batch: dict, cfg: ModelConfig):
     x = embed_inputs(params, batch, cfg)
     hidden, _ = backbone(params, x, cfg, remat=False)
     last = hidden[:, -1:]
-    return (last @ params.head_weights().T).float()
+    logits = (last @ params.head_weights().T).float()
+    return constrain(logits, "batch", None, "act_vocab")
 
 
 # --------------------------------------------------------------------- #
@@ -247,11 +315,13 @@ def cache_len(cfg: ModelConfig, spec: BlockSpec, max_seq: int) -> int:
     return max_seq
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device=None) -> list[dict]:
-    """Zero caches, one dict per layer: {"k", "v"} (B, T, KH, hd) for
-    attention, {"conv_x", "conv_B", "conv_C", "ssm"} for mamba."""
-    dev = resolve_device(device, "init_cache")
+def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
+                   long_ctx: bool = False) -> list[dict]:
+    """The caches as meta tensors, one dict per layer (the structure of
+    `init_cache`): no allocation. `long_ctx` changes only the caches'
+    logical axes (`cache_logical_axes`)."""
+    del long_ctx
+    meta = torch.device("meta")
     act = DTYPES[cfg.activation_dtype]
     cache = []
     for _ in range(cfg.repeat):
@@ -259,12 +329,42 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
             if spec.kind == "attn":
                 shape = (batch, cache_len(cfg, spec, max_seq),
                          cfg.num_kv_heads, cfg.head_dim)
-                cache.append({"k": torch.zeros(shape, dtype=act, device=dev),
-                              "v": torch.zeros(shape, dtype=act,
-                                               device=dev)})
+                cache.append({"k": torch.empty(shape, dtype=act,
+                                               device=meta),
+                              "v": torch.empty(shape, dtype=act,
+                                               device=meta)})
             else:
-                cache.append(mamba.init_cache(cfg, batch, act, dev))
+                cache.append(mamba.init_cache(cfg, batch, act, meta))
     return cache
+
+
+def cache_logical_axes(cfg: ModelConfig, long_ctx: bool = False
+                       ) -> list[dict]:
+    """Logical axes matching `abstract_cache`'s structure (the
+    reference's, without its stacked `layers` axis)."""
+    kv_ax = "long_kv_seq" if long_ctx else "kv_seq"
+    axes = []
+    for _ in range(cfg.repeat):
+        for spec in cfg.pattern:
+            if spec.kind == "attn":
+                a = ("batch", kv_ax, "kv_heads", "head_dim")
+                axes.append({"k": a, "v": a})
+            else:
+                axes.append({"conv_x": ("batch", None, "ssm_inner"),
+                             "conv_B": ("batch", None, "state"),
+                             "conv_C": ("batch", None, "state"),
+                             "ssm": ("batch", "ssm_heads", "state", None)})
+    return axes
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
+               device=None) -> list[dict]:
+    """Zero caches, one dict per layer: {"k", "v"} (B, T, KH, hd) for
+    attention, {"conv_x", "conv_B", "conv_C", "ssm"} for mamba."""
+    dev = resolve_device(device, "init_cache")
+    return [{k: torch.zeros(a.shape, dtype=a.dtype, device=dev)
+             for k, a in layer.items()}
+            for layer in abstract_cache(cfg, batch, max_seq)]
 
 
 @torch.no_grad()
@@ -294,4 +394,5 @@ def decode_step(params: LM, cache: list[dict], tokens, pos,
             x = x + _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps),
                          cfg)[0]
     x = rms_norm(x, params.final["final_norm"], cfg.rms_eps)
-    return (x @ params.head_weights().T).float(), new_cache
+    logits = (x @ params.head_weights().T).float()
+    return constrain(logits, "batch", None, "act_vocab"), new_cache

@@ -13,6 +13,12 @@ moment dicts ``{"mu": {name: tensor}, "nu": {...}, "step": int32}`` keyed
 by parameter name, so training holds one copy of each. The step and the
 learning rate stay device tensors: no host read per step. `torch.optim`
 is not used.
+
+Under a device mesh the parameters, gradients and moments are DTensors
+in the parameters' placements: the global norm is DTensor's (a reduction
+over every shard), and the update, elementwise, runs on each rank's local
+shards in place. `abstract_opt_state` describes the state on the meta
+device.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,11 +84,35 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
     }
 
 
+def abstract_opt_state(params, cfg: AdamWConfig) -> dict:
+    """`init_opt_state`'s structure on the meta device (`params` may be
+    `models.model.abstract_params`): shapes and dtypes, no storage."""
+    named = named_params(params)
+    md = _mdtype(cfg)
+    meta = torch.device("meta")
+    return {
+        "mu": {n: torch.empty(p.shape, dtype=md, device=meta)
+               for n, p in named.items()},
+        "nu": {n: torch.empty(p.shape, dtype=md, device=meta)
+               for n, p in named.items()},
+        "step": torch.empty((), dtype=torch.int32, device=meta),
+    }
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _square_norm(t: torch.Tensor) -> torch.Tensor:
+    sq = torch.linalg.vector_norm(t, dtype=torch.float32).square()
+    return sq.full_tensor() if isinstance(sq, DTensor) else sq
+
+
 def global_norm(tensors: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in f32."""
-    sq = [torch.linalg.vector_norm(t, dtype=torch.float32).square()
-          for t in tensors.values()]
-    return torch.stack(sq).sum().sqrt()
+    """sqrt of the sum of squares of every tensor, in f32 (over every
+    shard of a DTensor: a plain tensor, alike on every rank)."""
+    return torch.stack([_square_norm(t) for t in tensors.values()]
+                       ).sum().sqrt()
 
 
 @torch.no_grad()
@@ -94,7 +125,8 @@ def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig):
     if set(grads) != set(named):
         raise ValueError(f"gradients {sorted(set(grads) ^ set(named))} do "
                          "not match the parameters")
-    step = opt_state["step"] + 1
+    step_in = opt_state["step"]
+    step = _local(step_in) + 1
     lr = cosine_schedule(step, cfg)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
@@ -103,8 +135,9 @@ def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig):
     bc1 = 1 - torch.pow(b1, step.to(torch.float32))
     bc2 = 1 - torch.pow(b2, step.to(torch.float32))
     for name, p in named.items():
-        mu, nu = opt_state["mu"][name], opt_state["nu"][name]
-        g = grads[name].float() * scale
+        p = _local(p)
+        mu, nu = (_local(opt_state[m][name]) for m in ("mu", "nu"))
+        g = _local(grads[name]).float() * scale
         mu32 = mu.float() * b1 + (1 - b1) * g
         nu32 = nu.float() * b2 + (1 - b2) * g.square()
         delta = (mu32 / bc1) / ((nu32 / bc2).sqrt() + cfg.eps) \
@@ -112,5 +145,8 @@ def adamw_update(grads: dict, opt_state: dict, params, cfg: AdamWConfig):
         p.copy_(p.float() - lr * delta)
         mu.copy_(mu32)
         nu.copy_(nu32)
+    if isinstance(step_in, DTensor):
+        step = DTensor.from_local(step, step_in.device_mesh,
+                                  step_in.placements, run_check=False)
     opt_state["step"] = step
     return params, opt_state, {"lr": lr, "grad_norm": gnorm}

@@ -820,11 +820,10 @@ def test_raw_wrappers_refuse_grad_mode():
         assert not _grad.records_grad(q, kv)
 
 
-def test_make_train_step_refuses_mamba_on_cuda():
-    """No config is refused any more: with K3's backward ported,
-    `make_train_step` builds for every architecture on either device,
-    mamba2 and jamba included (the name is the refusal this test pinned
-    before). Without a device and without a card it raises."""
+def test_make_train_step_builds_every_config():
+    """`make_train_step` builds for every architecture on either device,
+    mamba2 and jamba included. Without a device and without a card it
+    raises."""
     opt_cfg = AdamWConfig()
     assert len(configs.ARCH_IDS) == 10
     for arch in configs.ARCH_IDS:
@@ -873,7 +872,8 @@ def test_train_cli_and_resume(tmp_path, capsys):
     assert _loss_at(again, 12) == _loss_at(full, 12)
     assert math.isfinite(_loss_at(full, 12))
 
-    with pytest.raises(SystemExit, match="11.4"):
+    # a mesh needs the ranks' process group (torchrun's environment)
+    with pytest.raises(SystemExit, match="torchrun"):
         train.main(["--mesh", "2x1", "--device", "cpu", "--ckpt-dir",
                     str(tmp_path / "c")])
 
