@@ -312,7 +312,41 @@ Phases (every failure raises and exits nonzero):
                 group per rank) against the one-device G=2 dispatch (1e-4 x
                 max|y|, aux rtol 1e-5, each rank's drops = its group's),
                 under (1, 2) `dispatch="all_to_all"` against the grouped
-                dispatch on the same mesh.
+                dispatch on the same mesh. The same ranks also run phase
+                21 (d).
+ 21. dryrun   -- the dry-run (`repro_torch.launch.dryrun`) against the
+                card. Nine processes start at once and run on the CPU
+                (no card): the CLI for qwen3-0.6b x train_4k,
+                granite-moe-3b-a800m x prefill_32k, gemma3-12b x
+                decode_32k (ring caches) and mamba2-370m x long_500k on
+                the (16, 16) fake mesh, and mamba2-370m x decode_32k on
+                (2, 16, 16) with --no-components, each of which must print
+                [ok] and exit 0 (e); and `dryrun.measure_step` of phase
+                18's and 19's cells (bf16, B=8 x 4,096, remat) without a
+                mesh and on a fake (1, 1) mesh. Meanwhile, on the card:
+                (a) qwen3-0.6b's and mamba2-370m's train step under
+                `FlopCounterMode` (K2 and K3 launching through their
+                custom ops), whose count must equal the dry-run's
+                exactly, and a timed second step: the step time, the
+                dry-run's compute_s and memory_s at the H100's constants
+                and the step's share of the bf16 peak; then 2 pairs of
+                qwen3 steps, K2 through its custom ops and called
+                directly (`direct_k2`, the dispatch before this phase's
+                ops), in turns (K2 2 x 28 x 6 forward and 28 x 6
+                backward, K3 2 x 48 x 2 and 48 x 2, counted from 0);
+                (b) the state's bytes (parameters, AdamW's moments and
+                step) must equal the dry-run's, and its peak is logged
+                beside the measured `max_memory_allocated`; (c)
+                qwen3-0.6b whole, bf16, 8 slots, a 4,096-long cache, 32
+                greedy decode steps under a (1, 1) mesh over NCCL: tokens
+                equal and logits bit-equal to one device. (d), on phase
+                20's two gloo ranks, f32 at 2 layers: qwen3 and mamba2
+                decode under (1, 2) and qwen3's long_ctx decode with T
+                over (data, model) = (2, 1) (a 512-long cache, B=1)
+                against one device (1e-5 x max|logits|), and the granite
+                MoE layer's gradients through `dispatch="all_to_all"`
+                against the grouped dispatch's (1e-5 x max|grad|). Every
+                number is logged beside nvidia-smi's name and power limit.
 
 Phase 20's launches on the gloo ranks are listed by rank in each kernel
 row's `launches_by_phase` and left out of its `launches`, as phase 15b's
@@ -410,6 +444,7 @@ TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 tensor-core rate
 FULL_N = 262_144              # DIMACS USA-road-d.NY scale (264,346 nodes)
 PROGRAM_N = 16_384            # Ext. LRN, the paper's largest group
 PLUS_TIMES_ATOL = 1e-5
+SMI: list = []                # nvidia-smi's name and power limit
 
 
 def log(msg: str) -> None:
@@ -528,6 +563,7 @@ def phase_device() -> dict:
     log(f"device {kind}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}")
     print(smi, flush=True)
+    SMI.append(smi)
     return {"platform": "gpu", "kind": kind,
             "count": torch.cuda.device_count()}
 
@@ -3932,6 +3968,99 @@ def mesh_moe(mname: str, mesh, rank: int) -> dict:
     return out
 
 
+DECODE_MESH_B, DECODE_MESH_T, DECODE_MESH_STEPS = 2, 256, 8
+DECODE_LONG_T = 512           # the long_ctx cache, T over (data, model)
+DECODE_MESH_TOL = 1e-5        # f32, relative to max|logits| (and |grad|)
+
+
+def mesh_decode(arch: str, mesh, rank: int, long_ctx: bool = False,
+                b: int = DECODE_MESH_B, t: int = DECODE_MESH_T) -> dict:
+    """`arch` at full width cut to 2 layers, f32 (seed 3):
+    `DECODE_MESH_STEPS` decode steps of seeded tokens under `mesh` (the
+    parameters in `param_shardings`, the caches in `cache_shardings`,
+    `long_ctx` as given), against the same steps on one device (rank
+    0): max |diff| of the logits and their scale."""
+    cfg = dataclasses.replace(configs.get(arch), num_layers=HOLD_LAYERS,
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (DECODE_MESH_STEPS, b, 1))).cuda()
+
+    def run(params, m=None):
+        cache = M.init_cache(cfg, b, t)
+        ctx = contextlib.nullcontext()
+        if m is not None:
+            csh = steps.cache_shardings(cfg, m, b, t, long_ctx=long_ctx)
+            cache = [{k: distribute_tensor(x, m, csh[i][k].placements)
+                      for k, x in layer.items()}
+                     for i, layer in enumerate(cache)]
+            ctx = mesh_context(m)
+        out = []
+        with ctx:
+            for i in range(DECODE_MESH_STEPS):
+                tok = toks[i]
+                pos = torch.full((b,), i, dtype=torch.int64, device="cuda")
+                if m is not None:
+                    tok = distribute_tensor(tok, m, NamedSharding(
+                        m, logical_to_pspec(tok.shape, ("batch", None),
+                                            m)).placements)
+                    pos = distribute_tensor(pos, m, NamedSharding(
+                        m, logical_to_pspec(pos.shape, ("batch",),
+                                            m)).placements)
+                lg, cache = M.decode_step(params, cache, tok, pos, cfg,
+                                          long_ctx=long_ctx)
+                out.append(lg.full_tensor() if m is not None else lg)
+        return torch.stack(out)
+    params = M.init_params(cfg, seed=3)
+    ps = steps.param_shardings(cfg, mesh)
+    for prefix, mod in params.named_modules():
+        for name, p in list(mod.named_parameters(recurse=False)):
+            full = f"{prefix}.{name}" if prefix else name
+            mod._parameters[name] = torch.nn.Parameter(distribute_tensor(
+                p.detach(), mesh, ps[full].placements), requires_grad=False)
+    got = run(params, mesh)
+    out = {}
+    if rank == 0:
+        want = run(M.init_params(cfg, seed=3))
+        out = {"err": float((got - want).abs().max()),
+               "scale": float(want.abs().max())}
+    del params
+    free()
+    return out
+
+
+def mesh_moe_grads(mesh, rank: int) -> dict:
+    """Phase 20's granite MoE layer (full width, f32) under `mesh`: the
+    gradients of sum(y) + aux for x and every parameter through
+    `dispatch="all_to_all"` against the grouped dispatch's (rank 0)."""
+    cfg = configs.get(GRANITE)
+    p, x = moe_layer_inputs(cfg)
+    decls = moe.decls(cfg)
+
+    def grads(dispatch):
+        pd = {n: distribute_tensor(t, mesh, NamedSharding(
+            mesh, logical_to_pspec(decls[n].shape, decls[n].logical_axes,
+                                   mesh)).placements).requires_grad_()
+              for n, t in p.items()}
+        xd = distribute_tensor(x, mesh, NamedSharding(
+            mesh, logical_to_pspec(x.shape, ("batch", "seq", None),
+                                   mesh)).placements).requires_grad_()
+        with mesh_context(mesh):
+            y, aux = moe.apply(pd, xd, cfg, dispatch=dispatch)
+            loss = (y.sum() + aux).full_tensor()
+            g = torch.autograd.grad(loss, [xd] + list(pd.values()))
+        return [t.full_tensor() for t in g]
+    a2a, grouped = grads("all_to_all"), grads("gspmd")
+    out = {}
+    if rank == 0:
+        out = {"err": max(float((a - b).abs().max())
+                          for a, b in zip(a2a, grouped)),
+               "scale": max(float(b.abs().max()) for b in grouped)}
+    del a2a, grouped
+    free()
+    return out
+
+
 def mesh_rank(rank: int, world: int, store: str, q) -> None:
     """One rank of the one-card gloo run (a spawned process): the probe,
     then each mesh's f32 holds, bf16 steps and MoE layer."""
@@ -3951,6 +4080,13 @@ def mesh_rank(rank: int, world: int, store: str, q) -> None:
             if mname == "1x2":
                 cases["mamba2 hold"] = lambda: mesh_hold(
                     MAMBA_ARCH, mesh, rank, MAMBA_HOLD_SEQ)
+                # phase 21 (d): decode under (1, 2), the all_to_all MoE's
+                # gradients
+                cases["qwen3 decode"] = lambda: mesh_decode(
+                    TRAIN_ARCH, mesh, rank)
+                cases["mamba2 decode"] = lambda: mesh_decode(
+                    MAMBA_ARCH, mesh, rank)
+                cases["moe grads"] = lambda: mesh_moe_grads(mesh, rank)
             for case, fn in cases.items():
                 t1 = time.perf_counter()
                 out[f"{mname}/{case}"] = fn()
@@ -3958,6 +4094,11 @@ def mesh_rank(rank: int, world: int, store: str, q) -> None:
                     log(f"mesh {mname} gloo rank 0: {case} "
                         f"{time.perf_counter() - t1:.1f} s")
             out[f"{mname}/s"] = time.perf_counter() - t0
+        # phase 21 (d): long_ctx decode, T over (data, model) = (2, 1)
+        long_mesh = mesh_lib.make_mesh((2, 1), ("data", "model"))
+        out["2x1/qwen3 long decode"] = mesh_decode(
+            TRAIN_ARCH, long_mesh, rank, long_ctx=True, b=1,
+            t=DECODE_LONG_T)
         dist.destroy_process_group()
         q.put((rank, out))
     except BaseException as e:  # noqa: BLE001 -- reported to the parent
@@ -4128,6 +4269,24 @@ def check_mesh_ranks(got: dict) -> dict:
                        if "drops_one" in mo else "") + f": {ok}")
                 require(ok, f"mesh {mname} MoE layer disagrees")
             log(f"mesh {mname} gloo rank {rank}: {res[f'{mname}/s']:.1f} s")
+    # phase 21 (d): decode and the all_to_all gradients, rank 0 holds
+    r0 = got[0]
+    for key, what in (("1x2/qwen3 decode", f"{TRAIN_ARCH} decode under "
+                       "(1, 2): T over model"),
+                      ("1x2/mamba2 decode", f"{MAMBA_ARCH} decode under "
+                       "(1, 2): SSM heads over model"),
+                      ("2x1/qwen3 long decode", f"{TRAIN_ARCH} long_ctx "
+                       f"decode, B=1, a {DECODE_LONG_T}-long cache, T over "
+                       "(data, model) = (2, 1)"),
+                      ("1x2/moe grads", f"{GRANITE} MoE layer gradients, "
+                       "all_to_all vs grouped under (1, 2)")):
+        d = r0[key]
+        tol = DECODE_MESH_TOL * max(1.0, d["scale"])
+        log(f"[{SMI[0] if SMI else ''}] phase 21 (d) gloo: {what}, f32 at "
+            f"{HOLD_LAYERS} layers: max |diff| {d['err']:.3e} (tol "
+            f"{tol:.3e}) against "
+            + ("the grouped dispatch" if "moe" in key else "one device"))
+        require(d["err"] <= tol, f"phase 21 (d) {what}: {d}")
     # each rank's group drops what one device's group of that rank drops
     d2 = got[0]["2/moe"]
     require(all(d > 0 for d in d2["drops_one"])
@@ -4166,6 +4325,340 @@ def phase_mesh(train18: dict) -> dict:
     log(f"phase 20 gloo ranks: {time.perf_counter() - t0:.1f} s with the "
         "ranks' start-up")
     return {"nccl": launches, "by_rank": by_rank}
+
+
+# ------------------------------------------------------------------ #
+# the dry-run (21)
+# ------------------------------------------------------------------ #
+DRYRUN_CELLS = (("qwen3_0_6b", "train_4k"),
+                ("granite_moe_3b_a800m", "prefill_32k"),
+                ("gemma3_12b", "decode_32k"),       # ring caches
+                ("mamba2_370m", "long_500k"))
+DRYRUN_MULTI = ("mamba2_370m", "decode_32k")     # multi-pod, no components
+DRYRUN_TIMEOUT_S = 400
+DECODE21_SLOTS, DECODE21_SEQ, DECODE21_STEPS = 8, 4_096, 32
+# the dry-run's count of a phase-18/19 step on fake tensors, without a
+# mesh and on a fake (1, 1) mesh: a process of its own (its fake process
+# group cannot share this process with phase 20's NCCL group)
+MEASURE_STEP = """
+import json, sys
+sys.path.insert(0, "src")
+from repro_torch import configs
+from repro_torch.launch import dryrun
+from repro_torch.optim.adamw import AdamWConfig
+arch, mesh = sys.argv[1], sys.argv[2]
+r = dryrun.measure_step(
+    configs.get(arch), "train", int(sys.argv[3]), int(sys.argv[4]),
+    mesh_shape=None if mesh == "none" else (1, 1),
+    opt_cfg=AdamWConfig(total_steps=int(sys.argv[5]), warmup_steps=1))
+print(json.dumps({k: r[k] for k in ("flops", "bytes", "coll",
+                                     "state_bytes", "input_bytes",
+                                     "peak_bytes", "peak_note")}))
+"""
+
+
+def dryrun_jobs(out: str) -> dict:
+    """Start the dry-run's processes, all at once (CPU only, no card): the
+    CLI for each of `DRYRUN_CELLS` single-pod and `DRYRUN_MULTI`
+    multi-pod without components, and `MEASURE_STEP` for phase 18's and
+    19's cells without a mesh and on (1, 1)."""
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    cli = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", out]
+    cmds = {f"{a} x {s}": cli + ["--arch", a, "--shape", s]
+            for a, s in DRYRUN_CELLS}
+    cmds[f"{DRYRUN_MULTI[0]} x {DRYRUN_MULTI[1]} multi-pod"] = cli + [
+        "--arch", DRYRUN_MULTI[0], "--shape", DRYRUN_MULTI[1],
+        "--multi-pod", "--no-components"]
+    for arch in (TRAIN_ARCH, MAMBA_ARCH):
+        for mesh in ("none", "1x1"):
+            cmds[f"measure {arch} {mesh}"] = [
+                sys.executable, "-c", MEASURE_STEP, arch, mesh,
+                str(TRAIN_BATCH), str(TRAIN_SEQ), str(TRAIN_STEPS)]
+    return {name: subprocess.Popen(cmd, cwd=root, env=env,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.PIPE, text=True)
+            for name, cmd in cmds.items()}
+
+
+def dryrun_results(jobs: dict) -> dict:
+    """Each job's exit code and output; every job must exit 0 (a failed
+    cell makes the CLI exit 1)."""
+    out = {}
+    for name, proc in jobs.items():
+        try:
+            so, se = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            so, se = proc.communicate()
+        require(proc.returncode == 0,
+                f"dry-run {name}: exit {proc.returncode}\n{so[-2000:]}\n"
+                f"{se[-4000:]}")
+        out[name] = so
+    return out
+
+
+DISPATCH_TURNS = 2            # pairs of steps: K2 through its ops / direct
+
+
+@contextlib.contextmanager
+def direct_k2():
+    """`ops.FlashAttention` calling K2's wrappers directly, as it did
+    before K2's forward and backward became custom ops (the same kernels
+    and launches, without the ops' dispatch)."""
+    def forward(ctx, q, k, v, causal, window):
+        if flash.bwd_route(q.dtype, q.shape[-1]) == "wgmma":
+            o, lse = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                                window=window,
+                                                return_lse=True)
+        else:
+            o = flash.flash_attention_cuda(q, k, v, causal=causal,
+                                           window=window)
+            lse = None
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash.flash_attention_bwd_cuda(
+            q, k, v, o, do.contiguous(), ctx.causal, ctx.window, lse=lse)
+        return dq, dk, dv, None, None
+    fa = attn_ops.FlashAttention
+    with mock.patch.object(fa, "forward", staticmethod(forward)), \
+            mock.patch.object(fa, "backward", staticmethod(backward)):
+        yield
+
+
+def flops_on_card(arch: str, turns: int = 0) -> dict:
+    """`arch` whole, bf16, B=8 x 4,096 from phase 18's dataset (seed 0),
+    steps of `make_train_step` with remat, the counts set to 0 just
+    before: the first under `FlopCounterMode` (its total), the second
+    timed, then `turns` pairs of timed steps, K2 through its custom ops
+    and through `direct_k2`, in turns; the state's bytes (parameters,
+    AdamW's moments and step) and the peak allocated since the state was
+    made."""
+    from torch.utils.flop_counter import FlopCounterMode
+    cfg = configs.get(arch)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, seed=0)
+    opt_cfg = AdamWConfig(total_steps=TRAIN_STEPS,
+                          warmup_steps=TRAIN_STEPS // 10 + 1)
+    state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+    tensors = list(params.parameters()) + [
+        t for m in ("mu", "nu") for t in state["opt"][m].values()] + [
+        state["opt"]["step"]]
+    state_bytes = sum(t.numel() * t.element_size() for t in tensors)
+    step_fn = steps.make_train_step(cfg, opt_cfg)
+    ds = SyntheticTextDataset(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(x).cuda() for k, x in b.items()}
+               for _, b in make_batches(ds, 0, 2 + 2 * turns)]
+    # phase 21's card path: counts start at 0 here
+    reset_counts()
+    with FlopCounterMode(display=False) as counter:
+        state, metrics = step_fn(state, batches[0])
+        loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step_fn(state, batches[1])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    turn_ms = {"ops": [], "direct": []}
+    for i in range(2 * turns):
+        how = "ops" if i % 2 == 0 else "direct"
+        with (contextlib.nullcontext() if how == "ops" else direct_k2()):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batches[2 + i])
+            torch.cuda.synchronize()
+            turn_ms[how].append((time.perf_counter() - t0) * 1e3)
+    out = {"flops": int(counter.get_total_flops()), "wall_s": wall,
+           "loss": loss, "state_bytes": state_bytes,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launch_counts(), "turn_ms": turn_ms}
+    del state, params, tensors, batches
+    free()
+    return out
+
+
+def decode21(params, cfg, mesh=None) -> tuple[list, list]:
+    """`DECODE21_STEPS` greedy `decode_step`s of `DECODE21_SLOTS` slots
+    from one seeded token each, on a `DECODE21_SEQ`-long cache: (logits
+    per step, tokens per step). With `mesh`, the parameters, caches,
+    tokens and positions as DTensors in their shardings."""
+    b = DECODE21_SLOTS
+    tok = torch.from_numpy(np.random.default_rng(21).integers(
+        0, cfg.vocab_size, (b, 1))).cuda()
+    cache = M.init_cache(cfg, b, DECODE21_SEQ)
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        csh = steps.cache_shardings(cfg, mesh, b, DECODE21_SEQ)
+        cache = [{k: distribute_tensor(t, mesh, csh[i][k].placements)
+                  for k, t in layer.items()} for i, layer in enumerate(cache)]
+        ctx = mesh_context(mesh)
+    logits_all, toks = [], []
+    with ctx:
+        for i in range(DECODE21_STEPS):
+            pos = torch.full((b,), i, dtype=torch.int64, device="cuda")
+            t_in, p_in = tok, pos
+            if mesh is not None:
+                t_in = distribute_tensor(tok, mesh, NamedSharding(
+                    mesh, logical_to_pspec(tok.shape, ("batch", None),
+                                           mesh)).placements)
+                p_in = distribute_tensor(pos, mesh, NamedSharding(
+                    mesh, logical_to_pspec(pos.shape, ("batch",),
+                                           mesh)).placements)
+            logits, cache = M.decode_step(params, cache, t_in, p_in, cfg)
+            if mesh is not None:
+                logits = logits.full_tensor()
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            logits_all.append(logits)
+            toks.append(tok)
+    return logits_all, toks
+
+
+def decode_nccl() -> dict:
+    """qwen3-0.6b whole, bf16, seed 0: `decode21` on one device, then
+    under a (1, 1) data x model mesh over NCCL (world 1): the tokens must
+    be equal and the logits bit-equal."""
+    cfg = configs.get(TRAIN_ARCH)
+    params = M.init_params(cfg, seed=0)
+    one, toks_one = decode21(params, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", store=dist.FileStore(os.path.join(tmp, "nccl"), 1),
+            rank=0, world_size=1,
+            device_id=torch.device("cuda", torch.cuda.current_device()))
+        try:
+            mesh = mesh_lib.make_mesh((1, 1), ("data", "model"))
+            ps = steps.param_shardings(cfg, mesh)
+            for prefix, mod in params.named_modules():
+                for name, p in list(mod.named_parameters(recurse=False)):
+                    full = f"{prefix}.{name}" if prefix else name
+                    mod._parameters[name] = torch.nn.Parameter(
+                        distribute_tensor(p.detach(), mesh,
+                                          ps[full].placements),
+                        requires_grad=False)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, toks = decode21(params, cfg, mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    same_tokens = all(torch.equal(a, b) for a, b in zip(toks, toks_one))
+    bit_equal = all(torch.equal(a, b) for a, b in zip(got, one))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, one))
+    scale = max(float(b.abs().max()) for b in one)
+    del params, one, got
+    free()
+    return {"same_tokens": same_tokens, "bit_equal": bit_equal, "err": err,
+            "scale": scale, "ms_per_step": wall / DECODE21_STEPS * 1e3}
+
+
+def phase_dryrun() -> dict:
+    """Phase 21: the dry-run's processes start first (CPU only) and run
+    while this process drives the card: (a) qwen3's and mamba2's train
+    step under `FlopCounterMode`, (b) their state bytes and peak, (c)
+    qwen3's decode under a (1, 1) NCCL mesh; then (a) and (b) are held
+    against the dry-run's counts, and (e) its cells must print [ok].
+    Returns K2's and K3's launches of (a)."""
+    t0 = time.perf_counter()
+    smi = SMI[0] if SMI else "nvidia-smi: not read"
+    with tempfile.TemporaryDirectory() as out:
+        jobs = dryrun_jobs(out)
+        card = {TRAIN_ARCH: flops_on_card(TRAIN_ARCH, DISPATCH_TURNS),
+                MAMBA_ARCH: flops_on_card(MAMBA_ARCH)}
+        dec = decode_nccl()
+        log(f"phase 21 card work: {time.perf_counter() - t0:.1f} s")
+        res = dryrun_results(jobs)
+        cells = {}
+        for a, sh_ in DRYRUN_CELLS + (DRYRUN_MULTI,):
+            multi = (a, sh_) == DRYRUN_MULTI
+            name = f"{a}__{sh_}__{'multi' if multi else 'single'}"
+            with open(os.path.join(out, name + ".json")) as f:
+                cells[name] = json.load(f)
+    # (a) FLOPs: the card's count = the dry-run's, without a mesh and on
+    # (1, 1); (b) the state's bytes = the dry-run's, its peak beside the
+    # measured one
+    n = {TRAIN_ARCH: configs.get(TRAIN_ARCH).num_layers,
+         MAMBA_ARCH: configs.get(MAMBA_ARCH).num_layers}
+    k = 2 + 2 * DISPATCH_TURNS          # qwen3's steps
+    want_launches = {
+        TRAIN_ARCH: {"wgmma": 2 * k * n[TRAIN_ARCH], "fma": 0,
+                     "bwd_wgmma": k * n[TRAIN_ARCH], "bwd_fma": 0,
+                     "ssd": 0, "ssd_bwd": 0},
+        MAMBA_ARCH: {"wgmma": 0, "fma": 0, "bwd_wgmma": 0, "bwd_fma": 0,
+                     "ssd": 4 * n[MAMBA_ARCH], "ssd_bwd": 2 * n[MAMBA_ARCH]}}
+    for arch, c in card.items():
+        dr = {m: json.loads(res[f"measure {arch} {m}"].strip()
+                            .splitlines()[-1]) for m in ("none", "1x1")}
+        compute_s = dr["none"]["flops"] / BF16_OPS_PER_S
+        memory_s = dr["none"]["bytes"] / HBM_BYTES_PER_S
+        share = c["flops"] / (c["wall_s"] * BF16_OPS_PER_S)
+        peak = dr["none"]["peak_bytes"]
+        log(f"[{smi}] phase 21 (a) {arch} train step B={TRAIN_BATCH} "
+            f"S={TRAIN_SEQ} bf16, remat: FlopCounterMode on the card "
+            f"{c['flops']} FLOPs; dry-run without a mesh "
+            f"{int(dr['none']['flops'])}, on a fake (1, 1) mesh "
+            f"{int(dr['1x1']['flops'])}; step {c['wall_s'] * 1e3:.1f} ms "
+            f"(loss {c['loss']:.6f}); dry-run compute_s {compute_s:.6f}, "
+            f"memory_s {memory_s:.6f} (bytes {dr['none']['bytes']:.4e}); "
+            f"share of the bf16 peak {share:.4f}; launches {c['launches']}")
+        require(c["flops"] == int(dr["none"]["flops"])
+                == int(dr["1x1"]["flops"]),
+                f"phase 21 (a) {arch}: the card's FLOPs {c['flops']} differ "
+                f"from the dry-run's {dr['none']['flops']} / "
+                f"{dr['1x1']['flops']}")
+        require(c["launches"] == want_launches[arch],
+                f"phase 21 (a) {arch}: launches {c['launches']}")
+        log(f"[{smi}] phase 21 (b) {arch}: state bytes on the card "
+            f"{c['state_bytes']}, dry-run {dr['none']['state_bytes']} (on "
+            f"(1, 1) {dr['1x1']['state_bytes']}); peak: dry-run "
+            + ("not measured (" + dr["none"]["peak_note"] + ")"
+               if peak is None else f"{peak / 2**30:.2f} GiB")
+            + f", measured max_memory_allocated "
+            f"{c['peak_bytes'] / 2**30:.2f} GiB"
+            + ("" if peak is None else
+               f", ratio {peak / c['peak_bytes']:.4f}"))
+        require(c["state_bytes"] == dr["none"]["state_bytes"]
+                == dr["1x1"]["state_bytes"],
+                f"phase 21 (b) {arch}: state bytes differ")
+    tm = card[TRAIN_ARCH]["turn_ms"]
+    log(f"[{smi}] phase 21 {TRAIN_ARCH} train step, K2 through its custom "
+        f"ops / called directly, in turns: {[round(x, 1) for x in tm['ops']]}"
+        f" / {[round(x, 1) for x in tm['direct']]} ms")
+    # (c) decode under (1, 1) NCCL
+    log(f"[{smi}] phase 21 (c) {TRAIN_ARCH} decode, {DECODE21_SLOTS} slots, "
+        f"{DECODE21_SEQ}-long cache, {DECODE21_STEPS} greedy steps under a "
+        f"(1, 1) mesh over NCCL against one device: tokens equal "
+        f"{dec['same_tokens']}, logits bit-equal {dec['bit_equal']} (max "
+        f"|diff| {dec['err']:.3e} of max|logits| {dec['scale']:.3e}); "
+        f"{dec['ms_per_step']:.1f} ms per mesh step")
+    require(dec["same_tokens"] and dec["bit_equal"],
+            "phase 21 (c): decode under (1, 1) differs from one device")
+    # (e) the dry-run's cells on this torch
+    for name, text in res.items():
+        if name.startswith("measure"):
+            continue
+        ok = [line for line in text.splitlines() if line.startswith("[ok]")]
+        require(len(ok) == 1, f"phase 21 (e) {name}: {text[-1000:]}")
+        log(f"phase 21 (e) dry-run {name}: {ok[0]}")
+    for name, r in cells.items():
+        mem = r["memory"]["bytes_per_device"]
+        log(f"phase 21 (e) {name}: "
+            + ("n/a" if mem is None else f"{mem / 2**30:.2f} GiB")
+            + f" per device (arguments {r['memory']['arg_bytes'] / 2**30:.3f}"
+            f" GiB), dominant {r['roofline']['dominant']}, useful FLOP share "
+            f"{r['useful_flops_frac']:.4f}, FLOPs per device "
+            f"{r['hlo_flops']:.4e}, collective bytes "
+            f"{r['collective_bytes']:.4e}; lower {r['lower_s']} s, step "
+            f"{r['compile_s']} s")
+    log(f"phase 21: {time.perf_counter() - t0:.1f} s")
+    out = {k: card[TRAIN_ARCH]["launches"][k] + card[MAMBA_ARCH]["launches"][k]
+           for k in card[TRAIN_ARCH]["launches"]}
+    return out
 
 
 def process_launches(by_phase: dict) -> int:
@@ -4300,19 +4793,24 @@ def main() -> None:
              for r, n in m20["by_rank"].items()})
     log(f"phase 20 mesh: {time.perf_counter() - t0:.1f} s; {k20}")
 
+    k21 = phase_dryrun()
+    k21 = {kind: {"21 dryrun FLOPs steps": k21[kind]} for kind in k21}
+
     k1_main = sum(v for k, v in k1_phases.items() if "rank" not in k)
     wgmma_by_phase = {"8 qwen3": qwen3_routes["wgmma"],
                       "16 granite": granite_routes["wgmma"], **wgmma17,
-                      **k2_18["wgmma"], **k20["wgmma"]}
+                      **k2_18["wgmma"], **k20["wgmma"], **k21["wgmma"]}
     fma_by_phase = {"8 qwen3 f32 replay": qwen3_routes["fma"],
                     "16 granite f32 replay": granite_routes["fma"], **fma17,
                     **k2_18["fma"], **k3_19["fma"], **k20["fma"]}
-    bwd_wgmma_by_phase = {**k2_18["bwd_wgmma"], **k20["bwd_wgmma"]}
+    bwd_wgmma_by_phase = {**k2_18["bwd_wgmma"], **k20["bwd_wgmma"],
+                          **k21["bwd_wgmma"]}
     bwd_fma_by_phase = {**k2_18["bwd_fma"], **k3_19["bwd_fma"],
                         **k20["bwd_fma"]}
     ssd_by_phase = {"8 mamba2": ssd_launches, **k3_17, **k3_19["ssd"],
-                    **k20["ssd"]}
-    ssd_bwd_by_phase = {**k3_19["ssd_bwd"], **k20["ssd_bwd"]}
+                    **k20["ssd"], **k21["ssd"]}
+    ssd_bwd_by_phase = {**k3_19["ssd_bwd"], **k20["ssd_bwd"],
+                        **k21["ssd_bwd"]}
     print(json.dumps({"kernels": [
         kernel_row("frontier_relax",
                    "src/repro_torch/kernels/frontier/csrc/frontier_relax.cu",

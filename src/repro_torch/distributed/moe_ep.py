@@ -15,6 +15,14 @@ compute sites (experts), with the placement compiled by
 `repro_torch.core.placement` to cut traffic. The capacity C is the
 rank's own (its T tokens), so each rank drops exactly what a one-group
 `moe.apply` over its slab drops.
+
+It trains: both legs are `AllToAll`, whose backward is the reverse
+`all_to_all_single` of the gradient (with equal splits, the same
+exchange), as the reference differentiates through its shard_map; the
+load-balance statistics' `all_reduce` passes the gradient through
+unchanged (`_SumStats`), since the loss it feeds is one copy on every
+rank. Under a device mesh `moe.apply(dispatch="all_to_all")` runs it in a
+`local_map` region over the `model` axis's group, in training too.
 """
 from __future__ import annotations
 
@@ -23,9 +31,45 @@ import torch.distributed as dist
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import (_capacity, combine, dispatch_buffer,
-                                    expert_ffn, route)
+                                    expert_counts, expert_ffn, route)
 
 EXPERT_LEAVES = ("w_gate", "w_in", "w_out")
+
+
+class AllToAll(torch.autograd.Function):
+    """`all_to_all_single` with equal splits over `group`, differentiable:
+    chunk j of dim 0 goes to rank j; the gradient takes the same exchange
+    back (the adjoint of a permutation of chunks between ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g)
+        dist.all_to_all_single(out, g.contiguous(), group=ctx.group)
+        return out, None
+
+
+class _SumStats(torch.autograd.Function):
+    """The sum of `x` over `group` (`all_reduce` on a copy); the gradient
+    passes through as it is: the aux loss built from the sum is the same
+    on every rank, one copy of one loss, and each rank's share of the
+    gradient reaches the router through its own tokens' statistics."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
 
 
 def shard_experts(p, rank: int, world: int) -> dict:
@@ -64,11 +108,11 @@ def moe_all_to_all(p, x: torch.Tensor, cfg: ModelConfig, group=None,
 
     # aux (switch-style) over the whole group: one all_reduce of the
     # expert counts, the summed router probabilities and the token count
-    stats = torch.cat([
-        torch.bincount(ids.reshape(-1), minlength=e).float(),
+    stats = _SumStats.apply(torch.cat([
+        expert_counts(ids.reshape(-1), e).float(),
         torch.softmax(logits, dim=-1).sum(dim=0),
-        torch.full((1,), float(t), device=x.device)])
-    dist.all_reduce(stats, group=group if aux_group is None else aux_group)
+        torch.full((1,), float(t), device=x.device)]),
+        group if aux_group is None else aux_group)
     occ, pm, n_tok = stats[:e], stats[e:2 * e], stats[2 * e]
     aux = ((occ / (n_tok * k)) * (pm / n_tok)).sum() * e
 
@@ -76,13 +120,11 @@ def moe_all_to_all(p, x: torch.Tensor, cfg: ModelConfig, group=None,
     buf, lin, keep = dispatch_buffer(xt, ids, cap, e)
     # tokens -> expert ranks: chunk j of dim 0 (experts j*E/M ..) goes to
     # rank j; what arrives is rank-major (M, E/M, C, d)
-    recv = torch.empty_like(buf)
-    dist.all_to_all_single(recv, buf, group=group)
+    recv = AllToAll.apply(buf, group)
     h = recv.view(m, e_loc, cap, d).transpose(0, 1).reshape(e_loc, m * cap, d)
     out = expert_ffn(h, p["w_gate"], p["w_in"], p["w_out"])
     # results -> home ranks, back in the dispatch layout (E, C, d)
     send = out.view(e_loc, m, cap, d).transpose(0, 1).contiguous()
-    back = torch.empty_like(send)
-    dist.all_to_all_single(back, send, group=group)
+    back = AllToAll.apply(send, group)
     y = combine(back.view(e, cap, d), lin, keep, weights)
     return y.view(b, s, d), aux

@@ -270,6 +270,21 @@ def constrain(x, *logical_axes):
     return x.redistribute(mesh, want)
 
 
+def shard_range(length: int, placements, mesh, dim: int) -> tuple[int, int]:
+    """(offset, size) of this rank's slice of a tensor dim of `length`
+    that `placements` split (`Shard(dim)` on one or more mesh dims, each
+    `torch.chunk`'s split of the previous one's slice, in mesh order, as
+    DTensor splits it); (0, length) where none does."""
+    coord = mesh.get_coordinate()
+    lo, size = 0, length
+    for j, pl in enumerate(placements):
+        if isinstance(pl, Shard) and pl.dim == dim:
+            c = -(-size // mesh.shape[j])
+            start = min(coord[j] * c, size)
+            lo, size = lo + start, max(0, min(c, size - start))
+    return lo, size
+
+
 def replicated_like(x, t: torch.Tensor):
     """`t` (a plain tensor every rank holds alike) as a replicated
     DTensor on `x`'s mesh when `x` is a DTensor; `t` itself otherwise."""
@@ -280,12 +295,15 @@ def replicated_like(x, t: torch.Tensor):
                               run_check=False)
 
 
-def local_region(fn, out_placements, in_placements: tuple, mesh):
+def local_region(fn, out_placements, in_placements: tuple, mesh,
+                 shapes=None):
     """`local_map(fn)` over `mesh` that redistributes its inputs to
     `in_placements` (None for an argument that is no DTensor). The
     gradient of an input that is replicated on a mesh dim where another
     input is sharded comes back `Partial` there: each rank's local
-    gradient is its share of the work, summed over that dim."""
+    gradient is its share of the work, summed over that dim. `shapes`
+    (one global shape, or one per output) gives outputs whose split may
+    be uneven their true global shape (`_global_shape`)."""
     split = [any(pl is not None and isinstance(pl[j], Shard)
                  for pl in in_placements) for j in range(mesh.ndim)]
     grad = tuple(
@@ -297,6 +315,32 @@ def local_region(fn, out_placements, in_placements: tuple, mesh):
         out = list(out_placements)          # one output
     else:
         out = tuple(list(p) for p in out_placements)
-    return local_map(fn, out_placements=out,
-                     in_placements=in_placements, in_grad_placements=grad,
-                     device_mesh=mesh, redistribute_inputs=True)
+    run = local_map(fn, out_placements=out,
+                    in_placements=in_placements, in_grad_placements=grad,
+                    device_mesh=mesh, redistribute_inputs=True)
+    if shapes is None:
+        return run
+
+    def uneven(*args):
+        res = run(*args)
+        one = isinstance(res, DTensor)
+        outs, shp = ((res,), (shapes,)) if one else (res, shapes)
+        outs = tuple(_global_shape(o, s) for o, s in zip(outs, shp))
+        return outs[0] if one else outs
+    return uneven
+
+
+def _global_shape(x: DTensor, shape) -> DTensor:
+    """`x` with its global shape `shape`: `local_map` infers a global shape
+    from this rank's local one as if every split were even, which an
+    uneven split (torch.chunk's, where a dim does not divide) is not."""
+    if shape is None or tuple(x.shape) == tuple(shape):
+        return x
+    shape = torch.Size(shape)
+    stride, n = [], 1
+    for d in reversed(shape):           # contiguous; no tensor is made
+        stride.insert(0, n)
+        n *= d
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=shape,
+                              stride=tuple(stride))

@@ -1,4 +1,5 @@
-"""The grad-mode guard of the raw kernel wrappers.
+"""The grad-mode guard of the raw kernel wrappers, and the route test of
+the kernels' public ops (`kernel_route`).
 
 A wrapper that launches a hand-written kernel through `ctypes` returns a
 fresh tensor with no `grad_fn`: under autograd its caller would lose every
@@ -29,3 +30,12 @@ def require_no_grad(op: str, hint: str, *tensors) -> None:
             f"{op}: an input requires grad and grad mode is on, but the "
             f"kernel's output would carry no gradient ({hint}); call it "
             "under torch.no_grad()")
+
+
+def kernel_route(t: torch.Tensor) -> bool:
+    """Whether `t` takes a kernel's custom op: a CUDA tensor (the kernel
+    launches), or a meta or fake tensor (the op's fake implementation,
+    which the dry-run and the FLOP counter read). A plain CPU tensor takes
+    the plain version."""
+    from torch._subclasses.fake_tensor import is_fake
+    return t.is_cuda or t.is_meta or is_fake(t)

@@ -198,14 +198,17 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     placements, AdamW updates the DTensor moments in place, and the loss
     and `grad_norm` are global (alike on every rank).
 
-    `impl` and `moe_dispatch` are accepted for parity with the reference:
-    the tensors' device picks the attention route (K2 under autograd on
-    the card, `attention_ref` on the CPU; K3 under autograd through
-    `ssd.ops.SSDIntra` on the card, `ssd_ref` on the CPU), and the MoE runs
-    its grouped dispatch. Every config trains on either device, as in the
-    reference. `device` (default: the CUDA device, which must exist) is
-    where the caller will place the state."""
-    del impl, moe_dispatch
+    `impl` is accepted for parity with the reference: the tensors' device
+    picks the attention route (K2 under autograd on the card, its fake
+    implementation on meta and fake tensors, `attention_ref` on the CPU;
+    K3 under autograd through `ssd.ops.SSDIntra` on the card, `ssd_ref`
+    on the CPU). `moe_dispatch` picks the MoE's dispatch: "gspmd" (the
+    grouped dispatch) or "all_to_all" (expert parallelism over the mesh's
+    `model` axis, `distributed.moe_ep`; differentiable). Every config
+    trains on either device, as in the reference. `device` (default: the
+    CUDA device, which must exist) is where the caller will place the
+    state."""
+    del impl
     resolve_device(device, "make_train_step")
 
     def train_step(state, batch):
@@ -213,7 +216,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         params.requires_grad_(True)
         named = dict(params.named_parameters())
         with torch.enable_grad():
-            loss = M.train_loss(params, batch, cfg, remat=remat)
+            loss = M.train_loss(params, batch, cfg, remat=remat,
+                                moe_dispatch=moe_dispatch)
             if isinstance(loss, DTensor):
                 loss = loss.full_tensor()
             # a `frames` model declares an embedding it never reads
@@ -234,16 +238,25 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     return train_step
 
 
-def make_prefill_step(cfg: ModelConfig):
+def make_prefill_step(cfg: ModelConfig, impl: str = "auto",
+                      moe_dispatch: str = "gspmd"):
     """(params, batch) -> last-position logits (B,1,V) f32. batch holds
-    "tokens" (B,S), or "frames" (B,S,d) for the `frames` frontend."""
+    "tokens" (B,S), or "frames" (B,S,d) for the `frames` frontend. `impl`
+    is accepted for parity with the reference (the tensors' device picks
+    the attention route); `moe_dispatch` as `make_train_step`'s."""
+    del impl
+
     def prefill_step(params, batch):
-        return M.prefill(params, batch, cfg)
+        return M.prefill(params, batch, cfg, moe_dispatch=moe_dispatch)
     return prefill_step
 
 
-def make_decode_step(cfg: ModelConfig):
-    """(params, cache, tokens, pos) -> (logits (B,1,V) f32, cache)."""
+def make_decode_step(cfg: ModelConfig, long_ctx: bool = False,
+                     moe_dispatch: str = "gspmd"):
+    """(params, cache, tokens, pos) -> (logits (B,1,V) f32, cache). With
+    `long_ctx` the caches' T axis is split over `long_kv_seq` under a
+    mesh (`cache_shardings(..., long_ctx=True)`)."""
     def serve_step(params, cache, tokens, pos):
-        return M.decode_step(params, cache, tokens, pos, cfg)
+        return M.decode_step(params, cache, tokens, pos, cfg,
+                             long_ctx=long_ctx, moe_dispatch=moe_dispatch)
     return serve_step

@@ -33,8 +33,10 @@ picks NCCL (one card per rank) or gloo (ranks that share one card, or
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --mesh 2 --dist-backend gloo --preset tiny
 
---attn-impl and --moe-dispatch are accepted for parity; the device picks
-the attention route, as everywhere in the port.
+--attn-impl is accepted for parity; the device picks the attention
+route, as everywhere in the port. --moe-dispatch all_to_all trains an
+MoE's experts over the mesh's model axis (`distributed.moe_ep`, whose
+collectives are differentiable); gspmd is the grouped dispatch.
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ The port of `repro.models.mamba`. Prefill runs the chunked SSD
 (conv_state, ssm_state), O(1) per token, through `ssd_step_ref`. Under a
 device mesh the SSD runs in a `local_map` region on each rank's SSM heads
 (batch over the data axes, heads over `model` when it divides them), so
-K3 and its backward see plain local tensors.
+K3 and its backward see plain local tensors; decode's conv and SSD step
+run the same way on the states' shards (`_step_sharded`).
 """
 from __future__ import annotations
 
@@ -71,7 +72,7 @@ def _conv_silu(x, w, channels: str):
     wpl = tuple(sh.Shard(1) if p == sh.Shard(2) else sh.Replicate()
                 for p in xpl)
     return sh.local_region(lambda x, w: F.silu(_causal_conv(x, w)), xpl,
-                           (xpl, wpl), mesh)(x, w)
+                           (xpl, wpl), mesh, x.shape)(x, w)
 
 
 def _conv_step(state, xt, w):
@@ -101,8 +102,8 @@ def _ssd_sharded(xc, dt, Bc, Cc, A_log, D, cfg: ModelConfig, chunk: int):
                 for bp, hp in zip(base, heads))
     return sh.local_region(
         lambda *a: _ssd(*a, cfg, chunk), xpl,
-        (xpl, xpl, base, base, heads, heads), mesh)(xc, dt, Bc, Cc, A_log,
-                                                    D)
+        (xpl, xpl, base, base, heads, heads), mesh, xc.shape)(
+            xc, dt, Bc, Cc, A_log, D)
 
 
 def apply(p, x, cfg: ModelConfig):
@@ -141,23 +142,72 @@ def init_cache(cfg: ModelConfig, batch: int, dtype: torch.dtype,
     }
 
 
+def _step(xc, Bc, Cc, dt, conv_x, conv_B, conv_C, ssm, w_x, w_B, w_C,
+          A_log, D, cfg: ModelConfig):
+    """The conv and SSD step of one token on the heads it is given.
+    Returns (y (B, heads x P), conv states, ssm state)."""
+    xc, conv_x = _conv_step(conv_x, xc, w_x)
+    Bc, conv_B = _conv_step(conv_B, Bc, w_B)
+    Cc, conv_C = _conv_step(conv_C, Cc, w_C)
+    xc, Bc, Cc = F.silu(xc), F.silu(Bc), F.silu(Cc)
+    xh = xc.reshape(xc.shape[0], -1, cfg.ssm_head_dim)
+    y, ssm = ssd_step_ref(xh, dt, Bc, Cc, A_log, D, ssm)
+    return y.reshape(xc.shape[0], -1), conv_x, conv_B, conv_C, ssm
+
+
+CACHE_KEYS = ("conv_x", "conv_B", "conv_C", "ssm")
+
+
+def _step_sharded(xc, Bc, Cc, dt, cache: dict, p, cfg: ModelConfig):
+    """`_step` in a `local_map` region: batch as the SSM state's, and the
+    SSM heads over `model` where the state splits them (strict: whole
+    heads per rank), so x's channels, dt, A_log, D, the x conv state and
+    its weight split with them; B and C whole. The new states come back
+    in the caches' placements."""
+    mesh = sh.current_mesh()
+    rep = sh.Replicate()
+    spl = tuple(cache["ssm"].placements)
+    bpl = tuple(pl if pl == sh.Shard(0) else rep for pl in spl)
+    hpl = tuple(sh.Shard(1) if pl == sh.Shard(1) else bpl[j]
+                for j, pl in enumerate(spl))          # (B, heads...)
+    cxpl = tuple(sh.Shard(2) if pl == sh.Shard(1) else bpl[j]
+                 for j, pl in enumerate(spl))         # (B, K-1, di)
+    wxpl = tuple(sh.Shard(1) if pl == sh.Shard(1) else rep for pl in spl)
+    wpl = tuple(sh.Shard(0) if pl == sh.Shard(1) else rep for pl in spl)
+    reps = (rep,) * mesh.ndim
+    out = sh.local_region(
+        lambda *a: _step(*a, cfg), (hpl, cxpl, bpl, bpl, spl),
+        (hpl, bpl, bpl, hpl, cxpl, bpl, bpl, spl, wxpl, reps, reps, wpl,
+         wpl), mesh)(xc, Bc, Cc, dt, cache["conv_x"], cache["conv_B"],
+                     cache["conv_C"], cache["ssm"], p["conv_x"],
+                     p["conv_B"], p["conv_C"], p["A_log"], p["D"])
+    y, states = out[0], out[1:]
+    states = tuple(s if tuple(s.placements) == tuple(cache[k].placements)
+                   else s.redistribute(mesh, cache[k].placements)
+                   for s, k in zip(states, CACHE_KEYS))
+    return (y,) + states
+
+
 def decode(p, x, cache: dict, cfg: ModelConfig):
-    """One-token step. x: (B,1,d). Returns (out (B,1,d), new cache)."""
+    """One-token step. x: (B,1,d). Returns (out (B,1,d), new cache).
+    Under a device mesh the caches are DTensors in their
+    `cache_logical_axes` placements and the conv and SSD step runs on
+    each rank's SSM heads (`_step_sharded`)."""
+    mesh = sh.current_mesh()
+    if mesh is not None:
+        x = sh.constrain(x, "batch", None, None)
     xt = x[:, 0]
     z = xt @ p["wz"]
     xc = xt @ p["wx"]
     Bc = xt @ p["wB"]
     Cc = xt @ p["wC"]
     dt = F.softplus(xt @ p["wdt"] + p["dt_bias"])
-    xc, conv_x = _conv_step(cache["conv_x"], xc, p["conv_x"])
-    Bc, conv_B = _conv_step(cache["conv_B"], Bc, p["conv_B"])
-    Cc, conv_C = _conv_step(cache["conv_C"], Cc, p["conv_C"])
-    xc, Bc, Cc = F.silu(xc), F.silu(Bc), F.silu(Cc)
-
-    xh = xc.reshape(-1, cfg.ssm_heads, cfg.ssm_head_dim)
-    y, ssm = ssd_step_ref(xh, dt, Bc, Cc, p["A_log"], p["D"], cache["ssm"])
-    y = y.reshape(xt.shape[0], cfg.ssm_d_inner)
+    if mesh is None:
+        y, *states = _step(xc, Bc, Cc, dt, *(cache[k] for k in CACHE_KEYS),
+                           p["conv_x"], p["conv_B"], p["conv_C"],
+                           p["A_log"], p["D"], cfg)
+    else:
+        y, *states = _step_sharded(xc, Bc, Cc, dt, cache, p, cfg)
     y = rms_norm(y * F.silu(z), p["gate_norm"], cfg.rms_eps)
     out = (y @ p["w_out"])[:, None]
-    return out, {"conv_x": conv_x, "conv_B": conv_B, "conv_C": conv_C,
-                 "ssm": ssm}
+    return out, dict(zip(CACHE_KEYS, states))

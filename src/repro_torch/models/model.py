@@ -22,15 +22,22 @@ one module per layer (`convert.params_from_jax` splits the stacked axis).
                   final norm and CE alone;
   prefill      -- forward over a prompt, last-position logits in f32; the
                   path that reaches the flash-attention and SSD kernels;
-  decode_step  -- one token against per-layer KV / SSM caches (no kernel);
-                  an encoder (`frames`) has none and raises;
-  init_cache / cache_len -- the caches, ring-sized for windowed layers.
+  decode_step  -- one token against per-layer KV / SSM caches (no kernel),
+                  one `superblock_decode` per pattern period; an encoder
+                  (`frames`) has none and raises;
+  init_cache / cache_len -- the caches, ring-sized for windowed layers;
+  superblock, superblock_decls, apply_superblock, superblock_decode --
+                  one pattern period (the `len(pattern)` consecutive
+                  blocks of `LM.blocks`), the dry-run's component
+                  (`launch.dryrun.measure_components`).
 
 Under a device mesh (`distributed.mesh_context`, the parameters and the
 batch DTensors: `launch.steps.shard_state`, `shard_batch`) the same code
 runs on each rank's shards: `constrain` at the reference's points
 (`model.py:99,109,123,158,219,394`) redistributes the activations, and
-DTensor's sharding propagation does the rest. `abstract_params`,
+DTensor's sharding propagation does the rest. Decode runs under a mesh
+too, its caches in `cache_logical_axes`' placements (`long_ctx`: T over
+`long_kv_seq`; see `attention.decode`). `abstract_params`,
 `abstract_cache` and `cache_logical_axes` describe the parameters and
 caches without allocating them (meta tensors).
 
@@ -53,7 +60,8 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed.sharding import (Partial, Replicate, Shard,
                                               activation_placements,
                                               constrain, current_mesh,
-                                              local_region, replicated_like)
+                                              local_region, replicated_like,
+                                              shard_range)
 from repro_torch.models import attention, mamba, moe
 from repro_torch.models.config import BlockSpec, ModelConfig
 from repro_torch.models.layers import (DTYPES, DeclModule, ParamDecl,
@@ -93,10 +101,10 @@ class Block(nn.Module):
                 device)
 
 
-def _ffn(blk: Block, h, cfg: ModelConfig):
+def _ffn(blk: Block, h, cfg: ModelConfig, moe_dispatch: str = "gspmd"):
     """The block's FFN: (y, MoE aux loss, or None for a dense FFN)."""
     if blk.spec.moe:
-        return moe.apply(blk.ffn, h, cfg)
+        return moe.apply(blk.ffn, h, cfg, dispatch=moe_dispatch)
     return swiglu(h, blk.ffn["w_gate"], blk.ffn["w_in"],
                   blk.ffn["w_out"]), None
 
@@ -149,7 +157,8 @@ def abstract_params(cfg: ModelConfig) -> LM:
 # --------------------------------------------------------------------- #
 # forward (train / prefill)
 # --------------------------------------------------------------------- #
-def _run_block(blk: Block, x, cfg: ModelConfig):
+def _run_block(blk: Block, x, cfg: ModelConfig,
+               moe_dispatch: str = "gspmd"):
     """One layer. Returns (x, aux): aux is the MoE's load-balance loss
     (f32 scalar), 0 for a dense FFN or none."""
     spec = blk.spec
@@ -168,7 +177,7 @@ def _run_block(blk: Block, x, cfg: ModelConfig):
                                          device=x.device))
     if spec.has_ffn:
         f, moe_aux = _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps),
-                          cfg)
+                          cfg, moe_dispatch)
         x = x + constrain(f, "batch", "seq", None)
         x = constrain(x, "batch", "seq", None)
         if moe_aux is not None:
@@ -176,7 +185,8 @@ def _run_block(blk: Block, x, cfg: ModelConfig):
     return x, aux
 
 
-def backbone(params: LM, x, cfg: ModelConfig, remat: bool = True):
+def backbone(params: LM, x, cfg: ModelConfig, remat: bool = True,
+             moe_dispatch: str = "gspmd"):
     """x: (B,S,d) embeddings -> (hidden (B,S,d) after the final norm, aux
     loss scalar). With `remat`, each block is one non-reentrant checkpoint:
     its input is saved and its internals are recomputed in the backward,
@@ -185,13 +195,16 @@ def backbone(params: LM, x, cfg: ModelConfig, remat: bool = True):
     aux = replicated_like(x, torch.zeros((), dtype=torch.float32,
                                          device=x.device))
     for blk in params.blocks:
-        if remat:
-            x, a = checkpoint(_run_block, blk, x, cfg, use_reentrant=False,
-                              preserve_rng_state=False)
-        else:
-            x, a = _run_block(blk, x, cfg)
+        x, a = _block(blk, x, cfg, moe_dispatch, remat)
         aux = aux + a
     return rms_norm(x, params.final["final_norm"], cfg.rms_eps), aux
+
+
+def _block(blk: Block, x, cfg: ModelConfig, moe_dispatch: str, remat: bool):
+    if remat:
+        return checkpoint(_run_block, blk, x, cfg, moe_dispatch,
+                          use_reentrant=False, preserve_rng_state=False)
+    return _run_block(blk, x, cfg, moe_dispatch)
 
 
 def _embed_sharded(tokens, w):
@@ -218,7 +231,8 @@ def _embed_sharded(tokens, w):
         mine = (ids >= 0) & (ids < wl.shape[0])
         emb = F.embedding(torch.where(mine, ids, 0), wl)
         return torch.where(mine[..., None], emb, 0)
-    return local_region(local, out, (tpl, wpl), mesh)(tokens, w)
+    return local_region(local, out, (tpl, wpl), mesh,
+                        tuple(tokens.shape) + (w.shape[1],))(tokens, w)
 
 
 def embed_tokens(params: LM, tokens, cfg: ModelConfig):
@@ -242,16 +256,48 @@ def embed_inputs(params: LM, batch: dict, cfg: ModelConfig):
 def ce_chunk_loss(w, h_c, y_c, cfg: ModelConfig):
     """Summed token cross-entropy of one sequence chunk: logits (B,c,V)
     over all `padded_vocab` rows of `w` in f32, log-sum-exp minus the
-    label's logit."""
+    label's logit. Under a mesh both terms are vocab-parallel
+    (`_ce_sharded`)."""
     logits = torch.einsum("bsd,vd->bsv", h_c, w).float()
     logits = constrain(logits, "batch", None, "act_vocab")
+    if current_mesh() is not None:
+        return _ce_sharded(logits, constrain(y_c, "batch", None))
     lse = torch.logsumexp(logits, dim=-1)
-    # DTensor's gather over a vocab-sharded dim (its MaskPartial) fails on
-    # this index shape: the label's logit is read from whole rows
-    logits = constrain(logits, "batch", None, None)
-    y_c = constrain(y_c, "batch", None)
     lbl = logits.gather(-1, y_c[..., None].long())[..., 0]
     return (lse - lbl).sum()
+
+
+def _ce_sharded(logits, y):
+    """The chunk's loss on vocab-split logits (Megatron's vocab-parallel
+    cross-entropy), in `local_map` regions over each rank's slice: the
+    row max (combined by an all-reduce max, `Partial("max")`), the sum of
+    exp(logit - max) and the label's logit where this rank's slice holds
+    the label (zero elsewhere; both combined by all-reduce sums); log-sum-
+    exp = max + log(sum), as `torch.logsumexp` computes it. No rank holds
+    a whole row of logits. The max is a constant to the gradient."""
+    mesh = current_mesh()
+    lpl = tuple(logits.placements)
+    rep = Replicate()
+    split = [j for j, p in enumerate(lpl) if p == Shard(2)]
+    rpl = tuple(p if p == Shard(0) else rep for p in lpl)     # per row
+    mx = tuple(Partial("max") if j in split else p
+               for j, p in enumerate(rpl))
+    sums = tuple(Partial() if j in split else p for j, p in enumerate(rpl))
+    lo, _ = shard_range(logits.shape[2], lpl, mesh, 2)
+    rows = tuple(y.shape)
+    m = local_region(lambda lg: lg.amax(dim=-1), mx, (lpl,), mesh, rows)(
+        logits).redistribute(mesh, rpl).detach()
+
+    def local(lg, m, y):
+        ids = y.long() - lo
+        mine = (ids >= 0) & (ids < lg.shape[2])
+        lbl = lg.gather(-1, torch.where(mine, ids, 0)[..., None])[..., 0]
+        return (torch.exp(lg - m[..., None]).sum(-1),
+                torch.where(mine, lbl, 0.0))
+    total, lbl = local_region(local, (sums, sums), (lpl, rpl, rpl), mesh,
+                              (rows, rows))(logits, m, y)
+    lse = torch.log(total.redistribute(mesh, rpl)) + m
+    return (lse - lbl.redistribute(mesh, rpl)).sum()
 
 
 def chunked_ce(params: LM, hidden, labels, cfg: ModelConfig,
@@ -266,6 +312,13 @@ def chunked_ce(params: LM, hidden, labels, cfg: ModelConfig,
                          f"{num_chunks} chunks")
     cs = s // num_chunks
     w = params.head_weights()
+    if current_mesh() is not None:
+        # the head's FSDP shards gathered once for every chunk (rows stay
+        # split over the vocab axes): left to DTensor, each chunk's product
+        # gathers the activations' batch instead and reduce-scatters
+        # partial logits, 16x the bytes at (16, 16)
+        w = w.redistribute(w.device_mesh, tuple(
+            p if p == Shard(0) else Replicate() for p in w.placements))
     # whole sequences, so that the chunks slice no sharded dim
     hidden = constrain(hidden, "batch", None, None)
     labels = constrain(labels, "batch", None)
@@ -279,31 +332,102 @@ def chunked_ce(params: LM, hidden, labels, cfg: ModelConfig,
 
 
 def train_loss(params: LM, batch: dict, cfg: ModelConfig,
-               remat: bool = True):
+               remat: bool = True, moe_dispatch: str = "gspmd"):
     """``chunked_ce + AUX_WEIGHT * aux`` over batch["tokens"] (or
     ["frames"]) and batch["labels"] (B,S)."""
     x = embed_inputs(params, batch, cfg)
-    hidden, aux = backbone(params, x, cfg, remat=remat)
+    hidden, aux = backbone(params, x, cfg, remat=remat,
+                           moe_dispatch=moe_dispatch)
     ce = chunked_ce(params, hidden, batch["labels"], cfg)
     return ce + AUX_WEIGHT * aux
 
 
-def head_loss(params: LM, hidden, labels, cfg: ModelConfig):
-    """Final norm + CE (the non-repeated tail of the train step)."""
+def head_loss(params: LM, hidden, labels, cfg: ModelConfig,
+              scan_chunks: bool = True):
+    """Final norm + CE (the non-repeated tail of the train step).
+    `scan_chunks` is the reference's choice between a scanned and an
+    unrolled chunk loop; the port's loop is a Python loop either way (the
+    reference's unrolled form), so it changes nothing."""
+    del scan_chunks
     h = rms_norm(hidden, params.final["final_norm"], cfg.rms_eps)
     return chunked_ce(params, h, labels, cfg)
 
 
 @torch.no_grad()
-def prefill(params: LM, batch: dict, cfg: ModelConfig):
+def prefill(params: LM, batch: dict, cfg: ModelConfig,
+            moe_dispatch: str = "gspmd"):
     """Forward pass over batch["tokens"] (B,S), or batch["frames"]
     (B,S,d) for the `frames` frontend, returning the last position's
     logits (B,1,padded_vocab) in f32."""
     x = embed_inputs(params, batch, cfg)
-    hidden, _ = backbone(params, x, cfg, remat=False)
+    hidden, _ = backbone(params, x, cfg, remat=False,
+                         moe_dispatch=moe_dispatch)
     last = hidden[:, -1:]
     logits = (last @ params.head_weights().T).float()
     return constrain(logits, "batch", None, "act_vocab")
+
+
+# --------------------------------------------------------------------- #
+# one pattern period (the dry-run's component measurement)
+# --------------------------------------------------------------------- #
+def superblock_decls(cfg: ModelConfig) -> dict:
+    """{name within one period's blocks: ParamDecl}, the names being those
+    of `superblock(cfg)`'s parameters ("0.attn.wq", ...; the reference's
+    `superblock_decls`, which keys them "block0/attn/wq", ...)."""
+    out = {}
+    for prefix, mod in superblock(cfg, "meta").named_modules():
+        if isinstance(mod, DeclModule):
+            for name, decl in mod.decls.items():
+                out[f"{prefix}.{name}"] = decl
+    return out
+
+
+def superblock(cfg: ModelConfig, device=None) -> nn.ModuleList:
+    """One pattern period: `len(cfg.pattern)` blocks, as `LM.blocks`
+    holds them `repeat` times (parameters allocated, not initialised)."""
+    dev = torch.device("meta") if device == "meta" else resolve_device(
+        device, "superblock")
+    dtype = DTYPES[cfg.param_dtype]
+    return nn.ModuleList(Block(cfg, spec, dtype, dev) for spec in cfg.pattern)
+
+
+def apply_superblock(blocks, x, cfg: ModelConfig,
+                     moe_dispatch: str = "gspmd", remat: bool = True):
+    """One period's blocks (`len(cfg.pattern)` consecutive `Block`s, e.g.
+    ``params.blocks[i * P:(i + 1) * P]``) over x (B,S,d), as `backbone`
+    runs them (one checkpoint per block with `remat`). Returns (x, aux).
+    The reference's `impl` has no counterpart: the tensors' device picks
+    the attention route."""
+    aux = replicated_like(x, torch.zeros((), dtype=torch.float32,
+                                         device=x.device))
+    for blk in blocks:
+        x, a = _block(blk, x, cfg, moe_dispatch, remat)
+        aux = aux + a
+    return x, aux
+
+
+def superblock_decode(blocks, caches: list, x, pos, cfg: ModelConfig,
+                      long_ctx: bool = False, moe_dispatch: str = "gspmd"):
+    """One period's blocks for one token: x (B,1,d), `caches` their
+    per-layer caches (attention caches written in place). Returns (x,
+    new caches). Drops the MoE's aux loss, as serving does."""
+    new_caches = []
+    for blk, c in zip(blocks, caches):
+        spec = blk.spec
+        h = rms_norm(x, blk.norms["norm1"], cfg.rms_eps)
+        if spec.kind == "attn":
+            a, (ck, cv) = attention.decode(blk.attn, h, c["k"], c["v"], pos,
+                                           cfg, spec.window, long_ctx)
+            new_caches.append({"k": ck, "v": cv})
+        else:
+            a, nc = mamba.decode(blk.mamba, h, c, cfg)
+            new_caches.append(nc)
+        x = constrain(x + a, "batch", None, None)
+        if spec.has_ffn:
+            f, _ = _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps),
+                        cfg, moe_dispatch)
+            x = constrain(x + f, "batch", None, None)
+    return x, new_caches
 
 
 # --------------------------------------------------------------------- #
@@ -318,8 +442,10 @@ def cache_len(cfg: ModelConfig, spec: BlockSpec, max_seq: int) -> int:
 def abstract_cache(cfg: ModelConfig, batch: int, max_seq: int,
                    long_ctx: bool = False) -> list[dict]:
     """The caches as meta tensors, one dict per layer (the structure of
-    `init_cache`): no allocation. `long_ctx` changes only the caches'
-    logical axes (`cache_logical_axes`)."""
+    `init_cache`): no allocation. As in the reference, `long_ctx` leaves
+    the structure as it is: a long context's caches differ only in their
+    logical axes (`cache_logical_axes`: T over `long_kv_seq`), which decide
+    how a mesh splits them."""
     del long_ctx
     meta = torch.device("meta")
     act = DTYPES[cfg.activation_dtype]
@@ -369,30 +495,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
 
 @torch.no_grad()
 def decode_step(params: LM, cache: list[dict], tokens, pos,
-                cfg: ModelConfig):
+                cfg: ModelConfig, long_ctx: bool = False,
+                moe_dispatch: str = "gspmd"):
     """One serving step. tokens: (B,1) int; pos: (B,) int positions.
 
     Returns (logits (B,1,padded_vocab) f32, new cache). Attention caches
     are updated in place (see `attention.decode`); mamba states are
-    replaced. Raises ValueError for an encoder (`frames` frontend)."""
+    replaced. Each pattern period is one `superblock_decode`. Under a
+    device mesh the caches are DTensors in `cache_logical_axes`'
+    placements (`long_ctx`: T over `long_kv_seq`). Raises ValueError for
+    an encoder (`frames` frontend)."""
     if cfg.frontend == "frames":
         raise ValueError("encoder models have no decode step")
     x = embed_tokens(params, tokens, cfg)
+    p = len(cfg.pattern)
     new_cache = []
-    for blk, c in zip(params.blocks, cache):
-        spec = blk.spec
-        h = rms_norm(x, blk.norms["norm1"], cfg.rms_eps)
-        if spec.kind == "attn":
-            a, (ck, cv) = attention.decode(blk.attn, h, c["k"], c["v"], pos,
-                                           cfg, spec.window)
-            new_cache.append({"k": ck, "v": cv})
-        else:
-            a, nc = mamba.decode(blk.mamba, h, c, cfg)
-            new_cache.append(nc)
-        x = x + a
-        if spec.has_ffn:
-            x = x + _ffn(blk, rms_norm(x, blk.norms["norm2"], cfg.rms_eps),
-                         cfg)[0]
+    for i in range(cfg.repeat):
+        sl = slice(i * p, (i + 1) * p)
+        x, nc = superblock_decode(params.blocks[sl], cache[sl], x, pos, cfg,
+                                  long_ctx, moe_dispatch)
+        new_cache += nc
     x = rms_norm(x, params.final["final_norm"], cfg.rms_eps)
     logits = (x @ params.head_weights().T).float()
     return constrain(logits, "batch", None, "act_vocab"), new_cache

@@ -19,8 +19,8 @@ vertices pinned to compute sites; the router is the Inter-Table.
   * Expert-parallel (`dispatch="all_to_all"` with a `torch.distributed`
     group whose size divides E, or under a mesh whose `model` axis does):
     `repro_torch.distributed.moe_ep`, two `all_to_all_single`s around the
-    rank's own experts. It has no backward: training takes the grouped
-    dispatch.
+    rank's own experts, differentiable (`moe_ep.AllToAll`): training
+    takes either dispatch.
 
 `apply` returns ``(y, aux)``: y in x's dtype and the Switch-style
 load-balance loss ``E * sum_e f_e * p_e`` over every group (serving drops
@@ -35,7 +35,6 @@ import torch.distributed as dist
 from torch.nn import functional as F
 
 from repro_torch.distributed import sharding as sh
-from repro_torch.kernels._grad import records_grad
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import ParamDecl
 
@@ -68,6 +67,14 @@ def _capacity(tokens: int, num_experts: int, k: int, factor: float) -> int:
     return max(8, -(-c // 8) * 8)   # round up to 8, as the reference does
 
 
+def expert_counts(flat_ids: torch.Tensor, e: int) -> torch.Tensor:
+    """How many entries of `flat_ids` name each of the `e` experts
+    (int64). A scatter-add, not `torch.bincount`: its output's length is
+    `e` whatever the data, so the dry-run's fake tensors take it."""
+    return torch.zeros(e, dtype=torch.int64, device=flat_ids.device) \
+        .scatter_add_(0, flat_ids, torch.ones_like(flat_ids))
+
+
 def _positions_in_expert(flat_ids: torch.Tensor, e: int) -> torch.Tensor:
     """Slot of each (token, choice) within its expert's capacity buffer:
     the number of earlier pairs routed to the same expert. The reference
@@ -77,7 +84,7 @@ def _positions_in_expert(flat_ids: torch.Tensor, e: int) -> torch.Tensor:
     one stable sort, which gives the same slots."""
     n = flat_ids.shape[0]
     order = torch.argsort(flat_ids, stable=True)
-    counts = torch.bincount(flat_ids, minlength=e)
+    counts = expert_counts(flat_ids, e)
     starts = counts.cumsum(dim=0) - counts
     pos = torch.empty_like(flat_ids)
     pos[order] = (torch.arange(n, device=flat_ids.device)
@@ -207,7 +214,7 @@ def _group_dispatch(xg: torch.Tensor, router: torch.Tensor, cap: int,
     probabilities (E,) for the load-balance loss."""
     e = router.shape[1]
     logits, weights, ids = route(xg, router, k)
-    counts = torch.bincount(ids.reshape(-1), minlength=e).float()
+    counts = expert_counts(ids.reshape(-1), e).float()
     prob_sum = torch.softmax(logits, dim=-1).sum(dim=(0, 1))
     bufs, lins, keeps = zip(*(dispatch_buffer(xg[i], ids[i], cap, e)
                               for i in range(xg.shape[0])))
@@ -285,8 +292,10 @@ def _dispatch_sharded(p, x, cfg: ModelConfig, gb: int, gs: int, cap: int):
     epl = sh.activation_placements(buf.shape, "moe_groups", "experts",
                                    None, None)
     wpl = tuple(sh.Shard(0) if pl == sh.Shard(1) else rep for pl in epl)
+    # an uneven split (40 experts over 16 ranks) keeps its global shape
     out = sh.local_region(_grouped_experts, epl, (epl, wpl, wpl, wpl),
-                          mesh)(buf, p["w_gate"], p["w_in"], p["w_out"])
+                          mesh, buf.shape)(buf, p["w_gate"], p["w_in"],
+                                           p["w_out"])
 
     local_shape = (b // gb, s // gs, d)
 
@@ -301,13 +310,10 @@ def _all_to_all_sharded(p, x, cfg: ModelConfig):
     """`moe_ep.moe_all_to_all` under a mesh, in a `local_map` region over
     the `model` axis's group: x with batch over the data axes and
     sequence over `model`, the router whole, each rank's E/M experts; the
-    load-balance loss over every rank of the mesh. Inference only: the
-    collectives inside have no backward."""
+    load-balance loss over every rank of the mesh. Differentiable: the
+    region's gradients come back in the inputs' placements (the router's
+    summed over the ranks, `local_region`)."""
     from repro_torch.distributed.moe_ep import moe_all_to_all
-    if records_grad(x, *(p[n] for n in ("router", "w_gate", "w_in",
-                                        "w_out"))):
-        raise RuntimeError("moe dispatch='all_to_all' has no backward; "
-                           "train with the grouped dispatch ('gspmd')")
     mesh = sh.current_mesh()
     names = mesh.mesh_dim_names
     b, s, _ = x.shape

@@ -270,27 +270,11 @@ def _card_path(*ins, chunk):
     return ssd_with_intra(ops.SSDIntra.apply, *ins, chunk=chunk)
 
 
-def _plain_kernels(monkeypatch, seen=None):
-    """The Function's two kernels replaced by their plain versions (the
-    kernels need the card); `seen` records the C each one was given."""
-    def fwd(C, B, dtx, cums):
-        if seen is not None:
-            seen["fwd"].append(C)
-        return ssd_intra_ref(C, B, dtx, cums)
-
-    def bwd(C, B, dtx, cums, dy, dS):
-        if seen is not None:
-            seen["bwd"].append(C)
-        return ssd_intra_bwd_ref(C, B, dtx, cums, dy, dS)
-    monkeypatch.setattr(ssd, "ssd_intra_cuda", fwd)
-    monkeypatch.setattr(ssd, "ssd_intra_bwd_cuda", bwd)
-
-
 @pytest.mark.parametrize("case", VJP_CASES)
-def test_ssd_grads_match_jax_vjp(case, monkeypatch):
+def test_ssd_grads_match_jax_vjp(case):
     """The gradients of x, dt, Bm, Cm, A_log and D (cotangents on y and
-    the final state) through `_card_path` (SSDIntra with the plain
-    kernels) and through `ssd_chunked` on the CPU (`ssd_ref` under
+    the final state) through `_card_path` (SSDIntra, whose ops run their
+    plain versions on CPU tensors) and through `ssd_chunked` on the CPU (`ssd_ref` under
     autograd), against `jax.vjp` of the reference's `ssd_ref`: within
     1e-4 x max(1, max|ref|) per gradient."""
     ins, cot = _full_inputs(*case)
@@ -298,7 +282,6 @@ def test_ssd_grads_match_jax_vjp(case, monkeypatch):
     want = _jax_vjp(chunk)(tuple(map(jnp.asarray, ins)),
                            tuple(map(jnp.asarray, cot)))
     want = [torch.from_numpy(np.array(w)) for w in want]
-    _plain_kernels(monkeypatch)
     for fn in (_card_path, ssd_chunked):
         leaves = [torch.from_numpy(a).requires_grad_() for a in ins]
         y, hf = fn(*leaves, chunk=chunk)
@@ -308,22 +291,33 @@ def test_ssd_grads_match_jax_vjp(case, monkeypatch):
 
 
 @pytest.mark.parametrize("remat", [False, True])
-def test_ssd_function_plumbing(remat, monkeypatch):
+def test_ssd_function_plumbing(remat):
     """SSDIntra saves C, B, dtx and cums and hands them to the backward
-    kernel; under a non-reentrant checkpoint those are the recomputed
-    forward's. The gradients equal autograd through `ssd_ref` within the
-    kernel's tolerance."""
+    op; under a non-reentrant checkpoint those are the recomputed
+    forward's (a dispatch mode records the C each op was given; on CPU
+    tensors the ops run their plain versions). The gradients equal
+    autograd through `ssd_ref` within the kernel's tolerance."""
+    from torch.utils._python_dispatch import TorchDispatchMode
     seen = {"fwd": [], "bwd": []}
-    _plain_kernels(monkeypatch, seen)
+    ops_seen = {torch.ops.repro_torch.ssd_intra: "fwd",
+                torch.ops.repro_torch.ssd_intra_bwd: "bwd"}
+
+    class Calls(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func._overloadpacket in ops_seen:
+                seen[ops_seen[func._overloadpacket]].append(args[0])
+            return func(*args, **(kwargs or {}))
+
     ins, cot = _full_inputs(1, 64, 2, 8, 4, 32, 0.0)
     leaves = [torch.from_numpy(a).requires_grad_() for a in ins]
 
     def run(*a):
         return _card_path(*a, chunk=32)
-    y, hf = (checkpoint(run, *leaves, use_reentrant=False) if remat
-             else run(*leaves))
-    got = torch.autograd.grad((y, hf), leaves,
-                              tuple(map(torch.from_numpy, cot)))
+    with Calls():
+        y, hf = (checkpoint(run, *leaves, use_reentrant=False) if remat
+                 else run(*leaves))
+        got = torch.autograd.grad((y, hf), leaves,
+                                  tuple(map(torch.from_numpy, cot)))
     assert len(seen["fwd"]) == (2 if remat else 1)
     # a saved input unpacks as a new tensor object on the same memory
     assert len(seen["bwd"]) == 1

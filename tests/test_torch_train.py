@@ -585,43 +585,42 @@ def test_bwd_wrapper_refusals():
 @pytest.mark.parametrize("dtype,hd,remat", [
     (torch.bfloat16, 128, False), (torch.bfloat16, 80, True),
     (torch.float32, 128, False), (torch.bfloat16, 256, True)])
-def test_flash_attention_function_passes_lse(monkeypatch, dtype, hd, remat):
-    """`ops.FlashAttention` asks the forward for L exactly when the
-    backward's route takes it and hands that L on; under a non-reentrant
-    checkpoint the backward gets the recomputed forward's L. The kernels
-    are stood in for by their plain versions (they run only on the card),
-    so the gradients equal attention_bwd_ref's on the same inputs."""
+def test_flash_attention_function_passes_lse(dtype, hd, remat):
+    """`ops.FlashAttention` asks the forward op for L exactly when the
+    backward's route takes it and hands that L to the backward op; under
+    a non-reentrant checkpoint the backward gets the recomputed forward's
+    L. On CPU tensors the ops run their plain versions (the kernels run
+    only on the card), so the gradients equal attention_bwd_ref's on the
+    same inputs; a dispatch mode records what each op was given."""
+    from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.checkpoint import checkpoint
     from repro_torch.kernels.attention import ops
     want_lse = flash.bwd_route(dtype, hd) == "wgmma"
     seen = {"fwd": [], "bwd": []}
+    fwd_op = torch.ops.repro_torch.flash_attention_fwd
+    bwd_op = torch.ops.repro_torch.flash_attention_bwd
 
-    def fwd(q, k, v, causal=True, window=None, return_lse=False):
-        assert return_lse == want_lse
-        o = attention_ref(q, k, v, causal=causal, window=window)
-        if not return_lse:
-            seen["fwd"].append(None)
-            return o
-        lse = attention_lse_ref(q, k, causal, window)
-        seen["fwd"].append(lse)
-        return o, lse
+    class Calls(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func._overloadpacket is fwd_op:
+                assert args[5] == want_lse
+                seen["fwd"].append(out[1] if want_lse else None)
+            elif func._overloadpacket is bwd_op:
+                assert (args[5] is not None) == want_lse
+                seen["bwd"].append(args[5])
+            return out
 
-    def bwd(q, k, v, o, do, causal=True, window=None, lse=None):
-        assert (lse is not None) == want_lse
-        seen["bwd"].append(lse)
-        return attention_bwd_ref(q, k, v, o, do, causal, window)
-
-    monkeypatch.setattr(flash, "flash_attention_cuda", fwd)
-    monkeypatch.setattr(flash, "flash_attention_bwd_cuda", bwd)
     q, k, v, do = (torch.from_numpy(x).to(dtype)
                    for x in _attn_inputs(1, 70, 4, 2, hd, seed=hd))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    if remat:
-        o = checkpoint(lambda a, b, c: ops.FlashAttention.apply(
-            a, b, c, True, 8), *leaves, use_reentrant=False)
-    else:
-        o = ops.FlashAttention.apply(*leaves, True, 8)
-    got = torch.autograd.grad(o, leaves, do)
+    with Calls():
+        if remat:
+            o = checkpoint(lambda a, b, c: ops.FlashAttention.apply(
+                a, b, c, True, 8), *leaves, use_reentrant=False)
+        else:
+            o = ops.FlashAttention.apply(*leaves, True, 8)
+        got = torch.autograd.grad(o, leaves, do)
     assert len(seen["fwd"]) == (2 if remat else 1) and len(seen["bwd"]) == 1
     assert seen["bwd"][0] is seen["fwd"][-1]
     want = attention_bwd_ref(q, k, v, attention_ref(q, k, v, window=8), do,
