@@ -8,10 +8,12 @@ The port of `repro.autotune.measure`. Two pricing paths, one currency
     engine's bounded-segment surface (`run_segment`, the hook the
     continuous-batching scheduler uses): a few deterministic probe
     sources, a capped step budget, best-of-`repeats` wall time. On a
-    CUDA device every step is one launch of the frontier-relax kernel,
-    and each repeat is bracketed by `torch.cuda.synchronize()` and CUDA
-    events; `run_segment` reads the frontier back once per step, so the
-    events span the host-bound wall a user feels.
+    CUDA device `run_segment` replays the engine's captured device loop
+    (CUDA graphs of up to `engine.DEVICE_CHUNK` steps, each step one
+    launch of the frontier-relax kernel, one device->host read per
+    graph; the untimed warm-up segment captures them), and each repeat is bracketed by
+    `torch.cuda.synchronize()` and CUDA events, so the events span the
+    wall a user feels.
 
   * **analytic** -- the cycle-simulator bridge, for candidates whose
     measurement would blow the tuning budget. The estimate reuses the

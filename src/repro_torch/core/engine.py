@@ -1,4 +1,5 @@
-"""The port's frontier engine: one host-driven fixpoint over the relax step.
+"""The port's frontier engine: the fixpoint over the relax step, on the
+device or driven from the host.
 
 The port of `repro.core.engine.FlipEngine`, in its two fabric modes:
 
@@ -12,20 +13,37 @@ The port of `repro.core.engine.FlipEngine`, in its two fabric modes:
     every step, no data-driven skipping.
 
 Execution is batched over independent queries: the state is
-(B, ntiles, T[, d]) on the engine's device. Every mode runs the same
-host loop, the semantics of the reference's `_fixpoint_host`: one
-`frontier.any()` read per step, a per-query live mask that freezes
-queries whose frontier emptied or whose step budget or deadline ran out
-(a frozen query keeps its frontier, so it reads non-converged), and
-flagged partial results. Each step is exactly one relax launch, so on
-the card the kernel's launch count equals the fixpoint's iterations.
+(B, ntiles, T[, d]) on the engine's device. Two drivers run the same
+step (`_masked_step`) with the same per-query live mask, which freezes
+queries whose frontier emptied or whose step budget ran out (a frozen
+query keeps its frontier, so it reads non-converged), so their results
+are bit for bit the same:
 
-On top of that loop, as in the reference:
+  * the device loop (`_fixpoint_device`, the reference's
+    `_dense_fixpoint_jit`): the live mask stays on the device, and the
+    steps run in chunks of up to `DEVICE_CHUNK` with one device->host
+    read per chunk. On the card each chunk is captured once as a CUDA
+    graph and replayed; on the CPU the same chunk runs eagerly. The steps
+    past the fixpoint at the end of the last chunk are exact no-ops
+    (every lane frozen), so K1 runs Σ L times for a fixpoint of
+    `iterations` steps: iterations <= launches < iterations +
+    DEVICE_CHUNK (one chunk of no-ops when no query is live at entry).
+    A replay credits K1's launch count with the launches its capture
+    recorded.
+  * the host loop (`_fixpoint_host`, the reference's `_fixpoint_host`):
+    one `frontier.any()` read per step, one launch per step, and the
+    step boundaries the host needs for deadlines, per-step wall times
+    and the distributed fixpoint's rank step. The CPU's plain version
+    runs here too, as the reference's jnp route does.
+
+`fixpoint_route` is the rule between them. On top of the two, as in
+the reference:
   * the distributed fixpoint (`execute(distributed=True, mesh=)`): the
     destination tiles split over the ranks of a `torch.distributed`
     process group, queries replicated. Each rank relaxes its own slab of
     blocks (K1 on the card) and one all-gather per step re-forms the
-    replicated state -- FLIP's NoC scatter;
+    replicated state -- FLIP's NoC scatter. It runs on the host loop:
+    the reference's on-device `dist_fix` loop is ROADMAP Queue 1 item 14;
   * warm starts (`WarmStart`, `resolve_warm`, `apply_updates`):
     incremental recompute after a monotone edge batch, seeded at the
     sources whose out-edges changed;
@@ -34,17 +52,15 @@ On top of that loop, as in the reference:
     tracing adds no device->host read per step;
   * the segment surface (`idle_state`, `write_slot`, `run_segment`,
     `finalize_state`) that the continuous-batching scheduler
-    (`repro_torch.serving`) drives.
-
-Not ported yet (ROADMAP Queue 1 item 3): a captured (CUDA-graph)
-K-step loop. The reference proves its on-device while_loop bit-equal to
-this host loop, so the port keeps only the host loop, for the
-distributed fixpoint too.
+    (`repro_torch.serving`) drives;
+  * the deprecated `run`, `run_batch`, `run_distributed` and
+    `run_updated`, shims over `execute`.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -54,6 +70,7 @@ from repro_torch.algebra import VertexAlgebra
 from repro_torch.core.mapping import Mapping
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph
+from repro_torch.kernels.frontier.frontier import frontier_relax_cuda
 from repro_torch.kernels.frontier.ops import (BlockedGraph, UpdateDelta,
                                               build_blocks, frontier_relax,
                                               resolve_relax_mode,
@@ -65,6 +82,41 @@ from repro_torch.resilience.errors import InvalidRequest
 # beyond it still execute exactly, only their rows are dropped (flagged
 # `truncated`)
 TRACE_CAP_DEFAULT = 4096
+
+# steps per chunk of the device loop: one device->host read per chunk,
+# and at most DEVICE_CHUNK - 1 no-op steps past a fixpoint's end
+DEVICE_CHUNK = 8
+
+
+def fixpoint_route(device_type: str, relax_mode: str, deadlined: bool,
+                   rank_step: bool) -> str:
+    """The driver of one fixpoint: "device" (`_fixpoint_device`, captured
+    on the card) or "host" (`_fixpoint_host`). The reference's rule
+    (`repro.core.engine` `FlipEngine._fixpoint`) on the port's routes: a
+    finite deadline needs host-observable step boundaries, and so does
+    the distributed fixpoint's rank step; the CPU's plain version is the
+    counterpart of the reference's jnp route and its host driver; a CUDA
+    engine on the kernel runs the device loop. `relax_mode` is resolved
+    ("cuda" or "torch")."""
+    if deadlined or rank_step:
+        return "host"
+    if device_type == "cuda" and relax_mode == "cuda":
+        return "device"
+    return "host"
+
+
+@dataclasses.dataclass
+class _CapturedLoop:
+    """The device loop's CUDA graphs for one (B, trace_cap) on one engine:
+    the static state that every chunk reads and writes back (attrs, aux,
+    frontier, steps, iterations, then the trace buffers), the budgets,
+    the chunk's summary (see `FlipEngine._loop_summary`), and one graph
+    per chunk length L with the K1 launches its capture recorded."""
+    state: tuple
+    budgets: torch.Tensor
+    summary: torch.Tensor
+    trace_cap: int
+    graphs: dict = dataclasses.field(default_factory=dict)
 
 
 @dataclasses.dataclass
@@ -263,49 +315,56 @@ class FlipEngine:
         if self._use_compact:
             fetched = act[bg.bsrc.long()].sum()
         else:
-            fetched = int(bg.bsrc.shape[0])
+            fetched = torch.full_like(active_tiles, int(bg.bsrc.shape[0]))
         active_v = frontier.flatten(1).sum(dim=1)
         return active_v, active_tiles, fetched
 
-    def _masked_step(self, attrs, aux, frontier, live: np.ndarray,
+    def _masked_step(self, attrs, aux, frontier, live,
                      with_stats: bool = False, step=None):
         """One relax step with the per-query freeze applied: queries not
         in `live` ((B,) bool) keep their state *and their frontier*, so
         a budget-frozen query still reads as non-converged while a
-        finished one stays finished. `step` replaces the local `_step`
-        (the distributed fixpoint's rank step). Returns the step's own
-        new tensors, or `torch.where` of them (a monotone algebra's aux,
+        finished one stays finished. `live` is a numpy mask (the host
+        loop, which skips the `torch.where` when every query is live) or
+        a bool tensor on the state's device (the device loop, which
+        always applies it). `step` replaces the local `_step` (the
+        distributed fixpoint's rank step). Returns the step's own new
+        tensors, or `torch.where` of them (a monotone algebra's aux,
         which no step reads, passes through)."""
         stepped = (step(attrs, aux, frontier) if step is not None
                    else self._step(attrs, aux, frontier,
                                    with_stats=with_stats))
         (attrs_n, aux_n, frontier_n), stats = \
             stepped if with_stats else (stepped, None)
-        if not live.all():                # torch.where would be identity
-            lv = torch.from_numpy(live).to(self.device)
-            ms = lv.reshape(lv.shape + (1,) * (attrs.ndim - 1))
-            attrs_n = torch.where(ms, attrs_n, attrs)
+        if isinstance(live, np.ndarray):
+            if live.all():                # torch.where would be identity
+                out = (attrs_n, aux_n, frontier_n)
+                return (out, stats) if with_stats else out
+            live = torch.from_numpy(live).to(self.device)
+        ms = live.reshape(live.shape + (1,) * (attrs.ndim - 1))
+        attrs_n = torch.where(ms, attrs_n, attrs)
+        if aux_n is not aux:
             aux_n = torch.where(ms, aux_n, aux)
-            frontier_n = torch.where(lv[:, None, None], frontier_n,
-                                     frontier)
+        frontier_n = torch.where(live[:, None, None], frontier_n, frontier)
         out = (attrs_n, aux_n, frontier_n)
         return (out, stats) if with_stats else out
 
     def _fixpoint(self, attrs, aux, frontier, trace_cap: int = 0,
                   budgets=None, deadlines_t=None, step=None):
-        """Host-driven fixpoint with per-query live masking, step
-        budgets ((B,) ints, default `max_steps`) and absolute
-        `time.monotonic` deadlines ((B,), +inf = none), enforced at step
-        boundaries. `step` is the distributed fixpoint's rank step
-        (untraced); None runs the local `_step`, which a host-layout
-        engine refuses.
+        """The fixpoint with per-query live masking, step budgets ((B,)
+        ints, default `max_steps`) and absolute `time.monotonic`
+        deadlines ((B,), +inf = none). `step` is the distributed
+        fixpoint's rank step (untraced); None runs the local `_step`,
+        which a host-layout engine refuses. `fixpoint_route` picks the
+        driver: the device loop on a CUDA engine, the host loop for a
+        finite deadline, a rank step or the CPU's plain version; both
+        give the same results bit for bit.
 
         Returns ``(attrs, aux, frontier, steps, trace, converged,
         expired)``: (B,) numpy steps and masks; the final frontier, so a
         bounded-budget run resumes exactly (`run_segment`); and `trace`,
         a ``(StepTrace, truncated)`` pair when `trace_cap` > 0, else
-        None. The trace rows stay on the device until the loop ends, and
-        the per-step wall closes at the loop's one device->host read."""
+        None."""
         if step is None and self.state_device is not None:
             raise ValueError(
                 "this engine keeps its layout on the host for a "
@@ -319,6 +378,24 @@ class FlipEngine:
                      else np.broadcast_to(np.asarray(deadlines_t,
                                                      dtype=np.float64),
                                           (b,)))
+        route = fixpoint_route(
+            self.device.type, resolve_relax_mode(self.relax_mode,
+                                                 self.device),
+            deadlines is not None, step is not None)
+        if route == "device":
+            return self._fixpoint_device(attrs, aux, frontier, trace_cap,
+                                         budgets)
+        return self._fixpoint_host(attrs, aux, frontier, trace_cap,
+                                   budgets, deadlines, step)
+
+    def _fixpoint_host(self, attrs, aux, frontier, trace_cap: int,
+                       budgets: np.ndarray, deadlines, step=None):
+        """The host loop (the reference's `_fixpoint_host`): one
+        device->host read of `frontier.any()` per step, deadlines
+        enforced at step boundaries, one launch per step. The trace rows
+        stay on the device until the loop ends, and each step's wall
+        closes at the next step's read (`StepTrace.step_wall_s`)."""
+        b = int(attrs.shape[0])
         expired = np.zeros(b, dtype=bool)
         steps = np.zeros(b, np.int32)
         rows: list[tuple] = []
@@ -352,6 +429,179 @@ class FlipEngine:
         if trace_cap:
             trace = (self._step_trace(rows, walls, b), n_iter > trace_cap)
         return attrs, aux, frontier, steps, trace, ~active, expired
+
+    def _fixpoint_device(self, attrs, aux, frontier, trace_cap: int = 0,
+                         budgets=None):
+        """The device loop, the reference's `_dense_fixpoint_jit`: the
+        live mask (frontier non-empty and steps < budget) stays on the
+        device, and the steps run in chunks of ``L = min(DEVICE_CHUNK,
+        max(budgets) - steps run)``, each followed by one device->host
+        read of the chunk's summary. A chunk's last steps past the
+        fixpoint are exact no-ops (every lane frozen). On a CUDA tensor
+        each chunk is a CUDA graph captured once per (B, L, trace_cap)
+        on this engine (`_replay`); on the CPU the same chunk runs
+        eagerly. With `trace_cap`, one stats row per iteration goes into
+        fixed (trace_cap, ...) buffers on the device; rows past the
+        capacity are dropped and the trace is flagged truncated. There
+        are no per-step walls (`step_wall_s` is None), as on the
+        reference's on-device loop.
+
+        Returns `_fixpoint`'s 7-tuple; the state tensors are the
+        caller's to keep (never a graph's static buffers)."""
+        b = int(attrs.shape[0])
+        budgets = np.broadcast_to(np.asarray(
+            self.max_steps if budgets is None else budgets,
+            dtype=np.int32), (b,))
+        dev = attrs.device
+        steps = torch.zeros(b, dtype=torch.int32, device=dev)
+        iters = torch.zeros((), dtype=torch.int32, device=dev)
+        # the trace buffers' last row takes the rows past the capacity
+        bufs = () if not trace_cap else (
+            torch.zeros((trace_cap + 1, b), dtype=torch.int32, device=dev),
+            torch.zeros(trace_cap + 1, dtype=torch.int32, device=dev),
+            torch.zeros(trace_cap + 1, dtype=torch.int32, device=dev),
+            torch.zeros((trace_cap + 1, b), dtype=torch.bool, device=dev))
+        state = (attrs, aux, frontier, steps, iters) + bufs
+        bud = torch.from_numpy(budgets.copy()).to(dev)
+        loop = (self._captured_loop(state, bud, trace_cap)
+                if dev.type == "cuda" else None)
+        summary = None
+        cap, run = int(budgets.max(initial=0)), 0
+        while run < cap:
+            n = min(DEVICE_CHUNK, cap - run)
+            if loop is not None:
+                out = self._replay(loop, n)
+            else:
+                state, out = self._device_chunk(state, bud, n, trace_cap)
+            run += n
+            summary = out.cpu().numpy()          # the one read per chunk
+            if not summary[0]:
+                break
+        if loop is not None:
+            state = tuple(x.clone() for x in loop.state)
+        if summary is None:                      # every budget is 0
+            summary = self._loop_summary(state[2], state[3], state[4],
+                                         bud).cpu().numpy()
+        n_iter = int(summary[1])
+        steps_np = summary[2:2 + b].astype(np.int32)
+        converged = summary[2 + b:].astype(bool)
+        trace = None
+        if trace_cap:
+            rows = min(n_iter, trace_cap)
+            av, at, bf, cv = (x[:rows].cpu().numpy() for x in state[5:])
+            nb = int(self.bg.bsrc.shape[0])
+            trace = (StepTrace(active_vertices=av, active_tiles=at,
+                               blocks_fetched=bf,
+                               blocks_skipped=np.int32(nb) - bf,
+                               converged=cv),
+                     n_iter > trace_cap)
+        return (state[0], state[1], state[2], steps_np, trace, converged,
+                np.zeros(b, dtype=bool))
+
+    def _device_chunk(self, state, budgets, n: int, trace_cap: int):
+        """`n` steps of the reference's while_loop body on the device
+        state ``(attrs, aux, frontier, steps, iterations, *trace
+        buffers)``: the live mask, the masked step with `torch.where`,
+        ``steps += live`` and, with `trace_cap`, the iteration's stats
+        row written at the iteration count (the spare last row once past
+        the capacity or when no query is live) and the count advanced
+        while any query is live (untraced, it stays 0). No host read: the
+        chunk is captured as one CUDA graph. Returns ``(state,
+        summary)``; the trace buffers are written in place."""
+        attrs, aux, frontier, steps, iters = state[:5]
+        bufs = state[5:]
+        for _ in range(n):
+            live = frontier.flatten(1).any(dim=1) & (steps < budgets)
+            if trace_cap:
+                (attrs, aux, frontier), stats = self._masked_step(
+                    attrs, aux, frontier, live, with_stats=True)
+                any_live = live.any()
+                row = torch.where(any_live, iters.clamp(max=trace_cap),
+                                  trace_cap).long().view(1)
+                for buf, val in zip(bufs, stats + (~live,)):
+                    buf.index_copy_(0, row, val.to(buf.dtype).reshape(
+                        (1,) + buf.shape[1:]))
+                iters = iters + any_live
+            else:
+                attrs, aux, frontier = self._masked_step(attrs, aux,
+                                                         frontier, live)
+            steps = steps + live
+        return ((attrs, aux, frontier, steps, iters) + bufs,
+                self._loop_summary(frontier, steps, iters, budgets))
+
+    @staticmethod
+    def _loop_summary(frontier, steps, iters, budgets) -> torch.Tensor:
+        """One int32 vector the driver reads after a chunk: [any query
+        still live, iterations (counted when tracing), steps (B),
+        converged (B)]."""
+        active = frontier.flatten(1).any(dim=1)
+        more = (active & (steps < budgets)).any()
+        return torch.cat([more.view(1).int(), iters.view(1).int(),
+                          steps.int(), (~active).int()])
+
+    def _captured_loop(self, state, budgets, trace_cap: int) -> _CapturedLoop:
+        """This engine's `_CapturedLoop` for (B, trace_cap), made at first
+        use, with `state` and `budgets` copied into its static tensors
+        (once per fixpoint; the replays then chain on them). Kept in the
+        instance's `__dict__`, never a dataclass field, so
+        `dataclasses.replace` (`apply_updates`) gives the new engine no
+        graph that points at this engine's blocks."""
+        loops = self.__dict__.setdefault("_captured", {})
+        key = (int(state[0].shape[0]), trace_cap)
+        loop = loops.get(key)
+        if loop is None:
+            loop = loops[key] = _CapturedLoop(
+                state=tuple(torch.empty_like(x) for x in state),
+                budgets=torch.empty_like(budgets),
+                summary=torch.empty(2 + 2 * key[0], dtype=torch.int32,
+                                    device=budgets.device),
+                trace_cap=trace_cap)
+        for dst, src in zip(loop.state, state):
+            dst.copy_(src)
+        loop.budgets.copy_(budgets)
+        return loop
+
+    def _replay(self, loop: _CapturedLoop, n: int) -> torch.Tensor:
+        """Replay the chunk of `n` steps (captured at first use) on
+        `loop`'s static state and credit K1's launch count with the
+        launches its capture recorded. Returns the static summary."""
+        entry = loop.graphs.get(n)
+        if entry is None:
+            entry = loop.graphs[n] = self._capture(loop, n)
+        graph, launches = entry
+        graph.replay()
+        frontier_relax_cuda.launches += launches
+        return loop.summary
+
+    def _capture(self, loop: _CapturedLoop, n: int):
+        """Capture one chunk of `n` steps over `loop`'s static state: the
+        chunk, then copies of its new state and summary into the static
+        tensors, so that replays chain. A warm-up chunk runs first on a
+        side stream over copies of the state (the kernel's build and
+        load, the allocator), as capture requires. Neither the warm-up's
+        nor the capture's calls of K1 are fixpoint steps, so its count
+        is put back. A failure raises: there is no fallback."""
+        dev = loop.budgets.device
+        before = frontier_relax_cuda.launches
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                self._device_chunk(tuple(x.clone() for x in loop.state),
+                                   loop.budgets, n, loop.trace_cap)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            start = frontier_relax_cuda.launches
+            with torch.cuda.graph(graph):
+                new, summary = self._device_chunk(loop.state, loop.budgets,
+                                                  n, loop.trace_cap)
+                for dst, src in zip(loop.state[:5], new[:5]):
+                    if src is not dst:
+                        dst.copy_(src)
+                loop.summary.copy_(summary)
+        launches = frontier_relax_cuda.launches - start
+        frontier_relax_cuda.launches = before
+        return graph, launches
 
     def _step_trace(self, rows, walls, b: int) -> StepTrace:
         """Stack the device-side trace rows once, after the loop."""
@@ -454,6 +704,44 @@ class FlipEngine:
                 wall_s=time.perf_counter() - t0, truncated=truncated,
                 tile=self.bg.tile, feature_dim=self.feature_dim)
         return out, steps, tele, converged, expired
+
+    # -------------------------------------------------------------- #
+    # deprecated pre-api entry points: thin shims over `execute`
+    # -------------------------------------------------------------- #
+    @staticmethod
+    def _warn_legacy(name: str) -> None:
+        warnings.warn(
+            f"FlipEngine.{name} is deprecated; compile a session with "
+            "flip_torch.compile(graph, program, plan) (repro_torch.api) "
+            "and call .query(...), or drive FlipEngine.execute directly",
+            DeprecationWarning, stacklevel=3)
+
+    def run(self, src: int = 0, warm: WarmStart | None = None):
+        """Deprecated: `execute(src)`. One query's result in original
+        vertex order and its steps."""
+        self._warn_legacy("run")
+        return self.execute(int(src), warm=warm)
+
+    def run_batch(self, srcs, warm: WarmStart | None = None):
+        """Deprecated: `execute(srcs)` with a sequence: ((B, n) results,
+        (B,) steps)."""
+        self._warn_legacy("run_batch")
+        return self.execute(np.atleast_1d(np.asarray(srcs)), warm=warm)
+
+    def run_distributed(self, src=0, mesh=None, axis: str = "data",
+                        warm: WarmStart | None = None):
+        """Deprecated: `execute(src, distributed=True, mesh=mesh)`; shapes
+        follow `src` as in `execute`. `axis` is the reference's mesh axis
+        name: a process group is one axis, so it selects nothing."""
+        del axis
+        self._warn_legacy("run_distributed")
+        return self.execute(src, warm=warm, distributed=True, mesh=mesh)
+
+    def run_updated(self, src, prev, delta: UpdateDelta):
+        """Deprecated: `execute(src, warm=resolve_warm(prev, delta))`:
+        recompute after `apply_updates`, warm where sound."""
+        self._warn_legacy("run_updated")
+        return self.execute(src, warm=self.resolve_warm(prev, delta))
 
     # -------------------------------------------------------------- #
     # the distributed fixpoint

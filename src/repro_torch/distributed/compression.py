@@ -34,14 +34,15 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_grads(grads: dict, feedback: dict | None
+def compress_grads(grads: dict, feedback_tree: dict | None
                    ) -> tuple[dict, dict]:
-    """Quantize -> dequantize each gradient with error feedback. Returns
-    (gradients in their dtypes, new feedback (f32)), keyed as `grads`."""
+    """Quantize -> dequantize each gradient with error feedback
+    (`feedback_tree`, keyed as `grads`, or None). Returns (gradients in
+    their dtypes, new feedback (f32)), keyed as `grads`."""
     new_g, new_fb = {}, {}
     for name, g in grads.items():
-        q, scale, g32 = _quant(g, None if feedback is None
-                               else feedback[name])
+        q, scale, g32 = _quant(g, None if feedback_tree is None
+                               else feedback_tree[name])
         deq = _dequant(q, scale)
         new_g[name] = deq.to(g.dtype)
         new_fb[name] = g32 - deq

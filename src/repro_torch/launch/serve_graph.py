@@ -194,6 +194,11 @@ class GraphServer:
             self.metrics.counter("sessions.hit").inc()
         return cq
 
+    def engine(self, algo: str):
+        """The FlipEngine behind this algebra's cached session (legacy
+        accessor; prefer `session`)."""
+        return self.session(algo).engine
+
     @staticmethod
     def _check_algo(algo: str) -> None:
         """Unknown algorithms are an `InvalidRequest` (still a

@@ -484,13 +484,14 @@ def cache_logical_axes(cfg: ModelConfig, long_ctx: bool = False
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int,
-               device=None) -> list[dict]:
+               long_ctx: bool = False, device=None) -> list[dict]:
     """Zero caches, one dict per layer: {"k", "v"} (B, T, KH, hd) for
-    attention, {"conv_x", "conv_B", "conv_C", "ssm"} for mamba."""
+    attention, {"conv_x", "conv_B", "conv_C", "ssm"} for mamba. The
+    structure of `abstract_cache(cfg, batch, max_seq, long_ctx)`."""
     dev = resolve_device(device, "init_cache")
     return [{k: torch.zeros(a.shape, dtype=a.dtype, device=dev)
              for k, a in layer.items()}
-            for layer in abstract_cache(cfg, batch, max_seq)]
+            for layer in abstract_cache(cfg, batch, max_seq, long_ctx)]
 
 
 @torch.no_grad()

@@ -84,10 +84,11 @@ def init_opt_state(params, cfg: AdamWConfig) -> dict:
     }
 
 
-def abstract_opt_state(params, cfg: AdamWConfig) -> dict:
-    """`init_opt_state`'s structure on the meta device (`params` may be
-    `models.model.abstract_params`): shapes and dtypes, no storage."""
-    named = named_params(params)
+def abstract_opt_state(abstract_params, cfg: AdamWConfig) -> dict:
+    """`init_opt_state`'s structure on the meta device (`abstract_params`
+    may be `models.model.abstract_params`): shapes and dtypes, no
+    storage."""
+    named = named_params(abstract_params)
     md = _mdtype(cfg)
     meta = torch.device("meta")
     return {
@@ -108,10 +109,11 @@ def _square_norm(t: torch.Tensor) -> torch.Tensor:
     return sq.full_tensor() if isinstance(sq, DTensor) else sq
 
 
-def global_norm(tensors: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every tensor, in f32 (over every
-    shard of a DTensor: a plain tensor, alike on every rank)."""
-    return torch.stack([_square_norm(t) for t in tensors.values()]
+def global_norm(tree: dict) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor of `tree` ({name:
+    tensor}), in f32 (over every shard of a DTensor: a plain tensor,
+    alike on every rank)."""
+    return torch.stack([_square_norm(t) for t in tree.values()]
                        ).sum().sqrt()
 
 
