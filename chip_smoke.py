@@ -157,18 +157,33 @@ Phases (every failure raises and exits nonzero):
                 us/step, best segment wall, blocks and the gate's estimate.
 
  15. distributed -- the distributed fixpoint at road-262k through
-                `ExecutionPlan(distributed=True)`. (a) One rank over NCCL
-                (world 1, a FileStore in a temporary directory): sssp x8,
-                bfs and bfs/op bit-equal to phase 4's results, steps
-                included, K1 launches = iterations, ms/step beside phase
-                4's; K1 on a rank's slab (the replicated state of every
-                tile, the carry of the rank's tiles) against its plain
-                version at world 2 (both ranks, B=8) and world 3 (the
-                last rank's slab ends in a padding tile). (b) Two ranks on
-                the one card over gloo (NCCL refuses two ranks on one
-                device), spawned: the same three queries on each rank,
-                bit-equal to phase 4's, K1 launches = iterations on each
-                rank;
+                `ExecutionPlan(distributed=True)`. First `graph_run
+                --engine dist` on SRN with no process group (one rank, no
+                collective): correct, through the captured loop's
+                replays. (a) One rank over NCCL (world 1, a FileStore in
+                a temporary directory): sssp x8, bfs and bfs/op on the
+                captured device loop (the rank step's all-gather recorded
+                in its CUDA graphs) and on the host loop (forced by
+                patching `fixpoint_route` in this script alone), in turns
+                as phase 22 runs them: both bit-equal to phase 4's
+                results and to each other, steps and convergence
+                included, with phase 22's launch and read rules and its
+                logged numbers; K1 on a rank's slab (the replicated state
+                of every tile, the carry of the rank's tiles) against its
+                plain version at world 2 (both ranks, B=8) and world 3
+                (the last rank's slab ends in a padding tile); one 1 MiB
+                all-gather's device time (CUDA events over a graph of 200
+                captured calls) and its host time eagerly;
+                every registered program at ExtLRN-16k from 4 sources
+                through the distributed plan against its local plan on
+                the card (every program bit-equal, steps and convergence
+                included, at world 1; the (+, x) programs' largest error
+                logged), one read per chunk; `graph_run --engine
+                dist` over the group. (b) Two ranks on the one card over
+                gloo (NCCL refuses two ranks on one device; gloo's
+                collectives run on the host, so the host loop), spawned:
+                the same three queries on each rank, bit-equal to phase
+                4's, K1 launches = iterations on each rank;
  16. granite -- granite-moe-3b-a800m at full width in bf16, random
                 weights from seed 0, through phase 8's path: the B=4 x
                 4,096 prefill (64 K2 launches, all wgmma; (token, choice)
@@ -349,11 +364,12 @@ Phases (every failure raises and exits nonzero):
                 MoE layer's gradients through `dispatch="all_to_all"`
                 against the grouped dispatch's (1e-5 x max|grad|). Every
                 number is logged beside nvidia-smi's name and power limit.
- 22. device loop -- (run after phase 14) on phase 4's network: sssp x8,
-                bfs and bfs/op through the captured device loop and, with
-                a deadline far in the future (the reference's rule for
-                the host loop), through the host loop, in turns (device,
-                host, host, device): attrs, steps and the converged mask
+ 22. device loop -- (run after phase 14, before 15) on phase 4's
+                network: sssp x8, bfs and bfs/op through the captured
+                device loop and, with a deadline far in the future (the
+                reference's rule for the host loop), through the host
+                loop, in turns (device, host, host, device): attrs,
+                steps and the converged mask
                 bit-equal; the host loop makes one launch and one
                 device->host read per iteration (+1 read at its exit, +1
                 for the result), the device loop one read per replayed
@@ -373,15 +389,16 @@ are in K1's.
 In phases 4, 5, 9-15 and 22 every fixpoint step is one launch of the
 frontier-relax kernel, and each path resets the launch count before it
 runs. A CUDA engine without a deadline runs the captured device loop
-(`FlipEngine._fixpoint_device`): a fixpoint replays chunks of L <=
-DEVICE_CHUNK steps, each replay credits L launches, and a chunk's steps
-past the fixpoint are no-ops, so each path requires iterations <=
+(`FlipEngine._fixpoint_device`), the distributed fixpoint too where its
+collective can be captured (NCCL, or no group): a fixpoint replays chunks
+of L <= DEVICE_CHUNK steps, each replay credits L launches, and a chunk's
+steps past the fixpoint are no-ops, so each path requires iterations <=
 launches <= iterations + (DEVICE_CHUNK - 1) x fixpoints (for the
 continuous server, the windows; for the bucket servers, every dispatch,
 retries included; for a tuning sweep, one warm-up and three timed
 segments per measured engine, which prices every bucket width on it).
-The host loop (a deadline, the distributed fixpoint of phase 15, on each
-rank in 15b) requires launches = iterations. A capture that fails
+The host loop (a deadline in phase 22, the forced runs of 15a, the gloo
+ranks of 15b) requires launches = iterations. A capture that fails
 raises: there is no fallback to the host loop.
 
 The last lines are one JSON object describing each kernel -- K2 and its
@@ -425,6 +442,7 @@ from repro_torch.autotune import measure as at_measure  # noqa: E402
 from repro_torch.autotune.tuner import DEFAULT_BUDGET_S  # noqa: E402
 from repro_torch.core import (baselines, compile_mapping,  # noqa: E402
                               mapping_order, simulate)
+from repro_torch.core import engine as engine_mod  # noqa: E402
 from repro_torch.core.engine import DEVICE_CHUNK, FlipEngine  # noqa: E402
 from repro_torch.distributed.health import HeartbeatMonitor  # noqa: E402
 from repro_torch.distributed.sharding import (NamedSharding,  # noqa: E402
@@ -1195,6 +1213,83 @@ def counted_reads():
         yield reads
 
 
+@contextlib.contextmanager
+def deadline_host_loop():
+    """A deadline far in the future routes a query through the host loop
+    (the reference's rule). Yields the query's keywords."""
+    yield {"deadline_s": HOST_LOOP_DEADLINE_S}
+
+
+@contextlib.contextmanager
+def forced_host_loop():
+    """Route every fixpoint to the host loop by patching `fixpoint_route`,
+    in this script alone (the package has no such knob): the distributed
+    fixpoint refuses deadlines. Yields the query's keywords (none)."""
+    with mock.patch.object(engine_mod, "fixpoint_route",
+                           lambda *a, **k: "host"):
+        yield {}
+
+
+def loops_in_turns(label, cq, q, host_loop) -> tuple[int, dict, object]:
+    """Query `q` of `cq` on the captured device loop and, inside
+    `host_loop()`, on the host loop, in turns (device, host, host,
+    device): attrs, steps and the converged mask bit-equal; the host loop
+    one launch and one device->host read per iteration (+1 read at its
+    exit, +1 for the result), the device loop one read per replayed chunk
+    (+1 for the result). Logs ms/step, queries/s, the busy share from
+    torch.profiler over one more query of each loop, reads per query and
+    launches, beside nvidia-smi's name and power limit. Returns the
+    launches, the row of numbers and the device loop's first result."""
+    b = int(np.size(q))
+    launches = 0
+    walls, first = {"device": [], "host": []}, {}
+    for route in ("device", "host", "host", "device"):
+        ctx = (host_loop() if route == "host"
+               else contextlib.nullcontext({}))
+        with ctx as kw, counted_reads() as reads:
+            r, wall, n = counted_query(cq, q, f"{label} {route} loop", **kw)
+        launches += n
+        walls[route].append(wall)
+        first.setdefault(route, (r, reads[0], n))
+    (rd, reads_d, n_d), (rh, reads_h, n_h) = first["device"], first["host"]
+    require(np.array_equal(rd.attrs, rh.attrs)
+            and np.array_equal(rd.steps, rh.steps)
+            and np.array_equal(rd.converged, rh.converged),
+            f"{label}: the captured loop differs from the host loop")
+    iters = int(np.max(rd.steps))
+    require(n_h == iters and reads_h == iters + 2,
+            f"{label}: the host loop made {n_h} launches and {reads_h} "
+            f"reads for {iters} iterations")
+    require(reads_d == -(-n_d // DEVICE_CHUNK) + 1,
+            f"{label}: the captured loop made {reads_d} reads for "
+            f"{n_d} launches")
+    busy = {}
+    for route in ("device", "host"):
+        ctx = (host_loop() if route == "host"
+               else contextlib.nullcontext({}))
+        with ctx as kw:
+            busy[route] = profile_query(cq, q, f"{label} {route} loop", **kw)
+    row = {}
+    for route, reads in (("device", reads_d), ("host", reads_h)):
+        w = walls[route]
+        row[route] = {
+            "ms_per_step": [x / iters * 1e3 for x in w],
+            "queries_per_s": [b / x for x in w],
+            "busy_share": busy[route], "reads_per_query": reads,
+            "launches": n_d if route == "device" else n_h}
+        log(f"{label} {route} loop: {iters} iterations, walls "
+            + ", ".join(f"{x:.4f}" for x in w) + " s = "
+            + ", ".join(f"{x / iters * 1e3:.4f}" for x in w)
+            + " ms/step = "
+            + ", ".join(f"{b / x:.3f}" for x in w)
+            + " queries/s; device busy "
+            + ("not measured" if busy[route] is None
+               else f"{busy[route]:.1%}")
+            + f"; {reads} device->host reads per query; launches "
+            f"{row[route]['launches']} ({SMI[0]})")
+    return launches, dict(row, iterations=iters), rd
+
+
 def phase_device_loop(g, sssp, bfs, srcs, rng) -> tuple[int, dict]:
     """Phase 22 (module docstring). Returns the kernel's launches and,
     per query, the captured loop's and the host loop's numbers."""
@@ -1203,53 +1298,9 @@ def phase_device_loop(g, sssp, bfs, srcs, rng) -> tuple[int, dict]:
              ("bfs/op", flip_torch.compile(
                  g, "bfs", flip_torch.ExecutionPlan(mode="op")), 0))
     for label, cq, q in cases:
-        b = int(np.size(q))
-        walls, first = {"device": [], "host": []}, {}
-        for route in ("device", "host", "host", "device"):
-            kw = ({} if route == "device"
-                  else {"deadline_s": HOST_LOOP_DEADLINE_S})
-            with counted_reads() as reads:
-                r, wall, n = counted_query(cq, q, f"{label} {route} loop",
-                                           **kw)
-            launches += n
-            walls[route].append(wall)
-            first.setdefault(route, (r, reads[0], n))
-        (rd, reads_d, n_d), (rh, reads_h, n_h) = (first["device"],
-                                                  first["host"])
-        require(np.array_equal(rd.attrs, rh.attrs)
-                and np.array_equal(rd.steps, rh.steps)
-                and np.array_equal(rd.converged, rh.converged),
-                f"{label}: the captured loop differs from the host loop")
-        iters = int(np.max(rd.steps))
-        require(n_h == iters and reads_h == iters + 2,
-                f"{label}: the host loop made {n_h} launches and {reads_h} "
-                f"reads for {iters} iterations")
-        require(reads_d == -(-n_d // DEVICE_CHUNK) + 1,
-                f"{label}: the captured loop made {reads_d} reads for "
-                f"{n_d} launches")
-        busy = {route: profile_query(cq, q, f"{label} {route} loop", **(
-            {} if route == "device"
-            else {"deadline_s": HOST_LOOP_DEADLINE_S}))
-            for route in ("device", "host")}
-        row = {}
-        for route, reads in (("device", reads_d), ("host", reads_h)):
-            w = walls[route]
-            row[route] = {
-                "ms_per_step": [x / iters * 1e3 for x in w],
-                "queries_per_s": [b / x for x in w],
-                "busy_share": busy[route], "reads_per_query": reads,
-                "launches": n_d if route == "device" else n_h}
-            log(f"{label} {route} loop: {iters} iterations, walls "
-                + ", ".join(f"{x:.4f}" for x in w) + " s = "
-                + ", ".join(f"{x / iters * 1e3:.4f}" for x in w)
-                + " ms/step = "
-                + ", ".join(f"{b / x:.3f}" for x in w)
-                + f" queries/s; device busy "
-                + ("not measured" if busy[route] is None
-                   else f"{busy[route]:.1%}")
-                + f"; {reads} device->host reads per query; launches "
-                f"{row[route]['launches']} ({SMI[0]})")
-        found[label] = dict(row, iterations=iters)
+        n, found[label], _ = loops_in_turns(label, cq, q,
+                                            deadline_host_loop)
+        launches += n
 
     # a query after apply_updates replays only its own engine's graphs
     r = sssp.query(srcs)
@@ -2327,6 +2378,7 @@ def lm_path(arch: str, kernel, rng, cfg=None, replay_layers=None,
 DIST_WORLD = 2                # ranks of the one-card gloo run (15b)
 DIST_CASES = (("sssp x8", "sssp", "data"), ("bfs", "bfs", "data"),
               ("bfs/op", "bfs", "op"))
+DIST_PROGRAM_SRCS = [0, 5, 9, 4_096]   # phase 15a's every-program hold
 
 
 def slab_checks(eng, bg, rng) -> float:
@@ -2380,14 +2432,84 @@ def dist_rank(rank: int, world: int, store: str, g, srcs, q) -> None:
         raise
 
 
-def phase_distributed(g, srcs, bg, phase4: dict, rng) -> tuple[int, dict]:
-    """Phase 15: (a) one rank through NCCL at world 1, (b) two ranks on
-    the one card over gloo. Every result bit-equal to phase 4's, steps
-    included, with K1 launches = iterations on every rank. Returns the
-    main process's launches and the launches by rank of (b)."""
+def dist_graph_run(label: str) -> int:
+    """`graph_run --engine dist` on the card (SRN, sssp from 3): correct
+    against the oracle, on the captured device loop (replays seen, the
+    replay accounting). Returns the kernel's launches."""
+    replays = [0]
+    replay = FlipEngine._replay
+
+    def spy(self, loop, n):
+        replays[0] += 1
+        return replay(self, loop, n)
+    relax.frontier_relax_cuda.launches = 0
+    with mock.patch.object(FlipEngine, "_replay", spy):
+        out = graph_run_main(["--algo", "sssp", "--dataset", "SRN", "--src",
+                              "3", "--engine", "dist", "--effort", "0"])
+    n = relax.frontier_relax_cuda.launches
+    require("[graph] correct vs reference: True" in out,
+            f"graph_run --engine dist ({label}): no correct self-check")
+    steps = int(out.split("fixpoint in ", 1)[1].split()[0])
+    require(replays[0] > 0, f"graph_run --engine dist ({label}): no replay "
+            "of a captured chunk")
+    replay_accounting(f"graph_run --engine dist ({label})", n, steps, 1)
+    log(f"graph_run --engine dist ({label}): correct, {steps} steps, "
+        f"{replays[0]} replays, launches {n}")
+    return n
+
+
+def dist_programs() -> tuple[int, dict]:
+    """Every registered program through `ExecutionPlan(distributed=True)`
+    on the NCCL group at ExtLRN-16k against its local plan on the card,
+    both on the captured loop (one read per chunk on the distributed
+    one): every program bit-equal, steps and convergence included (at
+    world 1 the same kernel runs on the same tiles in the same order).
+    Returns the launches and the largest error of the (+, x) programs
+    (0 when they hold)."""
+    g2 = make_road_network(PROGRAM_N, seed=0, delete_frac=0.56)
+    launches, errs = 0, {}
+    for algo in sorted(ALGEBRAS):
+        alg = ALGEBRAS[algo]
+        local, _, n_l = counted_query(flip_torch.compile(g2, algo),
+                                      DIST_PROGRAM_SRCS, f"{algo} local")
+        cq = flip_torch.compile(g2, algo, flip_torch.ExecutionPlan(
+            distributed=True))
+        cq.query(DIST_PROGRAM_SRCS)     # the slab copy and the captures
+        with counted_reads() as reads:
+            r, wall, n = counted_query(cq, DIST_PROGRAM_SRCS, f"{algo} dist")
+        launches += n_l + n
+        require(reads[0] == -(-n // DEVICE_CHUNK) + 1,
+                f"dist {algo}: {reads[0]} reads for {n} launches: not the "
+                "captured loop")
+        # world 1 runs K1 on the same tiles in the same order as the
+        # local plan, so every program is held bit for bit; the (+, x)
+        # programs' atol is for worlds above 1 (the CPU tests)
+        ok = (np.array_equal(r.attrs, local.attrs)
+              and np.array_equal(r.steps, local.steps)
+              and np.array_equal(r.converged, local.converged))
+        what = "bit-equal, steps included"
+        if not alg.semiring.idempotent:
+            errs[algo] = float(np.abs(r.attrs - local.attrs).max())
+            what += f" (max|diff| {errs[algo]:.3e})"
+        require(ok, f"dist {algo} at 16k: differs from the local plan")
+        log(f"dist {algo} (NCCL, world 1) at ExtLRN-16k, B="
+            f"{len(DIST_PROGRAM_SRCS)}, d={cq.engine.feature_dim}: {what} "
+            f"against the local plan; steps {np.asarray(r.steps).tolist()}, "
+            f"{reads[0]} reads, launches {n} (local {n_l}), wall "
+            f"{wall:.4f} s")
+    return launches, errs
+
+
+def phase_distributed(g, srcs, bg, phase4: dict, rng) -> tuple[dict, dict]:
+    """Phase 15: (a) one rank through NCCL at world 1 on the captured
+    loop and on the host loop in turns, every program at ExtLRN-16k and
+    `graph_run --engine dist`; (b) two ranks on the one card over gloo
+    (host loop). Every road-262k result bit-equal to phase 4's, steps
+    included. Returns the main process's launches by part, and the slab
+    checks' error, (b)'s launches by rank and (a)'s numbers."""
     require(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
             "phase 15 runs over the NCCL group of world 1")
-    launches = 0
+    launches, found = {}, {}
     for label, algo, mode in DIST_CASES:
         cq = flip_torch.compile(g, algo, flip_torch.ExecutionPlan(
             distributed=True, mode=mode))
@@ -2397,23 +2519,22 @@ def phase_distributed(g, srcs, bg, phase4: dict, rng) -> tuple[int, dict]:
                 f"{cq.device}")
         s = srcs if label == "sssp x8" else 0
         t0 = time.perf_counter()
-        cq.query(s)                     # copies the slab to the card
+        cq.query(s)                     # the slab copy and the captures
         first = time.perf_counter() - t0
-        r, wall, n = counted_query(cq, s, f"dist {label}")
+        n, found[label], r = loops_in_turns(f"dist {label}", cq, s,
+                                            forced_host_loop)
+        launches["15a loops"] = launches.get("15a loops", 0) + n
         want = phase4[label]
         require(np.array_equal(r.attrs, want.attrs)
                 and np.array_equal(np.atleast_1d(r.steps),
-                                   np.atleast_1d(want.steps)),
+                                   np.atleast_1d(want.steps))
+                and np.array_equal(np.atleast_1d(r.converged),
+                                   np.atleast_1d(want.converged)),
                 f"dist {label}: differs from phase 4's result")
-        iters = int(np.max(r.steps))
-        log(f"dist {label} (NCCL, world 1): bit-equal to phase 4, steps "
-            f"included; {iters} iterations, launches {n}; "
-            f"{wall / iters * 1e3:.4f} ms/step (phase 4: "
-            f"{want.wall_s / iters * 1e3:.4f}); first query with the slab "
-            f"copy {first:.3f} s")
-        launches += n
-        if label == "bfs":
-            profile_query(cq, s, "dist bfs (NCCL, world 1)")
+        iters = found[label]["iterations"]
+        log(f"dist {label} (NCCL, world 1): both loops bit-equal to phase "
+            f"4, steps and convergence included; {iters} iterations; first "
+            f"query with the slab copy and the captures {first:.3f} s")
     err = slab_checks(cq.engine, bg, rng)
     # the collective alone: one all-gather of bfs's (1, 2048, 128) state
     x = torch.zeros((1, bg.ntiles, bg.tile), device="cuda")
@@ -2425,9 +2546,31 @@ def phase_distributed(g, srcs, bg, phase4: dict, rng) -> tuple[int, dict]:
     for _ in range(200):
         dist.all_gather_into_tensor(buf, x)
         torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / 200 * 1e6
+    # its device time: eager calls leave the device idle between them, so
+    # time 200 calls captured in one CUDA graph, as the device loop runs it
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(200):
+            dist.all_gather_into_tensor(buf, x)
+    graph.replay()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    graph.replay()
+    ev[1].record()
+    torch.cuda.synchronize()
+    found["all_gather_us"] = {"device": ev[0].elapsed_time(ev[1]) / 200 * 1e3,
+                              "host": host_us, "bytes": x.numel() * 4}
+    del graph
     log(f"NCCL all-gather of {x.numel() * 4} B at world 1: "
-        f"{(time.perf_counter() - t0) / 200 * 1e6:.1f} us per call with a "
-        "synchronize (host clock, 200 calls)")
+        f"{found['all_gather_us']['device']:.2f} us per call on the device "
+        f"(CUDA events over a graph of 200 captured calls), {host_us:.1f} us "
+        f"per eager call with a synchronize after each (host clock) "
+        f"({SMI[0]})")
+    t0 = time.perf_counter()
+    launches["15a programs 16k"], found["program_errs"] = dist_programs()
+    log(f"phase 15a programs: {time.perf_counter() - t0:.1f} s")
+    launches["15a graph_run NCCL"] = dist_graph_run("NCCL, world 1")
 
     # (b) two ranks on the one card, gloo (NCCL refuses two ranks on one
     # device); the state crosses the host in gloo's own copies
@@ -2470,7 +2613,7 @@ def phase_distributed(g, srcs, bg, phase4: dict, rng) -> tuple[int, dict]:
             by_rank[rank] += n
     log(f"phase 15b: {time.perf_counter() - t0:.1f} s with the ranks' "
         "start-up")
-    return launches, {"err": err, "by_rank": by_rank}
+    return launches, {"err": err, "by_rank": by_rank, "a": found}
 
 
 def ep_check(cfg, group, gen) -> None:
@@ -4905,6 +5048,8 @@ def main() -> None:
     log(f"phase 22 device loop: {time.perf_counter() - t0:.1f} s, {n} "
         f"kernel launches; {json.dumps(loop22)}")
 
+    # the distributed fixpoint with no group (one rank, no collective)
+    k1_phases["15 graph_run no group"] = dist_graph_run("no group")
     # one process group for the distributed phases: NCCL at world 1
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group(
@@ -4913,13 +5058,13 @@ def main() -> None:
             device_id=torch.device("cuda", torch.cuda.current_device()))
         try:
             t0 = time.perf_counter()
-            n, d15 = phase_distributed(g, srcs, bg, phase4, rng)
-            k1_phases["15a"] = n
+            n15, d15 = phase_distributed(g, srcs, bg, phase4, rng)
+            k1_phases.update(n15)
             for rank, nr in d15["by_rank"].items():
                 k1_phases[f"15b rank {rank}"] = nr
             log(f"phase 15 distributed: {time.perf_counter() - t0:.1f} s, "
-                f"{n} kernel launches in this process, "
-                f"{d15['by_rank']} by gloo rank")
+                f"{n15} kernel launches in this process, "
+                f"{d15['by_rank']} by gloo rank; {json.dumps(d15['a'])}")
             del sssp, bfs, bg
             torch.cuda.empty_cache()
 

@@ -33,8 +33,8 @@ are bit for bit the same:
   * the host loop (`_fixpoint_host`, the reference's `_fixpoint_host`):
     one `frontier.any()` read per step, one launch per step, and the
     step boundaries the host needs for deadlines, per-step wall times
-    and the distributed fixpoint's rank step. The CPU's plain version
-    runs here too, as the reference's jnp route does.
+    and a rank step whose collective runs on the host (gloo). The CPU's
+    plain version runs here too, as the reference's jnp route does.
 
 `fixpoint_route` is the rule between them. On top of the two, as in
 the reference:
@@ -42,8 +42,11 @@ the reference:
     destination tiles split over the ranks of a `torch.distributed`
     process group, queries replicated. Each rank relaxes its own slab of
     blocks (K1 on the card) and one all-gather per step re-forms the
-    replicated state -- FLIP's NoC scatter. It runs on the host loop:
-    the reference's on-device `dist_fix` loop is ROADMAP Queue 1 item 14;
+    replicated state -- FLIP's NoC scatter. Its rank step (`RankStep`)
+    runs on the device loop, all-gather included, where a CUDA graph can
+    record the collective (NCCL, or one rank with no group): the
+    reference's on-device `dist_fix`. Over gloo, whose collectives run on
+    the host, it keeps the host loop;
   * warm starts (`WarmStart`, `resolve_warm`, `apply_updates`):
     incremental recompute after a monotone edge batch, seeded at the
     sources whose out-edges changed;
@@ -89,16 +92,19 @@ DEVICE_CHUNK = 8
 
 
 def fixpoint_route(device_type: str, relax_mode: str, deadlined: bool,
-                   rank_step: bool) -> str:
+                   rank_step: bool, capturable: bool = False) -> str:
     """The driver of one fixpoint: "device" (`_fixpoint_device`, captured
     on the card) or "host" (`_fixpoint_host`). The reference's rule
     (`repro.core.engine` `FlipEngine._fixpoint`) on the port's routes: a
-    finite deadline needs host-observable step boundaries, and so does
-    the distributed fixpoint's rank step; the CPU's plain version is the
-    counterpart of the reference's jnp route and its host driver; a CUDA
-    engine on the kernel runs the device loop. `relax_mode` is resolved
-    ("cuda" or "torch")."""
-    if deadlined or rank_step:
+    finite deadline needs host-observable step boundaries; the CPU's
+    plain version is the counterpart of the reference's jnp route and its
+    host driver; a CUDA engine on the kernel runs the device loop, with
+    the distributed fixpoint's rank step in it (the reference's
+    `dist_fix`) when a CUDA graph can record the step's collective
+    (`capturable`, `RankStep.capturable`: NCCL, or no group), and on the
+    host loop otherwise (gloo). `relax_mode` is resolved ("cuda" or
+    "torch")."""
+    if deadlined or (rank_step and not capturable):
         return "host"
     if device_type == "cuda" and relax_mode == "cuda":
         return "device"
@@ -107,16 +113,108 @@ def fixpoint_route(device_type: str, relax_mode: str, deadlined: bool,
 
 @dataclasses.dataclass
 class _CapturedLoop:
-    """The device loop's CUDA graphs for one (B, trace_cap) on one engine:
-    the static state that every chunk reads and writes back (attrs, aux,
-    frontier, steps, iterations, then the trace buffers), the budgets,
-    the chunk's summary (see `FlipEngine._loop_summary`), and one graph
+    """The device loop's CUDA graphs for one (B, trace_cap, step) on one
+    engine: the static state that every chunk reads and writes back
+    (attrs, aux, frontier, steps, iterations, then the trace buffers),
+    the budgets, the chunk's summary (see `FlipEngine._loop_summary`),
+    the rank step the chunks run (None: the local step), and one graph
     per chunk length L with the K1 launches its capture recorded."""
     state: tuple
     budgets: torch.Tensor
     summary: torch.Tensor
     trace_cap: int
+    step: RankStep | None = None
     graphs: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RankStep:
+    """One rank's step of the distributed fixpoint, on the rank's slab of
+    an engine's layout (`FlipEngine._rank_slab`), over `group` (None: one
+    rank, no collective). `_fixpoint` takes it as its `step` and calls it
+    with the engine. It holds no engine: the engine's captured loops keep
+    their step, so a step holding the engine would make a reference loop
+    that only the cycle collector could free (the slab on the card, the
+    graphs' pools). `key` keys the rank's captured loops apart from the
+    engine's local ones and from another rank's, world's or group's; it
+    holds the group object itself, whose id a destroyed group could hand
+    on."""
+    slab: BlockedGraph
+    rank: int
+    world: int
+    group: object = None
+
+    @property
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can record the step's collective: NCCL's
+        can (the warm-up chunk makes the communicator before the
+        capture); gloo runs its collectives on the host. With no group
+        there is no collective."""
+        return self.group is None or dist.get_backend(self.group) == "nccl"
+
+    @property
+    def key(self) -> tuple:
+        return (self.rank, self.world, self.group)
+
+    def pad(self, engine, state):
+        """A replicated (attrs, aux, frontier) state of `engine` padded
+        from `ntiles` to ``ntiles_p = world x tpd`` tiles: ⊕-identity
+        attrs, zero aux, an empty frontier, so padding never activates or
+        contributes."""
+        attrs, aux, frontier = state
+        pad = self.slab.ntiles * self.world - engine.bg.ntiles
+        if not pad:
+            return attrs, aux, frontier
+        widths = (0, 0) * (attrs.ndim - 2) + (0, pad)
+        zero = float(engine.algebra.semiring.zero)
+        return (torch.nn.functional.pad(attrs, widths, value=zero),
+                torch.nn.functional.pad(aux, widths),
+                torch.nn.functional.pad(frontier, (0, 0, 0, pad)))
+
+    def __call__(self, engine, attrs, aux, frontier):
+        """One distributed step of `engine` on this rank: relax the slab's
+        tiles ``[t0, t0 + tpd)`` (t0 = rank x tpd) from the replicated
+        state, then all-gather the new slabs into the replicated (B,
+        ntiles_p, T[, d]) state.
+
+        A rank with no block, and, on the CPU in data mode, a rank none
+        of whose blocks has an active source tile (the reference's idle
+        skip for a whole device, its `lax.cond` at
+        `repro/core/engine.py:888`), returns its carry without a relax;
+        it still joins the collective. That idle test reads the device,
+        so on the card, where the step runs inside the device loop's
+        chunks, the port departs from the reference: the rank relaxes its
+        slab, and K1 skips each inactive source tile itself. The result
+        is the same on finite weights; a NaN weight is the one operand
+        where a relaxed identity tile differs (ROADMAP Queue 3, "one
+        behaviour to know")."""
+        slab = self.slab
+        alg, features = engine.algebra, engine._features
+        sv, carry = alg.scatter_carry(attrs, frontier,
+                                      op_mode=(engine.mode == "op"),
+                                      features=features)
+        t0 = self.rank * slab.ntiles
+        carry_l = carry[:, t0:t0 + slab.ntiles].contiguous()
+        nb = int(slab.bsrc.shape[0])
+        idle = nb == 0 or (
+            engine._use_compact and not sv.is_cuda
+            and not bool(tile_activity(sv, slab.semiring, features)
+                         [slab.bsrc.long()].any()))
+        new_l = carry_l if idle else frontier_relax(
+            sv, carry_l, slab, mode=engine.relax_mode,
+            compact=engine._use_compact, feature_dim=engine.feature_dim)
+        if self.group is not None:
+            # all_gather_into_tensor concatenates along dim 0: gather
+            # rank-major (world, B, tpd, ...) and move the rank axis next
+            # to the tile axis once per step -- one copy of the state,
+            # where a tile-major state would change every algebra hook
+            b = new_l.shape[0]
+            buf = new_l.new_empty((self.world * b,) + tuple(new_l.shape[1:]))
+            dist.all_gather_into_tensor(buf, new_l, group=self.group)
+            new_l = buf.view((self.world, b) + tuple(new_l.shape[1:])) \
+                .transpose(0, 1).reshape(
+                    (b, self.world * slab.ntiles) + tuple(new_l.shape[2:]))
+        return alg.post_step(attrs, aux, sv, new_l, features=features)
 
 
 @dataclasses.dataclass
@@ -328,10 +426,10 @@ class FlipEngine:
         loop, which skips the `torch.where` when every query is live) or
         a bool tensor on the state's device (the device loop, which
         always applies it). `step` replaces the local `_step` (the
-        distributed fixpoint's rank step). Returns the step's own new
-        tensors, or `torch.where` of them (a monotone algebra's aux,
-        which no step reads, passes through)."""
-        stepped = (step(attrs, aux, frontier) if step is not None
+        distributed fixpoint's `RankStep`, called with this engine).
+        Returns the step's own new tensors, or `torch.where` of them (a
+        monotone algebra's aux, which no step reads, passes through)."""
+        stepped = (step(self, attrs, aux, frontier) if step is not None
                    else self._step(attrs, aux, frontier,
                                    with_stats=with_stats))
         (attrs_n, aux_n, frontier_n), stats = \
@@ -354,11 +452,11 @@ class FlipEngine:
         """The fixpoint with per-query live masking, step budgets ((B,)
         ints, default `max_steps`) and absolute `time.monotonic`
         deadlines ((B,), +inf = none). `step` is the distributed
-        fixpoint's rank step (untraced); None runs the local `_step`,
+        fixpoint's `RankStep` (untraced); None runs the local `_step`,
         which a host-layout engine refuses. `fixpoint_route` picks the
         driver: the device loop on a CUDA engine, the host loop for a
-        finite deadline, a rank step or the CPU's plain version; both
-        give the same results bit for bit.
+        finite deadline, a rank step over gloo or the CPU's plain
+        version; both give the same results bit for bit.
 
         Returns ``(attrs, aux, frontier, steps, trace, converged,
         expired)``: (B,) numpy steps and masks; the final frontier, so a
@@ -381,10 +479,11 @@ class FlipEngine:
         route = fixpoint_route(
             self.device.type, resolve_relax_mode(self.relax_mode,
                                                  self.device),
-            deadlines is not None, step is not None)
+            deadlines is not None, step is not None,
+            step is not None and step.capturable)
         if route == "device":
             return self._fixpoint_device(attrs, aux, frontier, trace_cap,
-                                         budgets)
+                                         budgets, step)
         return self._fixpoint_host(attrs, aux, frontier, trace_cap,
                                    budgets, deadlines, step)
 
@@ -431,20 +530,25 @@ class FlipEngine:
         return attrs, aux, frontier, steps, trace, ~active, expired
 
     def _fixpoint_device(self, attrs, aux, frontier, trace_cap: int = 0,
-                         budgets=None):
-        """The device loop, the reference's `_dense_fixpoint_jit`: the
-        live mask (frontier non-empty and steps < budget) stays on the
-        device, and the steps run in chunks of ``L = min(DEVICE_CHUNK,
-        max(budgets) - steps run)``, each followed by one device->host
-        read of the chunk's summary. A chunk's last steps past the
-        fixpoint are exact no-ops (every lane frozen). On a CUDA tensor
-        each chunk is a CUDA graph captured once per (B, L, trace_cap)
-        on this engine (`_replay`); on the CPU the same chunk runs
-        eagerly. With `trace_cap`, one stats row per iteration goes into
-        fixed (trace_cap, ...) buffers on the device; rows past the
-        capacity are dropped and the trace is flagged truncated. There
-        are no per-step walls (`step_wall_s` is None), as on the
-        reference's on-device loop.
+                         budgets=None, step: RankStep | None = None):
+        """The device loop, the reference's `_dense_fixpoint_jit` (and,
+        with a rank `step`, its distributed `dist_fix`): the live mask
+        (frontier non-empty and steps < budget) stays on the device, and
+        the steps run in chunks of ``L = min(DEVICE_CHUNK, max(budgets) -
+        steps run)``, each followed by one device->host read of the
+        chunk's summary. A chunk's last steps past the fixpoint are exact
+        no-ops (every lane frozen). On a CUDA tensor each chunk is a CUDA
+        graph captured once per (B, L, trace_cap, step key) on this
+        engine (`_replay`); on the CPU the same chunk runs eagerly. On
+        the card a rank step makes no host read (`RankStep.__call__`)
+        and its all-gather is recorded in the graph: every rank holds
+        the same state and budgets, so every rank captures and replays
+        the same chunk lengths in the same order. With `trace_cap` (the
+        local step only), one stats row per iteration goes into fixed
+        (trace_cap, ...) buffers on the device; rows past the capacity
+        are dropped and the trace is flagged truncated. There are no
+        per-step walls (`step_wall_s` is None), as on the reference's
+        on-device loop.
 
         Returns `_fixpoint`'s 7-tuple; the state tensors are the
         caller's to keep (never a graph's static buffers)."""
@@ -463,7 +567,7 @@ class FlipEngine:
             torch.zeros((trace_cap + 1, b), dtype=torch.bool, device=dev))
         state = (attrs, aux, frontier, steps, iters) + bufs
         bud = torch.from_numpy(budgets.copy()).to(dev)
-        loop = (self._captured_loop(state, bud, trace_cap)
+        loop = (self._captured_loop(state, bud, trace_cap, step)
                 if dev.type == "cuda" else None)
         summary = None
         cap, run = int(budgets.max(initial=0)), 0
@@ -472,7 +576,8 @@ class FlipEngine:
             if loop is not None:
                 out = self._replay(loop, n)
             else:
-                state, out = self._device_chunk(state, bud, n, trace_cap)
+                state, out = self._device_chunk(state, bud, n, trace_cap,
+                                                step=step)
             run += n
             summary = out.cpu().numpy()          # the one read per chunk
             if not summary[0]:
@@ -498,11 +603,13 @@ class FlipEngine:
         return (state[0], state[1], state[2], steps_np, trace, converged,
                 np.zeros(b, dtype=bool))
 
-    def _device_chunk(self, state, budgets, n: int, trace_cap: int):
+    def _device_chunk(self, state, budgets, n: int, trace_cap: int,
+                      step: RankStep | None = None):
         """`n` steps of the reference's while_loop body on the device
         state ``(attrs, aux, frontier, steps, iterations, *trace
-        buffers)``: the live mask, the masked step with `torch.where`,
-        ``steps += live`` and, with `trace_cap`, the iteration's stats
+        buffers)``: the live mask, the masked step (the local one, or the
+        rank `step`, untraced) with `torch.where`, ``steps += live``
+        and, with `trace_cap`, the iteration's stats
         row written at the iteration count (the spare last row once past
         the capacity or when no query is live) and the count advanced
         while any query is live (untraced, it stays 0). No host read: the
@@ -523,8 +630,8 @@ class FlipEngine:
                         (1,) + buf.shape[1:]))
                 iters = iters + any_live
             else:
-                attrs, aux, frontier = self._masked_step(attrs, aux,
-                                                         frontier, live)
+                attrs, aux, frontier = self._masked_step(
+                    attrs, aux, frontier, live, step=step)
             steps = steps + live
         return ((attrs, aux, frontier, steps, iters) + bufs,
                 self._loop_summary(frontier, steps, iters, budgets))
@@ -539,23 +646,28 @@ class FlipEngine:
         return torch.cat([more.view(1).int(), iters.view(1).int(),
                           steps.int(), (~active).int()])
 
-    def _captured_loop(self, state, budgets, trace_cap: int) -> _CapturedLoop:
-        """This engine's `_CapturedLoop` for (B, trace_cap), made at first
-        use, with `state` and `budgets` copied into its static tensors
-        (once per fixpoint; the replays then chain on them). Kept in the
-        instance's `__dict__`, never a dataclass field, so
+    def _captured_loop(self, state, budgets, trace_cap: int,
+                       step: RankStep | None = None) -> _CapturedLoop:
+        """This engine's `_CapturedLoop` for (B, trace_cap) and the local
+        step or rank `step` (by `step.key`: a rank step's state is padded,
+        it reads the rank's slab and records the group's all-gather, so
+        it never shares a graph with a local query of the same B), made
+        at first use, with `state` and `budgets` copied into its static
+        tensors (once per fixpoint; the replays then chain on them). Kept
+        in the instance's `__dict__`, never a dataclass field, so
         `dataclasses.replace` (`apply_updates`) gives the new engine no
         graph that points at this engine's blocks."""
         loops = self.__dict__.setdefault("_captured", {})
-        key = (int(state[0].shape[0]), trace_cap)
+        b = int(state[0].shape[0])
+        key = (b, trace_cap, None if step is None else step.key)
         loop = loops.get(key)
         if loop is None:
             loop = loops[key] = _CapturedLoop(
                 state=tuple(torch.empty_like(x) for x in state),
                 budgets=torch.empty_like(budgets),
-                summary=torch.empty(2 + 2 * key[0], dtype=torch.int32,
+                summary=torch.empty(2 + 2 * b, dtype=torch.int32,
                                     device=budgets.device),
-                trace_cap=trace_cap)
+                trace_cap=trace_cap, step=step)
         for dst, src in zip(loop.state, state):
             dst.copy_(src)
         loop.budgets.copy_(budgets)
@@ -578,9 +690,12 @@ class FlipEngine:
         chunk, then copies of its new state and summary into the static
         tensors, so that replays chain. A warm-up chunk runs first on a
         side stream over copies of the state (the kernel's build and
-        load, the allocator), as capture requires. Neither the warm-up's
-        nor the capture's calls of K1 are fixpoint steps, so its count
-        is put back. A failure raises: there is no fallback."""
+        load, the allocator; a rank step's collectives, whose first call
+        makes the NCCL communicator), as capture requires. Neither the
+        warm-up's nor the capture's calls of K1 are fixpoint steps, so its
+        count is put back. A failure raises: there is no fallback (on a
+        rank step, the other ranks then wait in the collective until the
+        group's timeout ends them)."""
         dev = loop.budgets.device
         before = frontier_relax_cuda.launches
         with torch.cuda.device(dev):
@@ -588,13 +703,15 @@ class FlipEngine:
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 self._device_chunk(tuple(x.clone() for x in loop.state),
-                                   loop.budgets, n, loop.trace_cap)
+                                   loop.budgets, n, loop.trace_cap,
+                                   step=loop.step)
             torch.cuda.current_stream(dev).wait_stream(side)
             graph = torch.cuda.CUDAGraph()
             start = frontier_relax_cuda.launches
             with torch.cuda.graph(graph):
                 new, summary = self._device_chunk(loop.state, loop.budgets,
-                                                  n, loop.trace_cap)
+                                                  n, loop.trace_cap,
+                                                  step=loop.step)
                 for dst, src in zip(loop.state[:5], new[:5]):
                     if src is not dst:
                         dst.copy_(src)
@@ -765,35 +882,31 @@ class FlipEngine:
         version on the CPU), all-gathers the new slabs -- one collective
         per step whatever B, FLIP's NoC scatter -- and applies
         `post_step`, the live mask and the budgets as the local loop
-        does. Every rank holds the same state, so every rank reads the
-        same `frontier.any()` and leaves on the same step.
+        does (`RankStep`). Every rank holds the same state, so every rank
+        reads the same summary and leaves on the same step. On a CUDA
+        engine over NCCL, or with no group, the steps run on the device
+        loop, the all-gather captured in its CUDA graphs, one read per
+        chunk (the reference's `dist_fix`); over gloo on the host loop,
+        one read per step.
 
         Returns ``(out, steps, converged)``."""
-        group = mesh
+        step = self._dist_step(mesh)
+        attrs, aux, frontier = step.pad(self,
+                                        self.initial_state(srcs, warm=warm))
+        attrs, aux, _, steps, _, converged, _ = self._fixpoint(
+            attrs, aux, frontier, 0, budgets=budgets, step=step)
+        nt = self.bg.ntiles
+        out = self.finalize_state(attrs[:, :nt], aux[:, :nt])
+        return out, steps, converged
+
+    def _dist_step(self, group=None) -> RankStep:
+        """This rank's `RankStep` over `group` (None: the default group
+        when one is initialised, else one rank with no collective)."""
         if group is None and dist.is_available() and dist.is_initialized():
             group = dist.group.WORLD
         world = 1 if group is None else dist.get_world_size(group)
         rank = 0 if group is None else dist.get_rank(group)
-        bg = self.bg
-        slab = self._rank_slab(rank, world)
-        tpd = slab.ntiles
-        attrs, aux, frontier = self.initial_state(srcs, warm=warm)
-        pad = tpd * world - bg.ntiles
-        if pad:
-            widths = (0, 0) * (attrs.ndim - 2) + (0, pad)
-            attrs = torch.nn.functional.pad(
-                attrs, widths, value=float(self.algebra.semiring.zero))
-            aux = torch.nn.functional.pad(aux, widths)
-            frontier = torch.nn.functional.pad(frontier, (0, 0, 0, pad))
-
-        def step(attrs, aux, frontier):
-            return self._rank_step(attrs, aux, frontier, slab, rank * tpd,
-                                   group, world)
-
-        attrs, aux, _, steps, _, converged, _ = self._fixpoint(
-            attrs, aux, frontier, 0, budgets=budgets, step=step)
-        out = self.finalize_state(attrs[:, :bg.ntiles], aux[:, :bg.ntiles])
-        return out, steps, converged
+        return RankStep(self._rank_slab(rank, world), rank, world, group)
 
     def _rank_slab(self, rank: int, world: int) -> BlockedGraph:
         """Rank `rank`'s share of the layout, on the state's device: a
@@ -822,42 +935,6 @@ class FlipEngine:
             version=bg.version, graph_fp=bg.graph_fp)
         self._slabs[(rank, world)] = slab
         return slab
-
-    def _rank_step(self, attrs, aux, frontier, slab: BlockedGraph, t0: int,
-                   group, world: int):
-        """One distributed step on this rank: relax the slab's tiles
-        ``[t0, t0 + tpd)`` from the replicated state, then all-gather
-        the new slabs into the replicated (B, ntiles_p, T[, d]) state.
-
-        A rank with no block, and on the CPU in data mode a rank none of
-        whose blocks has an active source tile (the reference's idle
-        skip for a whole device), returns its carry without a relax; it
-        still joins the collective."""
-        alg, features = self.algebra, self._features
-        sv, carry = alg.scatter_carry(attrs, frontier,
-                                      op_mode=(self.mode == "op"),
-                                      features=features)
-        carry_l = carry[:, t0:t0 + slab.ntiles].contiguous()
-        nb = int(slab.bsrc.shape[0])
-        idle = nb == 0 or (
-            self._use_compact and not sv.is_cuda
-            and not bool(tile_activity(sv, slab.semiring, features)
-                         [slab.bsrc.long()].any()))
-        new_l = carry_l if idle else frontier_relax(
-            sv, carry_l, slab, mode=self.relax_mode,
-            compact=self._use_compact, feature_dim=self.feature_dim)
-        if group is not None:
-            # all_gather_into_tensor concatenates along dim 0: gather
-            # rank-major (world, B, tpd, ...) and move the rank axis next
-            # to the tile axis once per step -- one copy of the state,
-            # where a tile-major state would change every algebra hook
-            b = new_l.shape[0]
-            buf = new_l.new_empty((world * b,) + tuple(new_l.shape[1:]))
-            dist.all_gather_into_tensor(buf, new_l, group=group)
-            new_l = buf.view((world, b) + tuple(new_l.shape[1:])) \
-                .transpose(0, 1).reshape(
-                    (b, world * slab.ntiles) + tuple(new_l.shape[2:]))
-        return alg.post_step(attrs, aux, sv, new_l, features=features)
 
     def _trace_cap(self, trace: bool | int) -> int:
         """0 (off) or the per-step trace row capacity."""

@@ -7,7 +7,10 @@ distributed fixpoint runs in one subprocess with 4 forced host devices
 local fixpoint in this process. Idempotent programs (bfs, sssp, wcc,
 widest, reach, multi_bfs) must be bit-equal, steps included; pagerank
 and labelprop agree at `VertexAlgebra.atol`. Every rank must report the
-same steps.
+same steps. Inside the same spawns the device loop runs with the rank
+step (eagerly here; captured as CUDA graphs over NCCL on the card) and
+must equal the host loop of the same step bit for bit, at any chunk
+length, with every rank reading the same summary after every chunk.
 """
 import contextlib
 import io
@@ -27,7 +30,8 @@ import flip_torch
 from repro.core.engine import FlipEngine as RefEngine
 from repro.graphs import make_road_network as ref_road
 from repro_torch.algebra import ALGEBRAS
-from repro_torch.core.engine import FlipEngine
+from repro_torch.core import engine as eng_mod
+from repro_torch.core.engine import DEVICE_CHUNK, FlipEngine
 from repro_torch.graphs import make_road_network
 from repro_torch.resilience.errors import InvalidRequest
 from repro_torch.serving import AsyncGraphServer
@@ -38,6 +42,7 @@ SRCS = [2, 5, 9]
 ZERO_SRCS = [5, 0, 17, 23]
 ZERO_ALGOS = ("sssp", "pagerank", "multi_bfs")   # scalar, (+, x), d = 8
 WORLDS = (1, 2, 4)
+CHUNKS = (1, 3, 8)            # the device loop's chunk lengths held
 TIMEOUT_S = 120
 
 
@@ -100,6 +105,52 @@ def _rank_cases(world: int) -> dict:
                         "--engine", "dist", "--device", "cpu", "--effort",
                         "0"])
     out["graph_run"] = np.asarray(buf.getvalue())
+    out.update(_device_loop_cases(g, g48))
+    return out
+
+
+def _device_loop_cases(g, g48) -> dict:
+    """The device loop with the rank step (`_fixpoint_device(...,
+    step=)`, eager on the CPU, its gather over gloo; on the card over
+    NCCL it is captured) and the host loop of the same step, for every
+    program, with and without step budgets (at chunk lengths 1, 3 and
+    8); and the summary each chunk's read gives this rank."""
+    out = {}
+    cases = [(g, algo, SRCS, "") for algo in ALGOS] + [
+        (g48, algo, ZERO_SRCS, "zero/") for algo in ZERO_ALGOS]
+    for graph, algo, srcs, tag in cases:
+        eng = flip_torch.compile(graph, algo, _plan(), device="cpu").engine
+        step = eng._dist_step()
+        st = step.pad(eng, eng.initial_state(srcs))
+        summaries = []
+        chunk = eng._device_chunk
+
+        def recorded(*a, **k):
+            state, summary = chunk(*a, **k)
+            summaries.append(summary.clone())
+            return state, summary
+        eng._device_chunk = recorded
+        budget_sets = (("full", None), ("budget", np.asarray(
+            [3, 1000, 5, 2][:len(srcs)], np.int32)))
+        try:
+            for name, budgets in budget_sets:
+                key = f"loop/{tag}{algo}/{name}"
+                host = eng._fixpoint(*st, 0, budgets=budgets, step=step)
+                # query 1 of the budgeted set runs to its fixpoint: the
+                # chunk lengths are held there
+                for k in CHUNKS if budgets is not None else (8,):
+                    eng_mod.DEVICE_CHUNK = k
+                    dev = eng._fixpoint_device(*st, 0, budgets, step=step)
+                    for which, r in (("host", host), (f"device{k}", dev)):
+                        out[f"{key}/{which}/attrs"] = eng.finalize_state(
+                            r[0][:, :eng.bg.ntiles], r[1][:, :eng.bg.ntiles])
+                        out[f"{key}/{which}/steps"] = r[3]
+                        out[f"{key}/{which}/converged"] = r[5]
+                        out[f"{key}/{which}/frontier"] = r[2].numpy()
+        finally:
+            eng_mod.DEVICE_CHUNK = DEVICE_CHUNK
+            del eng._device_chunk
+        out[f"loop/{tag}{algo}/summaries"] = torch.stack(summaries).numpy()
     return out
 
 
@@ -204,6 +255,62 @@ def test_matches_reference_distributed_and_local(ranks, reference):
                 got[0][f"{algo}/steps"], reference[f"{world}/{algo}/steps"])
             np.testing.assert_array_equal(got[0][f"{algo}/steps"],
                                           local_steps)
+
+
+def test_device_loop_equals_host_loop(ranks):
+    """The device loop with the rank step equals the host loop of the
+    same step bit for bit, steps, convergence and the final frontier
+    included, for every program, with and without budgets (at chunk
+    lengths 1, 3 and 8)."""
+    _, got = ranks
+    cases = [f"loop/{a}" for a in ALGOS] + [f"loop/zero/{a}"
+                                            for a in ZERO_ALGOS]
+    for case in cases:
+        for name in ("full", "budget"):
+            key = f"{case}/{name}"
+            for k in CHUNKS if name == "budget" else (8,):
+                for f in ("attrs", "steps", "converged", "frontier"):
+                    np.testing.assert_array_equal(
+                        got[0][f"{key}/device{k}/{f}"],
+                        got[0][f"{key}/host/{f}"], err_msg=f"{key} {k} {f}")
+        full = got[0][f"{case}/full/host/converged"]
+        budget = got[0][f"{case}/budget/host/converged"]
+        assert full.all() and not budget.all(), case
+
+
+def test_device_loop_matches_reference(ranks, reference):
+    """The device loop against the reference's `dist_fix` on the same
+    mesh size: idempotent programs bit for bit, steps included; pagerank
+    and labelprop at `atol`. Budgets: equal to the plain step budgets of
+    the distributed query (`test_step_budgets_flag_partials`)."""
+    world, got = ranks
+    for algo in ALGOS:
+        key = f"loop/{algo}/full/device8"
+        _same(algo, got[0][f"{key}/attrs"], reference[f"{world}/{algo}/attrs"])
+        if ALGEBRAS[algo].semiring.idempotent:
+            np.testing.assert_array_equal(
+                got[0][f"{key}/steps"], reference[f"{world}/{algo}/steps"])
+    for algo in ZERO_ALGOS:
+        _same(algo, got[0][f"loop/zero/{algo}/full/device8/attrs"],
+              reference[f"{world}/zero/{algo}/attrs"])
+    np.testing.assert_array_equal(
+        got[0]["loop/sssp/budget/device8/attrs"], got[0]["budget/attrs"])
+    np.testing.assert_array_equal(
+        got[0]["loop/sssp/budget/device8/steps"], got[0]["budget/steps"])
+
+
+def test_ranks_read_the_same_chunk_summaries(ranks):
+    """Every rank reads the same summary after every chunk, so every rank
+    runs, captures and replays the same chunk lengths in the same order
+    and leaves the loop on the same chunk."""
+    world, got = ranks
+    keys = [k for k in got[0] if k.endswith("/summaries")]
+    assert len(keys) == len(ALGOS) + len(ZERO_ALGOS)
+    for key in keys:
+        assert got[0][key].shape[0] > 0, key
+        for r in range(1, world):
+            np.testing.assert_array_equal(got[r][key], got[0][key],
+                                          err_msg=f"rank {r} {key}")
 
 
 def test_ranks_without_blocks(ranks, reference):

@@ -10,10 +10,14 @@ tile 16), one reference compile per (algebra, B, trace capacity) shared
 across the cases. The idempotent programs must agree bit for bit
 (attrs, per-query steps, the converged mask, the frozen frontier);
 pagerank and labelprop at `VertexAlgebra.atol` (1e-4), since (+, x) is
-not bit-stable inside the reference.
+not bit-stable inside the reference. The distributed fixpoint's rank
+step in the device loop is held in tests/test_torch_distributed.py; here
+its route, a chunk with no host read and the captured loops' keys.
 """
 import dataclasses
 import functools
+import gc
+import weakref
 
 import numpy as np
 import pytest
@@ -128,10 +132,10 @@ def test_chunks_and_reads(monkeypatch):
     lengths = []
     chunk = eng._device_chunk
 
-    def counted(state, budgets, n, trace_cap):
+    def counted(state, budgets, n, trace_cap, step=None):
         lengths.append(n)
         with _no_host_reads():
-            return chunk(state, budgets, n, trace_cap)
+            return chunk(state, budgets, n, trace_cap, step=step)
 
     monkeypatch.setattr(eng, "_device_chunk", counted)
     monkeypatch.setattr(eng_mod, "DEVICE_CHUNK", 3)
@@ -184,6 +188,77 @@ def test_chunk_makes_no_host_read(algo):
         eng._device_chunk(st + (steps, it) + bufs, bud, 2, 4)
 
 
+@pytest.mark.parametrize("algo", ALGOS)
+def test_rank_step_chunk_makes_no_host_read(algo):
+    """A chunk of the distributed fixpoint's rank step, as the card
+    captures it: one rank with no group (world 1, no collective), K1's
+    place taken by the plain dense version (the whole-rank idle test,
+    which reads the device, runs only on the CPU's compacted route)."""
+    _, eng = _engines(algo)
+    eng = dataclasses.replace(eng, compact=False)
+    step = eng._dist_step(None)
+    assert step.capturable and step.key == (0, 1, None)
+    st = step.pad(eng, eng.initial_state(BATCH))
+    steps = torch.zeros(len(BATCH), dtype=torch.int32)
+    it = torch.zeros((), dtype=torch.int32)
+    bud = torch.full((4,), 100, dtype=torch.int32)
+    with _no_host_reads():
+        state, _ = eng._device_chunk(st + (steps, it), bud, 2, 0,
+                                     step=step)
+    want = eng._device_chunk(st + (steps, it), bud, 2, 0)[0]
+    assert all(torch.equal(a, b) for a, b in zip(state, want))
+
+
+def test_captured_loop_keys_local_and_rank_steps_apart():
+    """A local query and a rank step's query of the same B (at world 1
+    the padded state has the local shape) never share a graph, nor do
+    rank steps of another rank, world or group."""
+    _, eng = _engines("sssp")
+    eng = dataclasses.replace(eng)          # a fresh __dict__
+    st = eng.initial_state(BATCH) + (
+        torch.zeros(len(BATCH), dtype=torch.int32),
+        torch.zeros((), dtype=torch.int32))
+    bud = torch.full((4,), 100, dtype=torch.int32)
+    step = eng._dist_step(None)
+    other = object()                        # stands in for a group
+    local = eng._captured_loop(st, bud, 0)
+    rank = eng._captured_loop(st, bud, 0, step)
+    grouped = eng._captured_loop(st, bud, 0,
+                                 dataclasses.replace(step, group=other))
+    rank1 = eng._captured_loop(st, bud, 0,
+                               dataclasses.replace(step, rank=1, world=2))
+    loops = [local, rank, grouped, rank1]
+    assert len({id(x) for x in loops}) == 4
+    assert local.step is None and rank.step is step
+    assert eng._captured_loop(st, bud, 0) is local
+    assert eng._captured_loop(st, bud, 0, eng._dist_step(None)) is rank
+    assert eng._captured_loop(st, bud, 8) is not local
+    assert len(eng.__dict__["_captured"]) == 5
+
+
+def test_engine_with_rank_step_loops_is_freed_without_gc():
+    """A distributed engine whose captured loops keep rank steps is freed
+    by reference counting alone once dropped (as `apply_updates` drops
+    the old engine): no step refers back to the engine, so its slabs and
+    graphs go with it, not at the cycle collector's next run."""
+    _, eng = _engines("sssp")
+    eng = dataclasses.replace(eng, _slabs={})   # not the cached engine
+    st = eng.initial_state(BATCH) + (
+        torch.zeros(len(BATCH), dtype=torch.int32),
+        torch.zeros((), dtype=torch.int32))
+    bud = torch.full((4,), 100, dtype=torch.int32)
+    step = eng._dist_step(None)
+    eng._captured_loop(st, bud, 0, step)
+    assert eng.__dict__["_slabs"] and eng.__dict__["_captured"]
+    ref = weakref.ref(eng)
+    gc.disable()
+    try:
+        del eng, step
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 @pytest.mark.parametrize("algo", ["sssp", "pagerank"])
 def test_segments_compose_into_one_call(algo):
     """`run_segment`'s use: segments of 4 steps, each resuming from the
@@ -228,6 +303,8 @@ def test_zero_budgets_run_nothing():
     assert all(torch.equal(a, b) for a, b in zip(out[:3], st))
 
 
+# a rank step is True (its collective not known capturable) or names its
+# group's backend ("nccl", "gloo") or "no group" (one rank, no collective)
 @pytest.mark.parametrize("device, relax, deadlined, rank_step, want", [
     ("cuda", "cuda", False, False, "device"),
     ("cuda", "cuda", True, False, "host"),
@@ -235,9 +312,18 @@ def test_zero_budgets_run_nothing():
     ("cpu", "torch", False, False, "host"),
     ("cpu", "torch", True, False, "host"),
     ("cpu", "torch", False, True, "host"),
+    ("cuda", "cuda", False, "nccl", "device"),
+    ("cuda", "cuda", False, "no group", "device"),
+    ("cuda", "cuda", False, "gloo", "host"),
+    ("cuda", "cuda", True, "nccl", "host"),
+    ("cuda", "torch", False, "nccl", "host"),
+    ("cpu", "torch", False, "no group", "host"),
+    ("cpu", "torch", False, "gloo", "host"),
 ])
 def test_route_table(device, relax, deadlined, rank_step, want):
-    assert fixpoint_route(device, relax, deadlined, rank_step) == want
+    capturable = rank_step in ("nccl", "no group")
+    assert fixpoint_route(device, relax, deadlined, bool(rank_step),
+                          capturable) == want
 
 
 def test_cpu_engine_keeps_the_host_loop(monkeypatch):
