@@ -221,32 +221,44 @@ Phases (every failure raises and exits nonzero):
                 the card (a prefill through K2 and K3, the 8-token replay,
                 `serve --preset tiny --device cuda`).
  18. train    -- K2's backward (`flash_attention_bwd_cuda`) on its two
-                routes (`flash.bwd_route`): "wgmma" (bf16 at hd 64/80/128,
-                `flash_attention_bwd_wgmma.cu`: bwd_dot, bwd_dkdv, bwd_dq,
-                every product a wgmma; it takes the row log-sum-exp L that
-                the wgmma forward writes with `return_lse=True`) and "fma"
-                (f32, bf16 at hd 16/32/256, `flash_attention_bwd.cu` on the
-                CUDA cores). The forward's L against `attention_lse_ref`
+                routes (`flash.bwd_route`): "wgmma" (bf16 at hd
+                64/80/128/256, `flash_attention_bwd_wgmma.cu`: bwd_dot,
+                bwd_dkdv, bwd_dq, every product a wgmma; at hd 256 the two
+                consumer warpgroups of a 64-row tile split hd; it takes the
+                row log-sum-exp L that the wgmma forward writes with
+                `return_lse=True`) and "fma" (f32, bf16 at hd 16/32,
+                `flash_attention_bwd.cu` on the CUDA cores). The forward's
+                L against `attention_lse_ref`
                 (qwen3's layer, ragged S=200 and S=5, hd 64 and 80, S=300 >
                 T=100 under window 64, whose rows 163-299 see no key and
                 must get +inf; atol 1e-4; the output bit-equal to the call
                 without L). Each route against `attention_bwd_ref`: causal x
-                window {None, 128} x GQA ratio {1, 2, 8} x {f32, bf16} x hd
-                {64, 128}, f32 hd 16, non-causal hd 80 (hubert's layer,
-                bf16 at B=1 x 4,096), ragged S=200 (hd 256, and bf16 at hd
-                80 and 64) and S=5, T != S both ways, qwen3's layer at B=1
-                x 4,096 (f32 atol 1e-4 x max(1, max|ref|); bf16 atol 2e-2
-                plus the output's bf16 rounding, and a relative Frobenius
-                error of 1e-2); every case must take its route's kernel,
-                and each wgmma case logs the fma kernel's error on the same
-                inputs beside its own; the autograd Function
-                (`ops.flash_attention`) against torch.autograd through
-                `attention_ref` in f32. Times at qwen3's training shape
-                (bf16 q (8, 4,096, 16, 128), causal) both routes, beside the
-                plain version, SDPA's backward (yardstick only), the bound
-                and the wgmma design's seven-product floor (the profiled
-                train step splits it by kernel); the wgmma forward with and
-                without L at the prefill shape, in turns. The main path: qwen3-0.6b
+                window {None, 128} x GQA ratio {1, 2, 8} x {f32 at hd 64,
+                128; bf16 at hd 64, 128, 256}, f32 hd 16, non-causal hd 80
+                (hubert's layer, bf16 at B=1 x 4,096), ragged S=200 (hd
+                256, and bf16 at hd 80 and 64) and S=5, T != S both ways
+                (hd 128 or 64, and 256), qwen3's layer and gemma3's (hd
+                256, window 1,024 and global) at B=1 x 4,096 (f32 atol 1e-4
+                x max(1, max|ref|); bf16 atol 2e-2 plus the output's bf16
+                rounding, and a relative Frobenius error of 1e-2); every
+                case must take its route's kernel and give the same bits
+                on a second call, and each wgmma case logs the fma kernel's
+                error on the same inputs beside its own; the autograd
+                Function (`ops.flash_attention`) against torch.autograd
+                through `attention_ref` in f32. Times at qwen3's training
+                shape (bf16 q (8, 4,096, 16, 128), causal) both routes,
+                beside the plain version, SDPA's backward (yardstick only),
+                the bound and the wgmma design's seven-product floor (the
+                profiled train step splits it by kernel); the wgmma forward
+                with and without L at the prefill shape, in turns. At
+                gemma3's (q (8, 4,096, 16, 256), k/v 8 heads), its global
+                and a window-1,024 layer: the wgmma kernel (bwd_dkdv and
+                bwd_dq apart from the profiled gemma3 step below) and the
+                fma kernel in turns, SDPA's
+                backward naming its backend, the bound and the floor; the
+                wgmma forward at B=4 beside SDPA. Both CUDA-core kernels in
+                f32 at qwen3's shapes beside SDPA in f32 with TF32 off,
+                naming its backend. The main path: qwen3-0.6b
                 whole, bf16, B=8 x 4,096 from
                 `SyntheticTextDataset(151_936, 4_096, 8, seed=0)` through
                 `make_train_step` with remat, 5 steps: finite, falling
@@ -263,7 +275,18 @@ Phases (every failure raises and exits nonzero):
                 forward and backward) against the same step on
                 `attention_ref`, then 3 steps. `launch.train` on the card
                 (fma): 8 steps, --resume to 12, and a 12-step run resumed
-                from its own step 8 against the uninterrupted run.
+                from its own step 8 against the uninterrupted run. Then
+                gemma3-12b at full width cut to one pattern period (6 of 48
+                layers: 5 local, window 1,024, and 1 global), bf16, B=8 x
+                4,096 from `SyntheticTextDataset(262_144, 4_096, 8,
+                seed=0)`, 5 steps the same way (K2 forward 2 x 6 x 5 and
+                backward 6 x 5, all wgmma at hd 256; wq/wk/wv/q_norm/k_norm
+                gradients non-zero in all 6 layers; one profiled step), and
+                a route hold: 6 layers, B=1 x 2,048, one `train_loss` and
+                `autograd.grad` through the wgmma backward against the same
+                through the fma backward (patched in the script): the loss
+                within 1e-3 relative, every gradient within relative
+                Frobenius 1e-2.
  19. train mamba -- K3's backward (`ssd_intra_bwd_cuda`, 3xTF32 on the
                 tensor cores: `ssd_bwd_dxw` (wgmma, P <= 64) or
                 `ssd_bwd_dx` (mma.sync, P > 64), `ssd_bwd_dgsum`,
@@ -415,6 +438,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -700,10 +724,14 @@ def phase_build() -> None:
                             f"{source.name}: ptxas serialized the wgmma "
                             f"of {name} (a wait after each)")
             if source == flash.BWD_WGMMA_SOURCE:
-                for fn in ("bwd_dkdv", "bwd_dq"):
-                    require(any(fn in name and n_mma
+                # every instantiation by name: demangled "fn<(int)hd>" or
+                # mangled "fnILi<hd>E"
+                for fn, hd in itertools.product(
+                        ("bwd_dkdv", "bwd_dq"), (64, 128, 256)):
+                    require(any((f"{fn}<(int){hd}>" in name
+                                 or f"{fn}ILi{hd}E" in name) and n_mma
                                 for name, (n_mma, _) in waits.items()),
-                            f"{source.name}: no HGMMA in {fn}")
+                            f"{source.name}: no HGMMA in {fn}<{hd}>")
         if source == ssd.BWD_SOURCE:
             # the tensor-core route: wgmma (HGMMA) in ssd_bwd_dxw, mma.sync
             # (HMMA) in ssd_bwd_dx and ssd_bwd_dcdb
@@ -1906,18 +1934,16 @@ def phase_attention(gen) -> tuple[float, dict]:
     fma_ms = time_ms(lambda: flash._launch("fma", q, k, v, True, None),
                      reps=3, warmup=1)
     plain_ms = time_ms(lambda: attention_ref(q, k, v), reps=2, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=True,
-                                      enable_gqa=True), reps=10)
+    lib = sdpa_yardstick(q, k, v)
+    library_ms = lib["ms"]
     log(f"time attention bf16 B={b} S={s} H={shape[0]} KH={shape[1]} "
         f"hd={shape[2]} causal: wgmma kernel {ms:.4f} ms "
         f"({w['ops'] / ms / 1e9:.2f} TFLOP/s), CUDA-core kernel "
         f"{fma_ms:.4f} ms ({w['ops'] / fma_ms / 1e9:.2f} TFLOP/s), plain "
-        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-        f"{w['bound_ms']:.4f} ms ({w['bound_by']}; {w['ops']:.4g} ops, "
+        f"{plain_ms:.4f} ms, SDPA {library_ms:.4f} ms ({lib['backend']}), "
+        f"bound {w['bound_ms']:.4f} ms ({w['bound_by']}; {w['ops']:.4g} ops, "
         f"{w['bytes']} B)")
-    del q, k, v, qt, kt, vt
+    del q, k, v
     return max(errs), dict(w, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
                            library_ms=library_ms, hd80=hd80_timing(gen))
 
@@ -1942,16 +1968,15 @@ def hd80_timing(gen) -> dict:
                      reps=3, warmup=1)
     plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=False),
                        reps=2, warmup=1)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=False),
-                         reps=10)
+    lib = sdpa_yardstick(q, k, v, causal=False)
+    library_ms = lib["ms"]
     log(f"time attention bf16 B={b} S={s} H={h} KH={kh} hd={hd} "
         f"non-causal (hubert) [{flash.route(torch.bfloat16, hd)}, "
         f"{flash.wgmma_tile(hd)}-column tile]: wgmma kernel {ms:.4f} ms "
         f"({w['ops'] / ms / 1e9:.2f} TFLOP/s of the true hd), CUDA-core "
         f"kernel {fma_ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-        f"{library_ms:.4f} ms, bound {w['bound_ms']:.4f} ms "
+        f"{library_ms:.4f} ms ({lib['backend']}), bound "
+        f"{w['bound_ms']:.4f} ms "
         f"({w['bound_by']}; {w['ops']:.4g} ops at hd {hd}, {w['bytes']} "
         f"B), padded tile's floor {tile_ms:.4f} ms ({tile_ops:.4g} ops)")
     return dict(w, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
@@ -2887,6 +2912,9 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 4_096, 5   # train_4k cut 32x
 BWD_F32_ATOL = 1e-4           # x max(1, max|ref|) per output
 BWD_REL_TOL = 1e-2            # bf16: relative Frobenius per output
 HOLD_LAYERS, HOLD_BATCH, HOLD_SEQ = 2, 2, 256
+GEMMA3 = "gemma3_12b"
+GEMMA3_LAYERS = 6             # one pattern period: 5 local layers, 1 global
+GEMMA3_HOLD_SEQ = 2_048       # the route hold, past the local window
 
 
 def fma_route():
@@ -2927,9 +2955,10 @@ def bwd_check(label: str, gen, q, k, v, causal: bool, window: int | None,
     `attention_bwd_ref` on the same inputs (o and L from the forward
     kernel, do random; the plain version in f32 on the upcast inputs), at
     `grads_hold`'s limits. The call must take the route's kernel, counted
-    once. On the "wgmma" route the "fma" kernel runs on the same inputs too
-    and its error is logged beside (not held: it is the old route).
-    Returns (route, max|err|, the fma route's max|err| or None)."""
+    once, and a second call must give the same bits (no atomics). On the
+    "wgmma" route the "fma" kernel runs on the same inputs too and its
+    error is logged beside (not held: it is the other route). Returns
+    (route, max|err|, the fma route's max|err| or None)."""
     name = flash.bwd_route(q.dtype, q.shape[-1])
     with torch.no_grad():
         out = flash.flash_attention_cuda(q, k, v, causal=causal,
@@ -2945,6 +2974,10 @@ def bwd_check(label: str, gen, q, k, v, causal: bool, window: int | None,
     taken = {r: n - before[r] for r, n in counts.items() if n != before[r]}
     require(taken == {name: 1}, f"backward {label}: took {taken}, not "
             f"{name} once")
+    again = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal, window,
+                                           lse=lse)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"backward {label}: two calls differ")
     want = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(),
                              do.float(), causal, window)
     ok, err, notes = grads_hold(q.dtype, got, want)
@@ -3054,8 +3087,9 @@ def bwd_cases(gen) -> dict:
         errs[name].append(err)
         return name, err, alt
 
-    for dtype in (torch.float32, torch.bfloat16):
-        for hd in (64, 128):
+    for dtype, hds in ((torch.float32, (64, 128)),
+                       (torch.bfloat16, (64, 128, 256))):
+        for hd in hds:
             group, alts = [], []
             for kh in (8, 4, 1):                    # GQA ratio 1, 2, 8
                 q = randn(gen, (2, 320, 8, hd), dtype)
@@ -3097,6 +3131,12 @@ def bwd_cases(gen) -> dict:
         cases.append((f"{str(dtype)[6:]} qwen3 layer B=1 S={LM_SEQ}", dtype,
                       1, LM_SEQ, qcfg.num_heads, qcfg.num_kv_heads,
                       qcfg.head_dim, True, None))
+    # gemma3's local (window 1,024) and global layers at hd 256
+    gcfg = configs.get(GEMMA3)
+    for window in (gcfg.pattern[0].window, None):
+        cases.append((f"bf16 gemma3 layer B=1 S={LM_SEQ} window={window}",
+                      torch.bfloat16, 1, LM_SEQ, gcfg.num_heads,
+                      gcfg.num_kv_heads, gcfg.head_dim, True, window))
     for label, dtype, b, s, h, kh, hd, causal, window in cases:
         q = randn(gen, (b, s, h, hd), dtype)
         k = randn(gen, (b, s, kh, hd), dtype)
@@ -3106,7 +3146,10 @@ def bwd_cases(gen) -> dict:
     # T != S: kv tiles past S that no q tile reaches (zeros), and rows
     # past T
     for label, s, t, hd in (("bf16 S=200 T=328 hd=128 causal", 200, 328, 128),
-                            ("bf16 S=328 T=200 hd=64 causal", 328, 200, 64)):
+                            ("bf16 S=328 T=200 hd=64 causal", 328, 200, 64),
+                            ("bf16 S=200 T=328 hd=256 causal", 200, 328, 256),
+                            ("bf16 S=328 T=200 hd=256 causal", 328, 200,
+                             256)):
         run(label, randn(gen, (1, s, 4, hd), torch.bfloat16),
             randn(gen, (1, t, 2, hd), torch.bfloat16),
             randn(gen, (1, t, 2, hd), torch.bfloat16), True, None)
@@ -3160,14 +3203,10 @@ def bwd_timing(gen) -> dict:
             continue
     free()
     require(plain_ms is not None, "the plain backward fits at no batch")
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    out = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-    dot = do.transpose(1, 2)
-    library_ms = time_ms(lambda: torch.autograd.grad(
-        out, (qt, kt, vt), dot, retain_graph=True), reps=5)
-    del qt, kt, vt, out, dot
+    lib = sdpa_yardstick(q, k, v, do)
+    library_ms = lib["ms"]
+    require(library_ms is not None, "no fused SDPA backend took qwen3's "
+            "backward")
     # the forward at the prefill shape, in turns: without L, with, with,
     # without, twice over
     qf, kf, vf = q[:LM_BATCH], k[:LM_BATCH], v[:LM_BATCH]
@@ -3177,7 +3216,8 @@ def bwd_timing(gen) -> dict:
     without = [fwd_runs[i] for i in (0, 3, 4, 7)]
     with_l = [fwd_runs[i] for i in (1, 2, 5, 6)]
     t = {"ms": ms, "ms_again": ms2, "fma_ms": fma_ms, "plain_ms": plain_ms,
-         "plain_batch": plain_b, "library_ms": library_ms, "ops": ops,
+         "plain_batch": plain_b, "library_ms": library_ms,
+         "library_backend": lib["backend"], "ops": ops,
          "bytes": nbytes, "bound_ms": max(t_bytes, t_ops) * 1e3,
          "bound_by": "bytes" if t_bytes >= t_ops else "operations",
          "bound_recompute_ms": 3.0 * fwd["ops"] / BF16_OPS_PER_S * 1e3,
@@ -3188,7 +3228,8 @@ def bwd_timing(gen) -> dict:
         f"wgmma kernel {ms:.4f} ms, again {ms2:.4f} ms ({ops / ms / 1e9:.2f} "
         f"TFLOP/s of the 2.5x count), fma kernel {fma_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms at B={plain_b}, SDPA backward {library_ms:.4f} "
-        f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}; {ops:.4g} ops, "
+        f"ms ({lib['backend']}), bound {t['bound_ms']:.4f} ms "
+        f"({t['bound_by']}; {ops:.4g} ops, "
         f"{nbytes} B), with the recompute of q k^T "
         f"{t['bound_recompute_ms']:.4f} ms, the wgmma design's seven "
         f"products {t['floor_7_products_ms']:.4f} ms")
@@ -3200,6 +3241,197 @@ def bwd_timing(gen) -> dict:
     del q, k, v, o, do, lse, qf, kf, vf
     free()
     return t
+
+
+def mask_pairs(s: int, t: int, causal: bool, window: int | None) -> int:
+    """The (q, key) pairs the mask allows over `s` rows and `t` keys: the
+    work a flash kernel does on these inputs."""
+    q = torch.arange(s, dtype=torch.int64)
+    hi = q.clamp(max=t - 1) if causal else torch.full_like(q, t - 1)
+    lo = (q - window + 1).clamp(min=0) if window else torch.zeros_like(q)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def sdpa_backend(*args, **kw) -> str:
+    """The backend PyTorch's SDPA dispatch picks for these arguments."""
+    from torch.nn.attention import SDPBackend
+    names = {m.value: n.lower() for n, m in SDPBackend.__members__.items()}
+    return names.get(int(torch._fused_sdp_choice(*args, **kw)), "unknown")
+
+
+def sdpa_yardstick(q, k, v, do=None, causal: bool = True,
+                   window: int | None = None) -> dict:
+    """SDPA on (B,S,H,hd) q and (B,T,KH,hd) k/v, timed as one library call
+    (yardstick only; the port never calls it): the forward, or with `do`
+    the backward (autograd.grad of one recorded call). GQA through
+    `enable_gqa` where a fused backend takes it; else k/v repeated to H
+    heads beforehand (not timed) where one then does; the window as a
+    boolean mask. The math backend, which materializes the scores, is not
+    run: backend "none". Returns {"ms", "backend", "kv"}."""
+    grad = do is not None
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(grad)
+                  for x in (q, k, v))
+    kw = {"is_causal": causal} if window is None else {}
+    if window is not None:
+        pos = torch.arange(q.shape[1], device=q.device)
+        ok = pos[None, :] > pos[:, None] - window
+        if causal:
+            ok &= pos[None, :] <= pos[:, None]
+        kw["attn_mask"] = ok
+    kv = "enable_gqa"
+    backend = sdpa_backend(qt, kt, vt, enable_gqa=True, **kw)
+    if backend == "math":
+        g = q.shape[2] // k.shape[2]
+        kt, vt = (x.detach().repeat_interleave(g, dim=1).requires_grad_(grad)
+                  for x in (kt, vt))
+        kv = f"k/v repeated to {q.shape[2]} heads (untimed)"
+        backend = sdpa_backend(qt, kt, vt, **kw)
+    else:
+        kw["enable_gqa"] = True
+    if backend == "math":
+        return {"ms": None, "backend": "none", "kv": kv}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if grad:
+        out = sdpa(qt, kt, vt, **kw)
+        dot = do.transpose(1, 2)
+        ms = time_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True), reps=5)
+        del out, dot
+    else:
+        with torch.no_grad():
+            ms = time_ms(lambda: sdpa(qt, kt, vt, **kw), reps=10)
+    del qt, kt, vt, kw
+    free()
+    return {"ms": ms, "backend": backend, "kv": kv}
+
+
+def gemma_bwd_timing(gen) -> dict:
+    """K2's backward at gemma3-12b's training shape, bf16 q (8, 4,096, 16,
+    256), k/v (8, 4,096, 8, 256), for its global (causal) layer and a
+    local one (window 1,024): the wgmma kernel, in turns with the fma
+    kernel on the same inputs (wgmma, fma, wgmma; bwd_dot, bwd_dkdv and
+    bwd_dq apart come from the profiled train step, `gemma_main_path`);
+    SDPA's backward (`sdpa_yardstick`);
+    the bound, the larger of 2.5x the forward's operations over the mask's
+    pairs at the bf16 tensor-core rate and the bytes of q, k, v, o, do
+    read and dq, dk, dv written; the design's seven-product floor (3.5x).
+    Then the wgmma forward at the prefill shape (B=4), causal, beside SDPA
+    and its bound."""
+    cfg = configs.get(GEMMA3)
+    b, s, h, kh, hd = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim)
+    q = randn(gen, (b, s, h, hd), torch.bfloat16)
+    k = randn(gen, (b, s, kh, hd), torch.bfloat16)
+    v = randn(gen, (b, s, kh, hd), torch.bfloat16)
+    do = randn(gen, (b, s, h, hd), torch.bfloat16)
+    nbytes = (4 * b * s * h * hd + 4 * b * s * kh * hd) * 2
+    t = {"shape": f"bf16 q ({b}, {s}, {h}, {hd}), k/v ({b}, {s}, {kh}, "
+                  f"{hd}), causal", "bytes": nbytes}
+    for window in (None, cfg.pattern[0].window):
+        with torch.no_grad():
+            o, lse = flash.flash_attention_cuda(q, k, v, window=window,
+                                                return_lse=True)
+        fwd_ops = 4 * b * h * mask_pairs(s, s, True, window) * hd
+        ops = 2.5 * fwd_ops
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+
+        def wgmma():
+            return flash.flash_attention_bwd_cuda(q, k, v, o, do, True,
+                                                  window, lse=lse)
+
+        def fma():
+            with fma_route():
+                return flash.flash_attention_bwd_cuda(q, k, v, o, do, True,
+                                                      window)
+        ms = time_ms(wgmma, reps=10)
+        fma_ms = time_ms(fma, reps=1, warmup=1)
+        ms2 = time_ms(wgmma, reps=10, warmup=1)
+        lib = sdpa_yardstick(q, k, v, do, True, window)
+        row = {"ms": ms, "ms_again": ms2, "fma_ms": fma_ms,
+               "library_ms": lib["ms"],
+               "library_backend": lib["backend"], "library_kv": lib["kv"],
+               "ops": ops, "bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "floor_7_products_ms": 3.5 * fwd_ops / BF16_OPS_PER_S * 1e3}
+        t["global" if window is None else "local"] = row
+        lib_txt = ("none" if lib["ms"] is None else
+                   f"{lib['ms']:.4f} ms ({lib['backend']}, {lib['kv']})")
+        log(f"[{SMI[0]}] time backward gemma3 layer bf16 B={b} S={s} H={h} "
+            f"KH={kh} hd={hd} causal window={window}: wgmma kernel "
+            f"{ms:.4f} ms, again {ms2:.4f} ms ({ops / ms / 1e9:.2f} TFLOP/s "
+            f"of the 2.5x count), fma kernel "
+            f"{fma_ms:.4f} ms, SDPA backward {lib_txt}, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {ops:.4g} ops, "
+            f"{nbytes} B), the seven products' floor "
+            f"{row['floor_7_products_ms']:.4f} ms")
+        del o, lse
+        free()
+    qf, kf, vf = q[:LM_BATCH], k[:LM_BATCH], v[:LM_BATCH]
+    w = attention_work(LM_BATCH, s, h, kh, hd, torch.bfloat16)
+    fwd_ms = time_ms(lambda: flash.flash_attention_cuda(qf, kf, vf), reps=20)
+    lib = sdpa_yardstick(qf, kf, vf)
+    t["forward"] = {"ms": fwd_ms, "library_ms": lib["ms"],
+                    "library_backend": lib["backend"],
+                    "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+                    "shape": f"bf16 q ({LM_BATCH}, {s}, {h}, {hd}), causal"}
+    log(f"[{SMI[0]}] time forward gemma3 layer bf16 B={LM_BATCH} S={s} "
+        f"H={h} KH={kh} hd={hd} causal: wgmma kernel {fwd_ms:.4f} ms "
+        f"({w['ops'] / fwd_ms / 1e9:.2f} TFLOP/s), SDPA "
+        + ("none" if lib["ms"] is None else
+           f"{lib['ms']:.4f} ms ({lib['backend']})")
+        + f", bound {w['bound_ms']:.4f} ms ({w['bound_by']})")
+    del q, k, v, do, qf, kf, vf
+    free()
+    return t
+
+
+def f32_yardsticks(gen) -> dict:
+    """The CUDA-core routes' inputs are f32 (and bf16 at hd 16/32, which no
+    configuration has): both fma kernels in f32 at qwen3's shapes beside
+    SDPA in f32 with TF32 off (`sdpa_yardstick`, naming its backend): the
+    forward at the prefill shape (4, 4,096, 16, 128), the backward at the
+    training shape (8, 4,096, 16, 128), causal; each beside its bound at
+    the f32 rate outside the tensor cores."""
+    require(not torch.backends.cuda.matmul.allow_tf32
+            and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    cfg = configs.get(TRAIN_ARCH)
+    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    out = {}
+    for what, b in (("forward", LM_BATCH), ("backward", TRAIN_BATCH)):
+        q = randn(gen, (b, TRAIN_SEQ, h, hd))
+        k = randn(gen, (b, TRAIN_SEQ, kh, hd))
+        v = randn(gen, (b, TRAIN_SEQ, kh, hd))
+        w = attention_work(b, TRAIN_SEQ, h, kh, hd, torch.float32)
+        ops = w["ops"] * (2.5 if what == "backward" else 1.0)
+        nbytes = w["bytes"] * (2 if what == "backward" else 1)
+        if what == "forward":
+            ms = time_ms(lambda: flash.flash_attention_cuda(q, k, v), reps=3,
+                         warmup=1)
+            lib = sdpa_yardstick(q, k, v)
+        else:
+            do = randn(gen, (b, TRAIN_SEQ, h, hd))
+            o = flash.flash_attention_cuda(q, k, v)
+            ms = time_ms(lambda: flash.flash_attention_bwd_cuda(
+                q, k, v, o, do), reps=2, warmup=1)
+            lib = sdpa_yardstick(q, k, v, do)
+            del do, o
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+        out[what] = {"ms": ms, "library_ms": lib["ms"],
+                     "library_backend": lib["backend"],
+                     "library_kv": lib["kv"],
+                     "bound_ms": max(t_bytes, t_ops) * 1e3,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "shape": f"f32 q ({b}, {TRAIN_SEQ}, {h}, {hd}), k/v "
+                              f"({b}, {TRAIN_SEQ}, {kh}, {hd}), causal"}
+        log(f"[{SMI[0]}] time {what} f32 B={b} S={TRAIN_SEQ} H={h} KH={kh} "
+            f"hd={hd} causal, TF32 off: fma kernel {ms:.4f} ms, SDPA "
+            + ("none" if lib["ms"] is None else
+               f"{lib['ms']:.4f} ms ({lib['backend']}, {lib['kv']})")
+            + f", bound {out[what]['bound_ms']:.4f} ms at the f32 rate "
+            f"({out[what]['bound_by']})")
+        del q, k, v
+        free()
+    return out
 
 
 KERNEL_CLASSES = (("K3 forward", ("ssd_intra_y", "ssd_intra_state")),
@@ -3240,10 +3472,12 @@ def grad_spy(record: list, keep_grads: bool = False):
     return mock.patch.object(adamw, "adamw_update", spying)
 
 
-def profile_train_step(step_fn, state, batch) -> None:
+def profile_train_step(step_fn, state, batch) -> dict:
     """One profiled train step: device time by kernel class, the chunked
     CE's forward and the AdamW update as ranges, and the device's busy
-    share of the step's wall."""
+    share of the step's wall. Returns the device ms of each call of K2's
+    backward functions (bwd_dot, bwd_dkdv, bwd_dq), in launch order ({}
+    when the profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def spanned(name, f):
@@ -3273,7 +3507,7 @@ def profile_train_step(step_fn, state, batch) -> None:
     if not busy:
         log("profile train step: device time not measured (no device "
             "events)")
-        return
+        return {}
     classes = {name: 0.0 for name, _ in KERNEL_CLASSES}
     other = 0.0
     for key, ms, _ in kernels:
@@ -3298,6 +3532,18 @@ def profile_train_step(step_fn, state, batch) -> None:
             name = key[key.index("ssd_bwd_"):].split("(")[0]
             log(f"  K3 backward {name}: "
                 f"{ms:.3f} ms in {count} calls, {ms / count:.4f} ms each")
+    # K2's backward, function by function, call by call
+    calls: dict = {}
+    for e in sorted((e for e in prof.events()
+                     if str(e.device_type).endswith("CUDA")),
+                    key=lambda e: e.time_range.start):
+        for fn in ("bwd_dot", "bwd_dkdv", "bwd_dq"):
+            if f"::{fn}" in e.name:
+                calls.setdefault(fn, []).append(e.self_device_time_total / 1e3)
+    for fn, ms in calls.items():
+        log(f"  K2 backward {fn}: {sum(ms):.3f} ms in {len(ms)} calls, in "
+            f"launch order {', '.join(f'{x:.4f}' for x in ms)} ms")
+    return calls
 
 
 def ce_timing(cfg) -> float:
@@ -3328,15 +3574,19 @@ def k2_launches() -> dict:
             "bwd_wgmma": bwd["wgmma"], "bwd_fma": bwd["fma"]}
 
 
-def train_cell(arch: str, kind: str, leaves: tuple) -> tuple:
-    """`arch` whole, bf16, B=8 x 4,096 from `SyntheticTextDataset(vocab,
-    4,096, 8, seed=0)` through `make_train_step` with remat, 5 steps, the
-    counts set to 0 just before: a finite, falling loss; every gradient
-    finite; the gradients of `blocks.<layer>.<kind>.<leaf>` for `leaves`
-    non-zero in every layer (every layer is of that kind). Returns (cfg,
-    step_fn, state, ds, out) with the logged numbers in `out`; the caller
-    reads the launches before it launches anything else."""
+def train_cell(arch: str, kind: str, leaves: tuple,
+               layers: int | None = None) -> tuple:
+    """`arch` whole (or its first `layers` layers, whole pattern periods),
+    bf16, B=8 x 4,096 from `SyntheticTextDataset(vocab, 4,096, 8, seed=0)`
+    through `make_train_step` with remat, 5 steps, the counts set to 0 just
+    before: a finite, falling loss; every gradient finite; the gradients of
+    `blocks.<layer>.<kind>.<leaf>` for `leaves` non-zero in every layer
+    (every layer is of that kind). Returns (cfg, step_fn, state, ds, out)
+    with the logged numbers in `out`; the caller reads the launches before
+    it launches anything else."""
     cfg = configs.get(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     free()
     torch.cuda.reset_peak_memory_stats()
     params = M.init_params(cfg, seed=0)
@@ -3621,9 +3871,8 @@ def hold_bf16_routes() -> dict:
                          "bwd_wgmma": HOLD_LAYERS, "bwd_fma": HOLD_LAYERS},
             f"bf16 hold: K2 launches {launches}")
     (lw, gw), (lf, gf) = runs
-    rel = {n: float((gw[n].float() - gf[n].float()).norm()
-                    / gf[n].float().norm()) if float(gf[n].float().norm())
-           else float((gw[n].float() - gf[n].float()).norm()) for n in gw}
+    rel = grads_rel({n: g.float() for n, g in gw.items()},
+                    {n: g.float() for n, g in gf.items()})
     worst = max(rel, key=rel.get)
     finite = all(bool(torch.isfinite(g).all()) for g in gw.values())
     ok = (finite and math.isfinite(lw) and abs(lw - lf) <= 1e-3 * abs(lf)
@@ -3641,6 +3890,87 @@ def hold_bf16_routes() -> dict:
     return launches
 
 
+def gemma_main_path() -> tuple[dict, dict]:
+    """gemma3-12b at full width cut to one pattern period (6 of its 48
+    layers: 5 local layers, window 1,024, and 1 global), bf16, B=8 x 4,096
+    through `make_train_step` with remat, 5 steps (`train_cell`): K2's
+    forward and backward at hd 256, all wgmma. Returns the launches and the
+    logged numbers."""
+    cfg, step_fn, state, ds, out = train_cell(
+        GEMMA3, "attn", ("wq", "wk", "wv", "q_norm", "k_norm"),
+        layers=GEMMA3_LAYERS)
+    launches = k2_launches()
+    n = cfg.num_layers * TRAIN_STEPS
+    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd_wgmma": n,
+                         "bwd_fma": 0}
+            and flash.flash_attention_bwd_cuda.launches == n,
+            f"{GEMMA3} train: launches {launches}; want {2 * n} K2 forward "
+            f"(wgmma; remat runs each block twice) and {n} backward (wgmma)")
+    log(f"[{SMI[0]}] {GEMMA3} train ({cfg.num_layers} of 48 layers, full "
+        f"width, {sum(p.numel() for p in state['params'].parameters())} "
+        f"parameters): {out['ms_per_step']:.1f} ms per step, "
+        f"{out['tokens_per_s']:.1f} tokens/s, peak {out['peak_gib']:.2f} "
+        f"GiB; K2 launches {launches}")
+    batch = {k: torch.from_numpy(x).cuda()
+             for k, x in ds.batch_at(TRAIN_STEPS).items()}
+    # the backward runs the layers last to first: the global layer (the
+    # period's last) launches first, then the five local ones
+    out["k2_bwd_calls"] = profile_train_step(step_fn, state, batch)
+    del state, batch
+    free()
+    return launches, out
+
+
+def hold_gemma_routes() -> dict:
+    """gemma3-12b at full width, 6 layers, bf16, B=1 x 2,048 (past the
+    local window): one `train_loss` (remat) and `autograd.grad` through the
+    wgmma backward, then the same from the same parameters and batch with
+    `flash.bwd_route` patched to "fma" (`fma_route`), no optimizer state:
+    the loss within 1e-3 relative, every gradient finite and within a
+    relative Frobenius error of 1e-2. Returns K2's launches by route."""
+    cfg = dataclasses.replace(configs.get(GEMMA3), num_layers=GEMMA3_LAYERS)
+    params = M.init_params(cfg, seed=5)
+    ds = SyntheticTextDataset(cfg.vocab_size, GEMMA3_HOLD_SEQ, 1, seed=3)
+    batch = {k: torch.from_numpy(x).cuda() for k, x in ds.batch_at(0).items()}
+    params.requires_grad_(True)
+    named = dict(params.named_parameters())
+    runs = []
+    # the hold's path: counts start at 0 here
+    reset_counts()
+    for patched in (False, True):
+        with fma_route() if patched else contextlib.nullcontext():
+            loss = M.train_loss(params, batch, cfg, remat=True)
+            grads = torch.autograd.grad(loss, list(named.values()),
+                                        allow_unused=True)
+        runs.append((float(loss.detach()), {
+            n: (torch.zeros_like(p) if g is None else g).float()
+            for (n, p), g in zip(named.items(), grads)}))
+        del loss, grads
+    launches = k2_launches()
+    n = cfg.num_layers
+    require(launches == {"wgmma": 2 * 2 * n, "fma": 0, "bwd_wgmma": n,
+                         "bwd_fma": n},
+            f"gemma3 route hold: K2 launches {launches}")
+    (lw, gw), (lf, gf) = runs
+    rel = grads_rel(gw, gf)
+    worst = max(rel, key=rel.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in gw.values())
+    ok = (finite and math.isfinite(lw) and abs(lw - lf) <= 1e-3 * abs(lf)
+          and rel[worst] <= 1e-2)
+    attn = max(v for k, v in rel.items() if ".attn." in k)
+    log(f"[{SMI[0]}] gemma3 route hold ({n} layers at full width, bf16, B=1 "
+        f"S={GEMMA3_HOLD_SEQ}): loss {lw!r} (wgmma backward) vs {lf!r} (fma "
+        f"backward); worst gradient relative Frobenius {rel[worst]:.3e} "
+        f"({worst}), worst attention weight {attn:.3e}; every gradient "
+        f"finite; K2 {launches}: {ok}")
+    require(ok, "gemma3 route hold: train_loss's gradients through the "
+            "wgmma backward disagree with the fma backward's")
+    params.requires_grad_(False)
+    del runs, gw, gf, params, named, batch
+    free()
+    return launches
+
+
 def phase_train(gen) -> tuple[dict, dict, dict, dict]:
     """Phase 18. Returns each backward route's max error, the backward's
     times, K2's launches by phase (forward wgmma, forward fma, backward
@@ -3651,6 +3981,10 @@ def phase_train(gen) -> tuple[dict, dict, dict, dict]:
     log(f"phase 18 backward and L cases: {time.perf_counter() - t0:.1f} s")
     t_bwd = bwd_timing(gen)
     t0 = time.perf_counter()
+    t_bwd["gemma3"] = gemma_bwd_timing(gen)
+    t_bwd["f32"] = f32_yardsticks(gen)
+    log(f"phase 18 gemma3 and f32 timing: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     main_launches, train_out = train_main_path(gen)
     log(f"phase 18 main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
@@ -3658,14 +3992,27 @@ def phase_train(gen) -> tuple[dict, dict, dict, dict]:
     hold = hold_f32(gen)
     cli = cli_resume()
     log(f"phase 18 holds and CLI: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    gemma_launches, train_out["gemma3"] = gemma_main_path()
+    for fn, ms in train_out["gemma3"]["k2_bwd_calls"].items():
+        t_bwd["gemma3"]["global"][f"{fn}_ms"] = ms[0]
+        t_bwd["gemma3"]["local"][f"{fn}_ms"] = float(np.mean(ms[1:]))
+    hold_g = hold_gemma_routes()
+    log(f"phase 18 gemma3 train and route hold: "
+        f"{time.perf_counter() - t0:.1f} s")
     by_phase = {
         "wgmma": {"18 qwen3 train": main_launches["wgmma"],
-                  "18 bf16 hold": hold16["wgmma"]},
+                  "18 bf16 hold": hold16["wgmma"],
+                  "18 gemma3 train": gemma_launches["wgmma"],
+                  "18 gemma3 route hold": hold_g["wgmma"]},
         "fma": {"18 f32 hold": hold["fma"], "18 CLI": cli["fma"]},
         "bwd_wgmma": {"18 qwen3 train": main_launches["bwd_wgmma"],
-                      "18 bf16 hold": hold16["bwd_wgmma"]},
+                      "18 bf16 hold": hold16["bwd_wgmma"],
+                      "18 gemma3 train": gemma_launches["bwd_wgmma"],
+                      "18 gemma3 route hold": hold_g["bwd_wgmma"]},
         "bwd_fma": {"18 bf16 hold (patched)": hold16["bwd_fma"],
-                    "18 f32 hold": hold["bwd_fma"], "18 CLI": cli["bwd_fma"]}}
+                    "18 f32 hold": hold["bwd_fma"], "18 CLI": cli["bwd_fma"],
+                    "18 gemma3 route hold (patched)": hold_g["bwd_fma"]}}
     return err, t_bwd, by_phase, train_out
 
 
@@ -5133,7 +5480,8 @@ def main() -> None:
             kernel_route="wgmma", hubert_hd80={
                 k: t_attn["hd80"][k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                    "tile_bound_ms")}),
+                    "tile_bound_ms")},
+            gemma3_hd256=t_bwd["gemma3"]["forward"]),
         dict(kernel_row(
             "flash_attention",
             "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
@@ -5142,7 +5490,8 @@ def main() -> None:
             dict(t_attn, ms=t_attn["fma_ms"]), fma_by_phase),
             kernel_route="fma", hubert_hd80={
                 "ms": t_attn["hd80"]["fma_ms"],
-                "bound_ms": t_attn["hd80"]["bound_ms"]}),
+                "bound_ms": t_attn["hd80"]["bound_ms"]},
+            f32=t_bwd["f32"]["forward"]),
         dict(kernel_row(
             "flash_attention_bwd",
             "src/repro_torch/kernels/attention/csrc/"
@@ -5156,7 +5505,9 @@ def main() -> None:
             floor_7_products_ms=t_bwd["floor_7_products_ms"],
             lse_max_abs_err=err_bwd["lse"],
             forward_ms_without_lse=t_bwd["fwd_ms"],
-            forward_ms_with_lse=t_bwd["fwd_lse_ms"]),
+            forward_ms_with_lse=t_bwd["fwd_lse_ms"],
+            gemma3_hd256={k: t_bwd["gemma3"][k]
+                          for k in ("shape", "global", "local")}),
         dict(kernel_row(
             "flash_attention_bwd",
             "src/repro_torch/kernels/attention/csrc/flash_attention_bwd.cu",
@@ -5166,7 +5517,10 @@ def main() -> None:
             kernel_route="fma",
             shape="bf16 q (8, 4096, 16, 128), k/v (8, 4096, 8, 128), causal",
             plain_batch=t_bwd["plain_batch"],
-            bound_recompute_ms=t_bwd["bound_recompute_ms"]),
+            bound_recompute_ms=t_bwd["bound_recompute_ms"],
+            f32=t_bwd["f32"]["backward"],
+            gemma3_hd256_ms={w: t_bwd["gemma3"][w]["fma_ms"]
+                             for w in ("global", "local")}),
         dict(kernel_row("ssd_intra",
                         "src/repro_torch/kernels/ssd/csrc/ssd_intra.cu",
                         "src/repro/kernels/ssd/ssd.py:50",

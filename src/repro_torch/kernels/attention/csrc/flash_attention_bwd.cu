@@ -1,6 +1,6 @@
 // GQA flash attention, backward, for Hopper (sm_90a): the gradient of K2,
-// the "fma" route (f32 at every head dim, bf16 at hd 16/32/256); bf16 at hd
-// 64/80/128 takes flash_attention_bwd_wgmma.cu on the tensor cores.
+// the "fma" route (f32 at every head dim, bf16 at hd 16/32); bf16 at hd
+// 64/80/128/256 takes flash_attention_bwd_wgmma.cu on the tensor cores.
 //
 // The Pallas TPU kernel `repro.kernels.attention.flash.flash_attention_pallas`
 // (body `_flash_kernel`) is forward only; the reference trains through XLA's
@@ -24,8 +24,8 @@
 // bf16 tensor-core rate (1.67 ms with the recompute of q k^T for L), far
 // above the 0.2 ms its bytes take at 3.35 TB/s. This kernel runs on the
 // CUDA cores in f32 FMAs (67 TFLOP/s), and recomputes S in each of its
-// three functions, so its own floor is ~33 ms; the wgmma route takes the
-// bf16 cases that fit its tiles.
+// three functions, so its own floor is ~33 ms; the wgmma route takes bf16
+// at hd 64/80/128/256.
 //
 // What the design does about that. Three functions, each with one role, no
 // atomics, the same result on every run:

@@ -1,14 +1,14 @@
 // GQA flash attention, backward, on Hopper's tensor cores (sm_90a): the bf16
-// route for head dims 64, 80 and 128.
+// route for head dims 64, 80, 128 and 256.
 //
 // The Pallas TPU kernel `repro.kernels.attention.flash.flash_attention_pallas`
 // (body `_flash_kernel`) is forward only; the reference trains through XLA's
 // autodiff of its jnp attention. This file is the gradient of the port's
 // wgmma forward (flash_attention_wgmma.cu), joined to it by the autograd
-// Function in ops.py; it replaces, for bf16 at hd 64/80/128, the CUDA-core
-// backward of flash_attention_bwd.cu (which stays the route of f32, of bf16
-// at hd 16/32/256). For out = softmax(q k^T * scale + mask) v over the kv
-// head h / (H / KH), given dout and the forward's row log-sum-exp L:
+// Function in ops.py; it replaces, for bf16 at hd 64/80/128/256, the
+// CUDA-core backward of flash_attention_bwd.cu (which stays the route of f32
+// and of bf16 at hd 16/32). For out = softmax(q k^T * scale + mask) v over
+// the kv head h / (H / KH), given dout and the forward's row log-sum-exp L:
 //   D   = rowsum(dout * out)                      (bwd_dot)
 //   P   = exp(S * scale - L),   dP = dout v^T,   dS = P * (dP - D)
 //   dv  = sum over the GQA group of P^T dout      (bwd_dkdv)
@@ -26,7 +26,10 @@
 // twice: once in the kv-major walk for dK, dV and once in the q-major walk
 // for dQ): its own floor is 7 x 2.75e11 = 1.92e12 operations, 1.95 ms. The
 // split buys a deterministic dq without atomics; the design in which dq
-// goes through f32 atomics (5 products) is a later step.
+// goes through f32 atomics (5 products) is a later step. At gemma3-12b's
+// (hd 256, the same B, S, H, KH) every product doubles: 2.749e12 operations,
+// a 2.78 ms bound and a 3.89 ms floor on the global layer; a window-1,024
+// layer keeps 0.4375 of the causal pairs (1.22 ms bound, 1.70 ms floor).
 //
 // What the design does about that:
 //  * L comes from the forward (flash_attention_wgmma.cu writes it when the
@@ -35,14 +38,15 @@
 //    scale * log2(e) - L * log2(e)), the forward's own exp2 form.
 //  * bwd_dot: D = rowsum(dout * out) into a (B, H, S) f32 scratch, 16-byte
 //    loads, eight lanes a row. Bound by bytes (268 MB at the main shape).
-//  * bwd_dkdv: one CTA per (128-row kv tile, kv head, batch), heaviest causal
-//    kv tiles first. Warpgroup 0 is the producer: one thread loads the K and
+//  * bwd_dkdv: one CTA per (kv tile, kv head, batch), heaviest causal kv
+//    tiles first. Warpgroup 0 is the producer: one thread loads the K and
 //    V tiles once, then the Q and dout tiles (64 q rows) of every query head
 //    of the GQA group over q_tile_range into a two-stage TMA ring, so the
 //    group's sum stays inside the CTA; warp 1 stages the tile's L (in log2
 //    units, +inf past S) and D in the same stage, arriving on its "full"
-//    barrier after its stores. Warpgroups 1 and 2 are consumers, 64 kv rows
-//    each, and hold dK and dV (64 + 64 f32 registers a thread at hd 128):
+//    barrier after its stores. Warpgroups 1 and 2 are consumers. At hd
+//    64/80/128 the kv tile has 128 rows, 64 for each consumer, which holds
+//    its rows' dK and dV (64 + 64 f32 registers a thread at hd 128):
 //      S^T  = K Q^T      wgmma SS, both operands K-major (as stored)
 //      dP^T = V dout^T   wgmma SS
 //      dV  += P^T dout   wgmma RS: P^T packed to bf16 pairs from the S^T
@@ -52,14 +56,35 @@
 //    L and D are per column of S^T: read from the stage in shared memory.
 //    Epilogue: dK * scale and dV in bf16 into the consumer's own K and V
 //    rows (swizzled), stored by TMA, which clips rows past T.
-//  * bwd_dq: one CTA per (128-row q tile, q head, batch), heaviest causal q
-//    tiles first: the forward's shape. Q and dout resident (two 64-row
-//    halves), K and V tiles (64 kv rows) of kv_tile_range through a
-//    two-stage TMA ring; each consumer warpgroup (64 q rows) keeps its rows'
-//    L and D in registers:
+//  * bwd_dq: one CTA per (q tile, q head, batch), heaviest causal q tiles
+//    first: the forward's shape. Q and dout resident, K and V tiles (64 kv
+//    rows) of kv_tile_range through a two-stage TMA ring. At hd 64/80/128
+//    the q tile has 128 rows, 64 for each consumer, which keeps its rows' L
+//    and D in registers:
 //      S  = Q K^T        wgmma SS
 //      dP = dout V^T     wgmma SS
 //      dQ += dS K        wgmma RS: dS in bf16 from registers, K MN-major
+//  * hd 256 (gemma3-12b) splits hd across the two consumers of one 64-row
+//    tile in both functions (bwd_tiles: 64 x 64 for both walks). A
+//    consumer that owned 64 rows of dK and dV at hd 256 would need 128 +
+//    128 f32 registers a thread, past the 255 limit, and its CTA's tiles
+//    would not fit 227 KB. Here consumer c holds dK and dV (or dQ) for hd
+//    columns 128c .. 128c + 127: 64 + 64 registers in bwd_dkdv, 64 in
+//    bwd_dq. S^T and dP^T need the whole hd contraction, so consumer 0
+//    forms S^T (S in bwd_dq) and consumer 1 dP^T (dP) at the same time,
+//    each one m64n64 product over 256 columns, and they trade through
+//    shared memory in fragment order (both accumulators have the same
+//    thread layout): consumer 0 writes P in f32 and arrives on a named
+//    barrier, consumer 1 forms dS = P (dP - D) from it, exactly as the
+//    narrower tiles do, and hands dS back in bf16 pairs behind a second
+//    one. Both then run their half of dV += P^T dout and dK += dS^T Q (dQ
+//    += dS K) as m64n128 RS products on their own 128 columns of dout, Q
+//    (K). That keeps the seven products, with no recompute: the chosen
+//    design of the three that fit (a 32-row tile per warpgroup wastes half
+//    of each m64 product; two CTAs per tile recompute S and dP, nine
+//    products and a 5.0 ms floor at gemma3's shape). Shared memory at hd
+//    256: K + V (Q + dout) 64 KB, a ring of 2 x 64 KB, the exchange 24 KB
+//    (P 16 KB, dS 8 KB): 218 KB of 227 for either function.
 //  * P and dS are rounded to bf16 before their products (the forward rounds
 //    P the same way); every product accumulates in f32. No atomics: every
 //    output element is written by one thread, the same result on every run.
@@ -71,9 +96,8 @@
 //    rise to 240 (dK, dV, S^T and dP^T alone are 192 a thread at hd 128).
 //    Shared memory at hd 128: bwd_dkdv K + V 64 KB, ring 2 x 32 KB; bwd_dq
 //    Q + dout 64 KB, ring 2 x 32 KB.
-//  * hd 256 does not fit these tiles (dK and dV alone would take 256 f32
-//    registers a thread per 64-row warpgroup): it stays on the fma route.
-// Not yet: ping-pong of the two consumers, a persistent grid, a deeper ring.
+// Not yet: ping-pong of the two consumers (at hd 256 each waits on the
+// other once a step), a persistent grid, a deeper ring.
 // Tile ranges mirror repro_torch.kernels.attention.flash.kv_tile_range and
 // q_tile_range at flash.bwd_tiles(hd, "wgmma").
 #include <cuda.h>
@@ -95,25 +119,40 @@ template <int HD>
 struct Cfg {
   static constexpr int NC = HD / BOX;                // boxes across hd
   static constexpr int TILE = NC * BOX_BYTES;        // 64 rows x HD, bf16
-  // bwd_dkdv: K, V (two 64-row halves each); ring of Q + dout tiles; L, D
+  // hd 256 splits hd across the consumers of one 64-row tile (the header);
+  // the narrower head dims give each consumer 64 rows of a 128-row tile
+  static constexpr bool SPLIT = HD > 128;
+  static constexpr int BLOCKS = SPLIT ? 1 : 2;       // 64-row tiles owned
+  // the split's exchange: P (f32) and dS (bf16), one m64n64 fragment each
+  static constexpr int XP_BYTES = SPLIT ? ROWS * ROWS * 4 : 0;
+  static constexpr int XCHG = SPLIT ? XP_BYTES + ROWS * ROWS * 2 : 0;
+  // bwd_dkdv: K, V (BLOCKS 64-row tiles each); ring of Q + dout tiles; L, D
   static constexpr int KV_K = 0;
-  static constexpr int KV_V = KV_K + 2 * TILE;
-  static constexpr int KV_RING = KV_V + 2 * TILE;
+  static constexpr int KV_V = KV_K + BLOCKS * TILE;
+  static constexpr int KV_RING = KV_V + BLOCKS * TILE;
   static constexpr int KV_LD = KV_RING + STAGES * 2 * TILE;
-  static constexpr int KV_BAR = KV_LD + STAGES * 2 * ROWS * 4;
+  static constexpr int KV_X = KV_LD + STAGES * 2 * ROWS * 4;
+  static constexpr int KV_BAR = KV_X + XCHG;
   // barriers: kv_full, full[STAGES], empty[STAGES]
   static constexpr int KV_SMEM = KV_BAR + 8 * (1 + 2 * STAGES) + 1024;
-  // bwd_dq: Q, dout (two 64-row halves each); ring of K + V tiles
+  // bwd_dq: Q, dout (BLOCKS 64-row tiles each); ring of K + V tiles
   static constexpr int Q_Q = 0;
-  static constexpr int Q_DO = Q_Q + 2 * TILE;
-  static constexpr int Q_RING = Q_DO + 2 * TILE;
-  static constexpr int Q_BAR = Q_RING + STAGES * 2 * TILE;
+  static constexpr int Q_DO = Q_Q + BLOCKS * TILE;
+  static constexpr int Q_RING = Q_DO + BLOCKS * TILE;
+  static constexpr int Q_X = Q_RING + STAGES * 2 * TILE;
+  static constexpr int Q_BAR = Q_X + XCHG;
   // barriers: q_full, full[STAGES], empty[STAGES]
   static constexpr int Q_SMEM = Q_BAR + 8 * (1 + 2 * STAGES) + 1024;
   static_assert(HD % BOX == 0, "the tile width must be a multiple of 64");
+  static_assert(!SPLIT || HD == 256, "the split holds 128 columns a consumer");
   static_assert(KV_SMEM <= 232448 && Q_SMEM <= 232448,
                 "over the 227 KB a block may use");
 };
+
+// Named barriers (0 is __syncthreads): 1 + c is consumer c's own (128
+// threads) before its TMA store; the split's exchange and its end take
+// both consumers (256 threads).
+constexpr int BAR_P = 3, BAR_DS = 4, BAR_DONE = 5;
 
 // ---- shared-memory barriers, TMA and wgmma, in PTX ----
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -201,6 +240,13 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Keep the compiler from moving accumulator reads or writes across the
@@ -389,7 +435,8 @@ bwd_dot(const __nv_bfloat16* __restrict__ o,
   }
 }
 
-// ---- dK, dV: one CTA per (kv tile of 128 rows, kv head, batch) ----
+// ---- dK, dV: one CTA per (kv tile of 128 rows, 64 at hd 256, kv head,
+// batch) ----
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dkdv(const __grid_constant__ CUtensorMap qmap,
@@ -401,7 +448,8 @@ bwd_dkdv(const __grid_constant__ CUtensorMap qmap,
          const float* __restrict__ L, const float* __restrict__ D, int S,
          int Tk, int H, int KH, int causal, int window, float scale) {
   using C = Cfg<HD>;
-  constexpr int NC = C::NC, TILE = C::TILE, BQ = ROWS, BKV = 2 * ROWS;
+  constexpr int NC = C::NC, TILE = C::TILE, BQ = ROWS,
+                BKV = C::BLOCKS * ROWS;
   extern __shared__ uint8_t smem_raw[];
   // the 128-byte swizzle repeats every 8 rows: tiles start 1024-aligned
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -437,8 +485,8 @@ bwd_dkdv(const __grid_constant__ CUtensorMap qmap,
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     if (threadIdx.x == 0) {
       // one thread keeps the TMA loads in flight
-      mbar_expect_tx(kv_full, 4 * TILE);
-      for (int w = 0; w < 2; ++w)
+      mbar_expect_tx(kv_full, 2 * C::BLOCKS * TILE);
+      for (int w = 0; w < C::BLOCKS; ++w)
         for (int c = 0; c < NC; ++c) {
           tma_load(sK + w * TILE + c * BOX_BYTES, &kmap, kv_full, c * BOX,
                    kvh, k0 + ROWS * w, b);
@@ -474,6 +522,140 @@ bwd_dkdv(const __grid_constant__ CUtensorMap qmap,
         }
         mbar_arrive(full + 8 * s);
       }
+    }
+  } else if constexpr (C::SPLIT) {
+    // ---- consumer warpgroups, hd split: both on the tile's 64 kv rows;
+    // consumer 0 forms S^T and P^T, consumer 1 dP^T and dS^T, and each
+    // accumulates dK and dV over its own 128 columns ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int cw = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int kr0 = k0 + 16 * warp + lane / 4;     // this thread's two rows
+    const int kr1 = kr0 + 8;
+    const int qc = 2 * (lane % 4);                 // its column in each 8
+    const uint32_t half = 2 * cw * BOX_BYTES;      // its 128 columns
+    const uint32_t sA = cw == 0 ? sK : sV;         // S^T = K Q^T, dP^T =
+                                                   // V dout^T
+    // the exchange, in fragment order: slot (group g, thread t) is 16 bytes
+    float4* const xp = reinterpret_cast<float4*>(gen + C::KV_X);
+    uint4* const xd = reinterpret_cast<uint4*>(gen + C::KV_X + C::XP_BYTES);
+    const float scale_log2 = scale * LOG2E;
+
+    float dk[HD / 4], dv[HD / 4];
+#pragma unroll
+    for (int j = 0; j < HD / 4; ++j) dk[j] = dv[j] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int i = 0; i < nsteps; ++i) {
+      const int s = i % STAGES;
+      const uint32_t ph = (i / STAGES) & 1;
+      const int q0 = (first + i % (last - first + 1)) * BQ;
+      const uint32_t sQs = ring + s * 2 * TILE, sdOs = sQs + TILE;
+      mbar_wait(full + 8 * s, ph);
+
+      // S^T (consumer 0) or dP^T (consumer 1) over all of hd: fresh
+      // accumulator each step
+      float acc[32];
+      const uint32_t sB = cw == 0 ? sQs : sdOs;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        Wgmma<64>::ss(acc, kmajor(sA, kk), kmajor(sB, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+
+      // acc[4 g + e] is kv row (e & 2 ? kr1 : kr0), q row q0 + 8 g + qc +
+      // (e & 1); the A fragment (kk, r) of the RS products below is
+      // registers 8 kk + 2 r, + 1: group g = 2 kk + r / 2
+      const float* const ls = sLD + s * 2 * BQ;
+      const float* const ds = ls + BQ;
+      uint32_t pt[4][4], dst[4][4];
+      if (cw == 0) {
+        const bool cut = k0 + ROWS > Tk || (causal && k0 + ROWS - 1 > q0) ||
+                         (window > 0 && k0 <= q0 + BQ - 1 - window);
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const int col = 8 * g + qc;
+          const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = exp2f(fmaf(acc[4 * g + e], scale_log2,
+                              (e & 1) ? -l2.y : -l2.x));
+            if (cut && !allowed(q0 + col + (e & 1), (e & 2) ? kr1 : kr0, Tk,
+                                causal, window))
+              p[e] = 0.f;
+          }
+          xp[g * 128 + t] = make_float4(p[0], p[1], p[2], p[3]);
+          pt[g / 2][2 * (g % 2)] = pack_bf16(p[0], p[1]);
+          pt[g / 2][2 * (g % 2) + 1] = pack_bf16(p[2], p[3]);
+        }
+        bar_arrive(BAR_P, 256);
+        bar_sync(BAR_DS, 256);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint4 d4 = xd[kk * 128 + t];
+          dst[kk][0] = d4.x;
+          dst[kk][1] = d4.y;
+          dst[kk][2] = d4.z;
+          dst[kk][3] = d4.w;
+        }
+      } else {
+        bar_sync(BAR_P, 256);
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const float4 p = xp[g * 128 + t];
+          const float2 dd = *reinterpret_cast<const float2*>(ds + 8 * g + qc);
+          pt[g / 2][2 * (g % 2)] = pack_bf16(p.x, p.y);
+          pt[g / 2][2 * (g % 2) + 1] = pack_bf16(p.z, p.w);
+          dst[g / 2][2 * (g % 2)] = pack_bf16(p.x * (acc[4 * g] - dd.x),
+                                              p.y * (acc[4 * g + 1] - dd.y));
+          dst[g / 2][2 * (g % 2) + 1] =
+              pack_bf16(p.z * (acc[4 * g + 2] - dd.x),
+                        p.w * (acc[4 * g + 3] - dd.y));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          xd[kk * 128 + t] =
+              make_uint4(dst[kk][0], dst[kk][1], dst[kk][2], dst[kk][3]);
+        bar_arrive(BAR_DS, 256);
+      }
+
+      // dV += P^T dout, dK += dS^T Q over this consumer's columns
+      fence_regs(dv);
+      fence_regs(dk);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<HD / 2>::rs(dv, pt[kk], mnmajor(sdOs + half, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<HD / 2>::rs(dk, dst[kk], mnmajor(sQs + half, kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    // epilogue: once both consumers are past their last read of K and V,
+    // dK * scale and dV in bf16 into this consumer's columns of the K and V
+    // tiles, then TMA stores
+    bar_sync(BAR_DONE, 256);
+    stage_rows<HD / 2>(sK + half, dk, scale, warp, lane);
+    stage_rows<HD / 2>(sV + half, dv, 1.f, warp, lane);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bar_sync(1 + cw, 128);
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int box = 2 * cw + c;
+        tma_store(&dkmap, sK + box * BOX_BYTES, box * BOX, kvh, k0, b);
+        tma_store(&dvmap, sV + box * BOX_BYTES, box * BOX, kvh, k0, b);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
     }
   } else {
     // ---- consumer warpgroups: 64 kv rows each ----
@@ -577,7 +759,7 @@ bwd_dkdv(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// ---- dQ: one CTA per (q tile of 128 rows, q head, batch) ----
+// ---- dQ: one CTA per (q tile of 128 rows, 64 at hd 256, q head, batch) ----
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 bwd_dq(const __grid_constant__ CUtensorMap qmap,
@@ -588,7 +770,8 @@ bwd_dq(const __grid_constant__ CUtensorMap qmap,
        const float* __restrict__ L, const float* __restrict__ D, int S,
        int Tk, int H, int KH, int causal, int window, float scale) {
   using C = Cfg<HD>;
-  constexpr int NC = C::NC, TILE = C::TILE, BQ = 2 * ROWS, BKV = ROWS;
+  constexpr int NC = C::NC, TILE = C::TILE, BQ = C::BLOCKS * ROWS,
+                BKV = ROWS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base + C::Q_Q, sdO = base + C::Q_DO;
@@ -618,8 +801,8 @@ bwd_dq(const __grid_constant__ CUtensorMap qmap,
     // ---- producer warpgroup: one thread keeps the TMA loads in flight ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;" ::: "memory");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, 4 * TILE);
-      for (int w = 0; w < 2; ++w)
+      mbar_expect_tx(q_full, 2 * C::BLOCKS * TILE);
+      for (int w = 0; w < C::BLOCKS; ++w)
         for (int c = 0; c < NC; ++c) {
           tma_load(sQ + w * TILE + c * BOX_BYTES, &qmap, q_full, c * BOX, h,
                    q0 + ROWS * w, b);
@@ -638,6 +821,126 @@ bwd_dq(const __grid_constant__ CUtensorMap qmap,
                    kvh, kt * BKV, b);
         }
       }
+    }
+  } else if constexpr (C::SPLIT) {
+    // ---- consumer warpgroups, hd split: both on the tile's 64 q rows;
+    // consumer 0 forms S and P, consumer 1 dP and dS, and each accumulates
+    // dQ over its own 128 columns ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;" ::: "memory");
+    const int cw = threadIdx.x / 128 - 1;
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    const int row0 = q0 + 16 * warp + lane / 4;    // this thread's two rows
+    const int row1 = row0 + 8;
+    const int qc = 2 * (lane % 4);
+    const uint32_t half = 2 * cw * BOX_BYTES;      // its 128 columns
+    const uint32_t sA = cw == 0 ? sQ : sdO;        // S = Q K^T, dP = dout V^T
+    uint8_t* const gen = smem_raw + (base - smem_u32(smem_raw));
+    float4* const xp = reinterpret_cast<float4*>(gen + C::Q_X);
+    uint4* const xd = reinterpret_cast<uint4*>(gen + C::Q_X + C::XP_BYTES);
+    const float scale_log2 = scale * LOG2E;
+    const size_t lrow = ((size_t)b * H + h) * S;
+    const float l0 = row0 < S ? L[lrow + row0] * LOG2E : INFINITY;
+    const float l1 = row1 < S ? L[lrow + row1] * LOG2E : INFINITY;
+    const float d0 = row0 < S ? D[lrow + row0] : 0.f;
+    const float d1 = row1 < S ? D[lrow + row1] : 0.f;
+
+    float dq[HD / 4];
+#pragma unroll
+    for (int j = 0; j < HD / 4; ++j) dq[j] = 0.f;
+
+    mbar_wait(q_full, 0);
+    for (int kt = first, i = 0; kt <= last; ++kt, ++i) {
+      const int s = i % STAGES;
+      const uint32_t ph = (i / STAGES) & 1;
+      const int k0 = kt * BKV;
+      const uint32_t sKs = ring + s * 2 * TILE, sVs = sKs + TILE;
+      mbar_wait(full + 8 * s, ph);
+
+      // S (consumer 0) or dP (consumer 1) over all of hd
+      float acc[32];
+      const uint32_t sB = cw == 0 ? sKs : sVs;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        Wgmma<64>::ss(acc, kmajor(sA, kk), kmajor(sB, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+
+      // acc[4 g + e] is q row (e & 2 ? row1 : row0), key k0 + 8 g + qc +
+      // (e & 1)
+      uint32_t dsa[4][4];
+      if (cw == 0) {
+        const bool cut = k0 + BKV > Tk || (causal && k0 + BKV - 1 > q0) ||
+                         (window > 0 && k0 <= q0 + ROWS - 1 - window);
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          float p[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            p[e] = exp2f(fmaf(acc[4 * g + e], scale_log2,
+                              (e & 2) ? -l1 : -l0));
+            if (cut && !allowed((e & 2) ? row1 : row0, k0 + 8 * g + qc +
+                                (e & 1), Tk, causal, window))
+              p[e] = 0.f;
+          }
+          xp[g * 128 + t] = make_float4(p[0], p[1], p[2], p[3]);
+        }
+        bar_arrive(BAR_P, 256);
+        bar_sync(BAR_DS, 256);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint4 d4 = xd[kk * 128 + t];
+          dsa[kk][0] = d4.x;
+          dsa[kk][1] = d4.y;
+          dsa[kk][2] = d4.z;
+          dsa[kk][3] = d4.w;
+        }
+      } else {
+        bar_sync(BAR_P, 256);
+#pragma unroll
+        for (int g = 0; g < 8; ++g) {
+          const float4 p = xp[g * 128 + t];
+          dsa[g / 2][2 * (g % 2)] = pack_bf16(p.x * (acc[4 * g] - d0),
+                                              p.y * (acc[4 * g + 1] - d0));
+          dsa[g / 2][2 * (g % 2) + 1] =
+              pack_bf16(p.z * (acc[4 * g + 2] - d1),
+                        p.w * (acc[4 * g + 3] - d1));
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          xd[kk * 128 + t] =
+              make_uint4(dsa[kk][0], dsa[kk][1], dsa[kk][2], dsa[kk][3]);
+        bar_arrive(BAR_DS, 256);
+      }
+
+      // dQ += dS K over this consumer's columns (K as stored, MN-major)
+      fence_regs(dq);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<HD / 2>::rs(dq, dsa[kk], mnmajor(sKs + half, kk), 1);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dq);
+      mbar_arrive(empty + 8 * s);
+    }
+
+    // epilogue: once both consumers are past their last read of Q and
+    // dout, dQ * scale in bf16 into this consumer's columns of the Q tile,
+    // then a TMA store, which clips the rows past S
+    bar_sync(BAR_DONE, 256);
+    stage_rows<HD / 2>(sQ + half, dq, scale, warp, lane);
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bar_sync(1 + cw, 128);
+    if (t == 0) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int box = 2 * cw + c;
+        tma_store(&dqmap, sQ + box * BOX_BYTES, box * BOX, h, q0, b);
+      }
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
     }
   } else {
     // ---- consumer warpgroups: 64 q rows each ----
@@ -815,11 +1118,12 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       static_cast<const __nv_bfloat16*>(o),
       static_cast<const __nv_bfloat16*>(dout), D, rows, S, H, hd);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  bwd_dkdv<HD><<<dim3(KH, B, (Tk + 2 * ROWS - 1) / (2 * ROWS)), THREADS,
+  constexpr int TILE_ROWS = C::BLOCKS * ROWS;   // kv rows, q rows a CTA owns
+  bwd_dkdv<HD><<<dim3(KH, B, (Tk + TILE_ROWS - 1) / TILE_ROWS), THREADS,
                  C::KV_SMEM, st>>>(qm, km, vm, dom, dkm, dvm, L, D, S, Tk, H,
                                    KH, causal, window, scale);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  bwd_dq<HD><<<dim3(H, B, (S + 2 * ROWS - 1) / (2 * ROWS)), THREADS,
+  bwd_dq<HD><<<dim3(H, B, (S + TILE_ROWS - 1) / TILE_ROWS), THREADS,
                C::Q_SMEM, st>>>(qm, km, vm, dom, dqm, L, D, S, Tk, H, KH,
                                 causal, window, scale);
   return (int)cudaGetLastError();
@@ -830,7 +1134,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // bf16 q, o, dout, dq (B,S,H,hd) and k, v, dk, dv (B,T,KH,hd), contiguous
 // and 16-byte aligned; L the forward's (B,H,S) f32 row log-sum-exp (natural
 // log, +inf on a row that saw no key); D a (B,H,S) f32 scratch. hd in {64,
-// 80, 128} (80 in the hd-128 tile). window <= 0: no window. Launches
+// 80, 128, 256} (80 in the hd-128 tile). window <= 0: no window. Launches
 // bwd_dot, then bwd_dkdv and bwd_dq on `stream`. Returns 0, a cudaError_t,
 // or one of the tensor-map errors above; the wrapper raises on anything
 // but 0.
@@ -855,6 +1159,7 @@ extern "C" int flash_attention_bwd_wgmma_launch(
     case 64: return launch<64>(q, k, v, o, dout, L_, dq, dk, dv, D_, B, S, Tk, H, KH, 64, causal, window, scale, st);
     case 80: return launch<128>(q, k, v, o, dout, L_, dq, dk, dv, D_, B, S, Tk, H, KH, 80, causal, window, scale, st);
     case 128: return launch<128>(q, k, v, o, dout, L_, dq, dk, dv, D_, B, S, Tk, H, KH, 128, causal, window, scale, st);
+    case 256: return launch<256>(q, k, v, o, dout, L_, dq, dk, dv, D_, B, S, Tk, H, KH, 256, causal, window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -15,15 +15,16 @@ Two kernels compute the Pallas TPU kernel
 The backward, `flash_attention_bwd_cuda`, has two routes too;
 `bwd_route` picks it, in one place:
 
-* ``"wgmma"``: `csrc/flash_attention_bwd_wgmma.cu`, bf16 at hd 64/80/128,
-  on the tensor cores (`bwd_dot` for rowsum(dout * out), then `bwd_dkdv`
-  and `bwd_dq`, every product a wgmma fed by TMA; hd 80 in the hd-128
-  tile). It takes the row log-sum-exp L that the wgmma forward writes
-  when asked (`flash_attention_cuda(..., return_lse=True)`) and raises
-  without it;
+* ``"wgmma"``: `csrc/flash_attention_bwd_wgmma.cu`, bf16 at hd
+  64/80/128/256, on the tensor cores (`bwd_dot` for rowsum(dout * out),
+  then `bwd_dkdv` and `bwd_dq`, every product a wgmma fed by TMA; hd 80
+  in the hd-128 tile; hd 256 in 64-row tiles whose hd its two consumer
+  warpgroups split, `bwd_tiles`). It takes the row log-sum-exp L that the
+  wgmma forward writes when asked (`flash_attention_cuda(...,
+  return_lse=True)`) and raises without it;
 * ``"fma"``: `csrc/flash_attention_bwd.cu`, f32 at every hd and bf16 at
-  hd 16/32/256, f32 FMAs on the CUDA cores (`bwd_prep` recomputes L and
-  D, then `bwd_dkdv`, `bwd_dq`).
+  hd 16/32, f32 FMAs on the CUDA cores (`bwd_prep` recomputes L and D,
+  then `bwd_dkdv`, `bwd_dq`).
 
 `ops.FlashAttention` joins them to the forward under autograd, asking the
 forward for L when the backward's route takes it.
@@ -55,7 +56,7 @@ BWD_SOURCE = CSRC / "flash_attention_bwd.cu"        # the "fma" backward
 BWD_WGMMA_SOURCE = CSRC / "flash_attention_bwd_wgmma.cu"   # "wgmma" backward
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 WGMMA_HEAD_DIMS = (64, 80, 128, 256)
-BWD_WGMMA_HEAD_DIMS = (64, 80, 128)
+BWD_WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 # route -> (source, prefix of its C functions `<prefix>_launch` and
 # `<prefix>_error_string`, which share one signature)
@@ -83,8 +84,8 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The backward kernel that q/k/v of `dtype` and `head_dim` take:
-    ``"wgmma"`` for bf16 at hd 64/80/128 (it needs the forward's L),
-    ``"fma"`` for f32 at any hd in `HEAD_DIMS` and bf16 at hd 16/32/256.
+    ``"wgmma"`` for bf16 at hd 64/80/128/256 (it needs the forward's L),
+    ``"fma"`` for f32 at any hd in `HEAD_DIMS` and bf16 at hd 16/32.
     Raises on anything else."""
     route(dtype, head_dim)                 # the same dtypes and head dims
     if dtype == torch.bfloat16 and head_dim in BWD_WGMMA_HEAD_DIMS:
@@ -124,10 +125,13 @@ def bwd_tiles(head_dim: int, route_name: str
     """The backward kernels' tiles on `route_name` at `head_dim`, as
     ``((q rows, kv rows) of the dkdv walk, (q rows, kv rows) of the dq
     walk)``. "wgmma": dkdv owns 128 kv rows and steps 64 q rows, dq owns
-    128 q rows and steps 64 kv rows. "fma": 64 q rows and 64 kv rows in
-    both, 32 kv rows at hd 256 (shared memory)."""
+    128 q rows and steps 64 kv rows; at hd 256 each owns 64 rows (its two
+    consumer warpgroups split hd, not rows: registers and shared memory).
+    "fma": 64 q rows and 64 kv rows in both, 32 kv rows at hd 256 (shared
+    memory)."""
     if route_name == "wgmma":
-        return (64, 128), (128, 64)
+        return ((64, 64), (64, 64)) if head_dim > 128 else ((64, 128),
+                                                            (128, 64))
     tiles = (64, 32 if head_dim > 128 else 64)
     return tiles, tiles
 

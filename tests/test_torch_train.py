@@ -7,7 +7,8 @@ attention (`attention_bwd_ref`, also against `jax.grad`), the forward's
 row log-sum-exp (`attention_lse_ref`), both backward routes' tile ranges
 and tile walks (the "wgmma" route's with L given and P, dS rounded to
 bf16), the backward route table and the wrapper's refusals, `train_loss`
-with every gradient for five smoke configs, eight training steps, the
+with every gradient for six smoke configs (and gemma3's at hd 256),
+eight training steps, the
 grad-mode guards of the raw kernel wrappers, and the training launcher
 (checkpoint and exact resume). The backward kernels themselves run only on
 the card (`chip_smoke.py`, phases 18 and 19; K3's backward is held in
@@ -415,7 +416,9 @@ def _emulate_bwd_wgmma(q, k, v, o, do, lse, causal, window):
     of the GQA group over q_tile_range, P^T and dS^T rounded to bf16
     before dV += P^T do and dK += dS^T q; bwd_dq's own walk at its tiles
     over kv_tile_range, dS rounded to bf16 before dQ += dS k. Disallowed
-    pairs (mask, keys past T) weigh 0. Returns (dq, dk, dv) in bf16."""
+    pairs (mask, keys past T) weigh 0. Returns (dq, dk, dv) in bf16. At
+    hd 256 the kernel's two consumers split hd and trade P in f32 and dS
+    in bf16: the same values at the same rounding points as here."""
     b, s, h, hd = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -472,7 +475,9 @@ def _emulate_bwd_wgmma(q, k, v, o, do, lse, causal, window):
     ("fma", (True, None, 2, 16, 200)), ("fma", (True, 50, 4, 64, 150)),
     ("fma", (False, None, 1, 80, 70)), ("fma", (True, 8, 2, 256, 100)),
     ("wgmma", (True, None, 2, 128, 200)), ("wgmma", (True, 50, 4, 64, 150)),
-    ("wgmma", (False, None, 1, 80, 70)), ("wgmma", (True, 8, 2, 128, 300))])
+    ("wgmma", (False, None, 1, 80, 70)), ("wgmma", (True, 8, 2, 128, 300)),
+    ("wgmma", (True, 8, 2, 256, 100)), ("wgmma", (False, None, 1, 256, 64)),
+    ("wgmma", (True, None, 4, 256, 150))])
 def test_bwd_kernel_tile_walk(route_name, case):
     """Each backward route's tiling (bwd_tiles, both ranges, the GQA sum
     inside the dkdv walk) emulated in torch holds against
@@ -540,15 +545,15 @@ def test_attention_lse_ref(s, t, causal, window):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float16])
 def test_bwd_route_rule(dtype, hd):
-    """The backward's route table: bf16 at hd 64/80/128 takes the
+    """The backward's route table: bf16 at hd 64/80/128/256 takes the
     tensor-core kernel, which needs the forward's L (on the forward's
-    "wgmma" route); f32 at every hd and bf16 at hd 16/32/256 the CUDA-core
+    "wgmma" route); f32 at every hd and bf16 at hd 16/32 the CUDA-core
     kernel; anything else raises."""
     if hd not in flash.HEAD_DIMS or dtype == torch.float16:
         with pytest.raises(ValueError):
             flash.bwd_route(dtype, hd)
         return
-    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 80, 128)
+    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 80, 128, 256)
             else "fma")
     assert flash.bwd_route(dtype, hd) == want
     assert flash.BWD_ROUTES[want][0].exists()
@@ -633,7 +638,7 @@ def test_flash_attention_function_passes_lse(dtype, hd, remat):
 # train_loss and every gradient against jax.value_and_grad
 # ------------------------------------------------------------------ #
 GRAD_ARCHS = ["qwen3_0_6b", "granite_moe_3b_a800m", "hubert_xlarge",
-              "mamba2_370m", "jamba_1_5_large_398b"]
+              "mamba2_370m", "jamba_1_5_large_398b", "gemma3_12b"]
 FLOOR_CAP = {"jamba_1_5_large_398b": 1e-3}     # see the test's docstring
 
 
@@ -660,17 +665,20 @@ def _port_grads(params, batch, cfg, remat):
                          for (n, p), g in zip(named.items(), grads)}
 
 
-def grad_report(arch):
+def grad_report(arch, head_dim=None):
     """One seeded smoke batch through the port's `train_loss` (remat on)
     against `jax.value_and_grad` of the reference's, and again with the
-    parameters scaled by (1 + 1e-7 N(0, 1)). Returns the loss, the
-    reference's loss, each leaf's (f32 noise floor, error against the
-    reference), both relative Frobenius, and (params, batch, grads, the
-    reference's leaf names) for the test's further checks. Print one
-    architecture's floors with `PYTHONPATH=src:tests python -c "import
-    test_torch_train as t; print(t.grad_report('mamba2_370m')[2])"`."""
-    rcfg = ref_configs.get_smoke(arch)
-    cfg = configs.get_smoke(arch)
+    parameters scaled by (1 + 1e-7 N(0, 1)); `head_dim` replaces the smoke
+    config's in both packages. Returns the loss, the reference's loss, each
+    leaf's (f32 noise floor, error against the reference), both relative
+    Frobenius, and (params, batch, grads, the reference's leaf names) for
+    the test's further checks. Print one architecture's floors with
+    `PYTHONPATH=src:tests python -c "import test_torch_train as t;
+    print(t.grad_report('mamba2_370m')[2])"`."""
+    rcfg, cfg = ref_configs.get_smoke(arch), configs.get_smoke(arch)
+    if head_dim is not None:
+        rcfg = dataclasses.replace(rcfg, head_dim=head_dim)
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
     rparams = _np_tree(ref_model.init_params(rcfg, jax.random.PRNGKey(0)))
     batch = _loss_batch(cfg, 2, 32, seed=5)
     rloss, rgrads = jax.jit(jax.value_and_grad(
@@ -707,10 +715,18 @@ def test_train_loss_and_grads_match_reference(arch):
     gradients are ~1e-3 of the others' norms, with floors up to 5.8e-4
     (blocks.2.mamba.dt_bias; the port's error there is 2.8e-4): its cap is
     1e-3, under the 1/64 share of one token that a flipped routing choice
-    would move.
+    would move. gemma3's smoke config holds the windowed pattern, qk-norm
+    and tied embeddings.
     Remat on and off give the same gradients."""
+    _hold_grads(arch)
+
+
+def _hold_grads(arch, head_dim=None):
     cfg = configs.get_smoke(arch)
-    loss, rloss, leaves, (params, tbatch, grads, want) = grad_report(arch)
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    loss, rloss, leaves, (params, tbatch, grads, want) = grad_report(
+        arch, head_dim)
     assert abs(loss - rloss) <= 1e-5 * max(1.0, abs(rloss))
     assert set(grads) == want
     for n, (floor, err) in leaves.items():
@@ -726,6 +742,14 @@ def test_train_loss_and_grads_match_reference(arch):
         x = M.embed_inputs(params, tbatch, cfg)
         _, aux = M.backbone(params, x, cfg, remat=False)
         assert float(aux) > 0
+
+
+def test_train_loss_and_grads_hd256():
+    """`test_train_loss_and_grads_match_reference`'s holds on gemma3's
+    smoke config at gemma3-12b's head dim, 256 (6 layers, B=2 x 32), the
+    width at which the card trains through the wgmma backward's split
+    tiles; on the CPU K2 is the plain version."""
+    _hold_grads("gemma3_12b", head_dim=256)
 
 
 def test_training_matches_reference():
