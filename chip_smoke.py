@@ -7,9 +7,11 @@ Phases (every failure raises and exits nonzero):
   1. device  -- the card's name, and its name and power limit from
                 nvidia-smi;
   2. build   -- compile the CUDA kernels (frontier relax, flash attention
-                on the CUDA cores and on the tensor cores, its backward on
-                the CUDA cores (`flash_attention_bwd.cu`) and on the tensor
-                cores (`flash_attention_bwd_wgmma.cu`), SSD intra-chunk and
+                on the CUDA cores, on the tensor cores in bf16 (wgmma) and
+                in f32 as 3xTF32 (`flash_attention_tf32.cu`, mma.sync), its
+                backward on the CUDA cores (`flash_attention_bwd.cu`), on
+                the tensor cores (`flash_attention_bwd_wgmma.cu`) and in
+                3xTF32 (`flash_attention_bwd_tf32.cu`), SSD intra-chunk and
                 its backward (`ssd_intra_bwd.cu`, 3xTF32 wgmma and
                 mma.sync))
                 from the sources in this checkout, one nvcc each, all at
@@ -23,7 +25,11 @@ Phases (every failure raises and exits nonzero):
                 wgmma (fewer waits than half the HGMMA count, per
                 function; the SSD backward's too), if `bwd_dkdv` or
                 `bwd_dq` has no HGMMA, if `ssd_bwd_dxw` has no HGMMA, or
-                if `ssd_bwd_dx` or `ssd_bwd_dcdb` has no HMMA;
+                if `ssd_bwd_dx` or `ssd_bwd_dcdb` has no HMMA; and if
+                either 3xTF32 attention source spills or any of its
+                functions (`fwd_tf32`, `bwd_dkdv`, `bwd_dq`) at any head
+                dim has no HMMA (they issue no wgmma for ptxas to
+                serialize);
   3. kernel  -- hold the kernel against its plain PyTorch version,
                 `frontier_relax_torch`, on the card: 4 semirings x dense /
                 frontier-masked / empty states x B in {1, 8} x d in {1, 8},
@@ -51,8 +57,9 @@ Phases (every failure raises and exits nonzero):
                 the 16,384-vertex Ext. LRN graph, each checked the same way;
   6. attention kernel -- flash attention against `attention_ref` on the
                 card: causal x window {None, 128} x GQA ratio {1, 2, 8} x
-                {f32, bf16} x hd {64, 80, 128, 256}, ragged lengths (S=200
-                and S=5, shorter than one tile), and at B=1, S=4096 the
+                {f32 at hd 16, 64, 80, 128, 256; bf16 at hd 64, 80, 128,
+                256}, ragged lengths (S=200 and S=5, shorter than one
+                tile; in f32 also S != T both ways), and at B=1, S=4096 the
                 layer of every architecture with attention: qwen3-0.6b
                 (GQA 2, hd 128), granite-moe-3b-a800m (GQA 3, hd 64),
                 hubert-xlarge (MHA, hd 80, non-causal), phi3-medium-14b
@@ -60,9 +67,13 @@ Phases (every failure raises and exits nonzero):
                 window 1,024) and chameleon-34b (GQA 8) (f32 atol 2e-5,
                 bf16 atol 2e-2 against the f32 reference, and at those
                 layers also a relative Frobenius error of 1e-2); each case
-                logs its route ("wgmma": bf16 at hd 64/80/128/256 on the
+                logs its route ("tf32x3": f32 at every hd, 3xTF32 on the
+                tensor cores; "wgmma": bf16 at hd 64/80/128/256 on the
                 tensor cores, hd 80 in the hd-128 tile; "fma": the CUDA
-                cores) and must have taken `flash.route`'s. Timed at the
+                cores) and must have taken `flash.route`'s; each tf32x3
+                case must give the same bits on a second call, and the fma
+                kernel runs on the same inputs, held at the same atol and
+                its error logged beside. Timed at the
                 prefill shape: the wgmma kernel beside the CUDA-core kernel
                 at the same shape, the plain version and SDPA (yardstick
                 only); and the same at hubert's bf16 (4, 4,096, 16, 80)
@@ -206,7 +217,7 @@ Phases (every failure raises and exits nonzero):
                 1,024 rings wrap; serve 16 requests; one profiled prefill
                 and decode step for phi3 only). hubert-xlarge at full depth
                 on a (4, 4,096, 1,280) frames batch (96 K2 launches at hd
-                80, wgmma), its float32 prefill at B=1 through K2 (fma)
+                80, wgmma), its float32 prefill at B=1 through K2 (tf32x3)
                 against the same prefill on `attention_ref`, and `serve`
                 refusing an encoder. qwen3-moe-235b-a22b at 12 of its 94
                 layers (a depth one card holds with room to spare; drops
@@ -226,15 +237,20 @@ Phases (every failure raises and exits nonzero):
                 bwd_dkdv, bwd_dq, every product a wgmma; at hd 256 the two
                 consumer warpgroups of a 64-row tile split hd; it takes the
                 row log-sum-exp L that the wgmma forward writes with
-                `return_lse=True`) and "fma" (f32, bf16 at hd 16/32,
-                `flash_attention_bwd.cu` on the CUDA cores). The forward's
-                L against `attention_lse_ref`
-                (qwen3's layer, ragged S=200 and S=5, hd 64 and 80, S=300 >
+                `return_lse=True`), "tf32x3" (f32 at every hd,
+                `flash_attention_bwd_tf32.cu`: bwd_dot, bwd_dkdv, bwd_dq,
+                every product 3xTF32 mma.sync; it takes the L of the tf32x3
+                forward) and "fma" (bf16 at hd 16/32,
+                `flash_attention_bwd.cu` on the CUDA cores; f32 when
+                patched in). The forward's L on both routes against
+                `attention_lse_ref` (bf16 and f32:
+                qwen3's layer, ragged S=200 and S=5, hd 64 and 80, S=300 >
                 T=100 under window 64, whose rows 163-299 see no key and
-                must get +inf; atol 1e-4; the output bit-equal to the call
-                without L). Each route against `attention_bwd_ref`: causal x
-                window {None, 128} x GQA ratio {1, 2, 8} x {f32 at hd 64,
-                128; bf16 at hd 64, 128, 256}, f32 hd 16, non-causal hd 80
+                must get +inf; f32 also hd 16 and 256; atol 1e-4; the
+                output bit-equal to the call without L). Each route against
+                `attention_bwd_ref`: causal x window {None, 128} x GQA
+                ratio {1, 2, 8} x {f32 at hd 16, 64, 128, 256; bf16 at hd
+                64, 128, 256}, f32 hd 16, non-causal hd 80
                 (hubert's layer, bf16 at B=1 x 4,096), ragged S=200 (hd
                 256, and bf16 at hd 80 and 64) and S=5, T != S both ways
                 (hd 128 or 64, and 256), qwen3's layer and gemma3's (hd
@@ -242,8 +258,9 @@ Phases (every failure raises and exits nonzero):
                 x max(1, max|ref|); bf16 atol 2e-2 plus the output's bf16
                 rounding, and a relative Frobenius error of 1e-2); every
                 case must take its route's kernel and give the same bits
-                on a second call, and each wgmma case logs the fma kernel's
-                error on the same inputs beside its own; the autograd
+                on a second call, and each wgmma and tf32x3 case logs the
+                fma kernel's error on the same inputs beside its own (held
+                in f32); the autograd
                 Function (`ops.flash_attention`) against torch.autograd
                 through `attention_ref` in f32. Times at qwen3's training
                 shape (bf16 q (8, 4,096, 16, 128), causal) both routes,
@@ -256,9 +273,14 @@ Phases (every failure raises and exits nonzero):
                 bwd_dq apart from the profiled gemma3 step below) and the
                 fma kernel in turns, SDPA's
                 backward naming its backend, the bound and the floor; the
-                wgmma forward at B=4 beside SDPA. Both CUDA-core kernels in
-                f32 at qwen3's shapes beside SDPA in f32 with TF32 off,
-                naming its backend. The main path: qwen3-0.6b
+                wgmma forward at B=4 beside SDPA. In f32, at qwen3's
+                shapes (forward (4, 4,096, 16, 128), backward (8, 4,096,
+                16, 128)) and gemma3's hd-256 global layer (B=2): the
+                tf32x3 and fma kernels in turns, the plain version, SDPA
+                with TF32 off (naming its backend) and on (in the forward
+                its error against `attention_ref`), the 3xTF32 bound, the
+                backward's 7-product floor and the f32-FMA bound. The main
+                path: qwen3-0.6b
                 whole, bf16, B=8 x 4,096 from
                 `SyntheticTextDataset(151_936, 4_096, 8, seed=0)` through
                 `make_train_step` with remat, 5 steps: finite, falling
@@ -270,11 +292,18 @@ Phases (every failure raises and exits nonzero):
                 the wgmma backward against the same step with the route
                 patched to "fma" here (unittest.mock; the package has no
                 knob): the loss within 1e-3 relative, every gradient within
-                relative Frobenius 1e-2. An f32 hold at full width cut to 2
-                layers (B=2 x 256): one step through the kernels (fma
+                relative Frobenius 1e-2. The f32 path: qwen3-0.6b whole (28
+                layers) in f32, B=2 x 4,096, remat, 3 steps: finite,
+                falling loss, every gradient finite, K2 forward 2 x 28 x 3
+                and backward 28 x 3 launches, all tf32x3, one profiled step
+                (K2's forward and backward device ms and share); step 1
+                again with both K2 routes patched to "fma": loss within
+                1e-5 relative, every gradient within relative Frobenius
+                1e-4. An f32 hold at full width cut to 2
+                layers (B=2 x 256): one step through the kernels (tf32x3
                 forward and backward) against the same step on
                 `attention_ref`, then 3 steps. `launch.train` on the card
-                (fma): 8 steps, --resume to 12, and a 12-step run resumed
+                (tf32x3): 8 steps, --resume to 12, and a 12-step run resumed
                 from its own step 8 against the uninterrupted run. Then
                 gemma3-12b at full width cut to one pattern period (6 of 48
                 layers: 5 local, window 1,024, and 1 global), bf16, B=8 x
@@ -321,7 +350,7 @@ Phases (every failure raises and exits nonzero):
                 forward and one backward at H=128, P=128, every gradient
                 finite; the full-width f32 mamba layer at B=1 x 512, its
                 gradients against autograd of `ssd_intra_ref`; the smoke
-                model, 3 steps of `make_train_step` (K2 fma, K3, MoE).
+                model, 3 steps of `make_train_step` (K2 tf32x3, K3, MoE).
                 `launch.train --arch mamba2_370m --preset tiny` on the
                 card: 8 steps, --resume to 12, against a 12-step run
                 resumed from its own step 8.
@@ -685,8 +714,9 @@ def wgmma_waits(library: Path) -> dict:
 
 def phase_build() -> None:
     sources = (relax.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE,
-               flash.BWD_SOURCE, flash.BWD_WGMMA_SOURCE, ssd.SOURCE,
-               ssd.BWD_SOURCE)
+               flash.TF32_SOURCE, flash.BWD_SOURCE, flash.BWD_WGMMA_SOURCE,
+               flash.BWD_TF32_SOURCE, ssd.SOURCE, ssd.BWD_SOURCE)
+    tf32_sources = (flash.TF32_SOURCE, flash.BWD_TF32_SOURCE)
     wgmma_sources = (flash.WGMMA_SOURCE, flash.BWD_WGMMA_SOURCE)
     t0 = time.perf_counter()
     for source, (path, seconds, text) in zip(
@@ -707,7 +737,8 @@ def phase_build() -> None:
             require("C7510" not in text and "C7508" not in text,
                     f"{source.name}: ptxas serialized wgmma (C7510) or "
                     "ignored setmaxnreg (C7508)")
-        if source in (*wgmma_sources, ssd.SOURCE, ssd.BWD_SOURCE):
+        if source in (*wgmma_sources, *tf32_sources, ssd.SOURCE,
+                      ssd.BWD_SOURCE):
             require(" 0 bytes spill stores" in text
                     and text.count("spill stores") == text.count(
                         " 0 bytes spill stores"),
@@ -732,6 +763,21 @@ def phase_build() -> None:
                                  or f"{fn}ILi{hd}E" in name) and n_mma
                                 for name, (n_mma, _) in waits.items()),
                             f"{source.name}: no HGMMA in {fn}<{hd}>")
+        if source in tf32_sources:
+            # the tensor-core route: mma.sync (HMMA) in every function of
+            # every head dim (no wgmma, so none for ptxas to serialize)
+            mmas = sass_counts(path, ("HMMA", "HGMMA"))
+            fns = (("fwd_tf32",) if source == flash.TF32_SOURCE
+                   else ("bwd_dkdv", "bwd_dq"))
+            for name, (n_mma, n_gmma) in mmas.items():
+                if n_mma or n_gmma:
+                    log(f"  {name}: {n_mma} HMMA, {n_gmma} HGMMA in the SASS")
+            for fn, hd in itertools.product(fns, flash.HEAD_DIMS):
+                require(any((f"{fn}<(int){hd}>" in name
+                             or f"{fn}<(int){hd}," in name
+                             or f"{fn}ILi{hd}E" in name) and n_mma
+                            for name, (n_mma, _) in mmas.items()),
+                        f"{source.name}: no HMMA in {fn}<{hd}>")
         if source == ssd.BWD_SOURCE:
             # the tensor-core route: wgmma (HGMMA) in ssd_bwd_dxw, mma.sync
             # (HMMA) in ssd_bwd_dx and ssd_bwd_dcdb
@@ -748,10 +794,10 @@ def phase_build() -> None:
                         f"{source.name}: no {('HMMA', 'HGMMA')[k]} in {fn}")
     log(f"all kernels built in {time.perf_counter() - t0:.2f} s")
     relax._library()
-    flash._library("fma")
-    flash._library("wgmma")
-    flash._bwd_library("fma")
-    flash._bwd_library("wgmma")
+    for name in flash.ROUTES:
+        flash._library(name)
+    for name in flash.BWD_ROUTES:
+        flash._bwd_library(name)
     ssd._library()
     ssd._bwd_library()
 
@@ -1826,11 +1872,15 @@ def randn(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor:
 
 def attention_check(label: str, q, k, v, causal: bool,
                     window: int | None, quiet: bool = False,
-                    rel_tol: float | None = None) -> float:
+                    rel_tol: float | None = None,
+                    fma_errs: list | None = None) -> float:
     """The kernel against `attention_ref` on the same inputs (upcast to
     f32 for a bf16 kernel, as tests/test_kernels_attention.py does); the
     call must take `flash.route`'s route. With `rel_tol`, also holds the
-    relative Frobenius error ||out - ref|| / ||ref||."""
+    relative Frobenius error ||out - ref|| / ||ref||. On the "tf32x3" route
+    a second call must give the same bits, and the "fma" kernel runs on the
+    same inputs (launched directly, not counted), held at the same atol:
+    its error goes to `fma_errs` and beside this one in the log."""
     name = flash.route(q.dtype, q.shape[-1])
     before = dict(flash.flash_attention_cuda.route_launches)
     out = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
@@ -1848,6 +1898,17 @@ def attention_check(label: str, q, k, v, causal: bool,
         r = float((out.float() - ref).norm() / ref.norm())
         ok = ok and r <= rel_tol
         rel = f", relative Frobenius {r:.3e} (tol {rel_tol:g})"
+    if name == "tf32x3":
+        same = torch.equal(out, flash.flash_attention_cuda(
+            q, k, v, causal=causal, window=window))
+        alt = flash._launch("fma", q, k, v, causal, window)
+        alt_err = float((alt - ref).abs().max())
+        if fma_errs is not None:
+            fma_errs.append(alt_err)
+        ok = ok and same and alt_err <= atol
+        rel += (f"; a second call bit-equal: {same}; the fma kernel on the "
+                f"same inputs: max|err| {alt_err:.3e}")
+        del alt
     if not (quiet and ok):
         log(f"attention {label} [{name}]: max|err| {err:.3e} (atol "
             f"{atol:g}){rel}: {ok}")
@@ -1868,44 +1929,55 @@ def attention_work(b, s, h, kh, hd, dtype, causal: bool = True) -> dict:
 
 
 def phase_attention(gen) -> tuple[float, dict]:
-    errs = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for hd in (64, 80, 128, 256):
-            group = []
+    """Phase 6. Returns the wgmma route's max error and the timing, with
+    each route's max error by name (`max_abs_err_by_route`)."""
+    errs, fma_errs = [], []
+    for dtype, hds in ((torch.float32, (16, 64, 80, 128, 256)),
+                       (torch.bfloat16, (64, 80, 128, 256))):
+        for hd in hds:
+            group, alts = [], []
             for kh in (8, 4, 1):                    # GQA ratio 1, 2, 8
                 q = randn(gen, (2, 320, 8, hd), dtype)
                 k = randn(gen, (2, 320, kh, hd), dtype)
                 v = randn(gen, (2, 320, kh, hd), dtype)
                 for causal in (True, False):
                     for window in (None, 128):
-                        group.append(attention_check(
+                        group.append((flash.route(dtype, hd),
+                                      attention_check(
                             f"{str(dtype)[6:]} hd={hd} g={8 // kh} "
                             f"causal={causal} window={window} S=320",
-                            q, k, v, causal, window, quiet=True))
+                            q, k, v, causal, window, quiet=True,
+                            fma_errs=alts)))
             log(f"attention {str(dtype)[6:]} hd={hd} "
                 f"[{flash.route(dtype, hd)}]: 12 cases (GQA ratio 1/2/8 x "
                 "causal x window None/128, B=2, S=320, H=8): max|err| "
-                f"{max(group):.3e} (atol {ATTN_ATOL[dtype]:g})")
+                f"{max(e for _, e in group):.3e} (atol {ATTN_ATOL[dtype]:g})"
+                + (f", each call's bits equal to a second's; the fma kernel "
+                   f"on the same inputs {max(alts):.3e}" if alts else ""))
             errs += group
-    # ragged lengths; S=5 is shorter than one tile of either kernel
-    for dtype, hd, n, window in ((torch.float32, 32, 200, 50),
-                                 (torch.bfloat16, 64, 200, 50),
-                                 (torch.bfloat16, 256, 200, 50),
-                                 (torch.bfloat16, 128, 5, None)):
+            fma_errs += alts
+    # ragged lengths; S=5 is shorter than one tile of any kernel; S != T
+    for dtype, hd, n, t, window in ((torch.float32, 32, 200, 200, 50),
+                                    (torch.float32, 128, 5, 5, None),
+                                    (torch.float32, 128, 200, 328, None),
+                                    (torch.float32, 64, 328, 200, None),
+                                    (torch.bfloat16, 64, 200, 200, 50),
+                                    (torch.bfloat16, 256, 200, 200, 50),
+                                    (torch.bfloat16, 128, 5, 5, None)):
         q = randn(gen, (1, n, 4, hd), dtype)
-        k = randn(gen, (1, n, 2, hd), dtype)
-        v = randn(gen, (1, n, 2, hd), dtype)
-        errs.append(attention_check(
-            f"{str(dtype)[6:]} hd={hd} ragged S={n} window={window}", q, k,
-            v, True, window))
+        k = randn(gen, (1, t, 2, hd), dtype)
+        v = randn(gen, (1, t, 2, hd), dtype)
+        errs.append((flash.route(dtype, hd), attention_check(
+            f"{str(dtype)[6:]} hd={hd} ragged S={n} T={t} window={window}",
+            q, k, v, True, window, fma_errs=fma_errs)))
     qcfg = configs.get("qwen3_0_6b")
     shape = (qcfg.num_heads, qcfg.num_kv_heads, qcfg.head_dim)
     # every architecture's layer: GQA 3 at hd 64 (granite), hd 80
     # non-causal MHA (hubert), GQA 4 (phi3), GQA 16 (qwen3-moe), hd 256
     # with gemma3's window 1,024 on its local layers, GQA 8 (chameleon).
     # At S=4096 a row's output is ~0.03, under the bf16 atol: the f32
-    # case at atol 2e-5 holds the long range on the CUDA cores, and the
-    # relative error holds it on the tensor cores
+    # case (3xTF32, and the fma kernel beside it) at atol 2e-5 holds the
+    # long range, and the relative error holds the bf16 one
     for name in ("qwen3_0_6b", GRANITE, HUBERT, "phi3_medium_14b",
                  QWEN3_MOE, "gemma3_12b", "chameleon_34b"):
         cfg = configs.get(name)
@@ -1915,11 +1987,12 @@ def phase_attention(gen) -> tuple[float, dict]:
             q = randn(gen, (1, LM_SEQ, h, hd), dtype)
             k = randn(gen, (1, LM_SEQ, kh, hd), dtype)
             v = randn(gen, (1, LM_SEQ, kh, hd), dtype)
-            errs.append(attention_check(
+            errs.append((flash.route(dtype, hd), attention_check(
                 f"{name} layer {str(dtype)[6:]} B=1 S={LM_SEQ} H={h} "
                 f"KH={kh} hd={hd} causal={cfg.causal} window={window}", q,
                 k, v, cfg.causal, window,
-                rel_tol=ATTN_REL_TOL if dtype == torch.bfloat16 else None))
+                rel_tol=ATTN_REL_TOL if dtype == torch.bfloat16 else None,
+                fma_errs=fma_errs)))
             del q, k, v
 
     # timing at the main path's shape: the qwen3 prefill's layer
@@ -1944,8 +2017,13 @@ def phase_attention(gen) -> tuple[float, dict]:
         f"bound {w['bound_ms']:.4f} ms ({w['bound_by']}; {w['ops']:.4g} ops, "
         f"{w['bytes']} B)")
     del q, k, v
-    return max(errs), dict(w, ms=ms, fma_ms=fma_ms, plain_ms=plain_ms,
-                           library_ms=library_ms, hd80=hd80_timing(gen))
+    by_route = {r: max(e for r_, e in errs if r_ == r)
+                for r in {r for r, _ in errs}}
+    by_route["fma"] = max(fma_errs)
+    return by_route["wgmma"], dict(w, ms=ms, fma_ms=fma_ms,
+                                   plain_ms=plain_ms, library_ms=library_ms,
+                                   hd80=hd80_timing(gen),
+                                   max_abs_err_by_route=by_route)
 
 
 def hd80_timing(gen) -> dict:
@@ -2265,7 +2343,7 @@ def lm_path(arch: str, kernel, rng, cfg=None, replay_layers=None,
     prefill and decode step; `serve_flags` go to `serve.main` after the
     defaults. Returns its launches in the two bf16 prefills and, for flash
     attention, the launches by route: the bf16 prefills' (wgmma) and the
-    float32 prefill's (fma); the profiled calls are not counted."""
+    float32 prefill's (tf32x3); the profiled calls are not counted."""
     cfg = cfg or configs.get(arch)
     is_moe = bool(cfg.num_experts)
     free()
@@ -2304,7 +2382,7 @@ def lm_path(arch: str, kernel, rng, cfg=None, replay_layers=None,
             "kernel")
     path_routes = dict(routes)
     if kernel is flash.flash_attention_cuda:
-        require(routes == {"wgmma": launches, "fma": 0},
+        require(routes == {**dict.fromkeys(routes, 0), "wgmma": launches},
                 f"{arch}: bf16 prefill routes {routes}; every launch must "
                 "take the wgmma kernel")
     require(tuple(logits.shape) == (LM_BATCH, 1, cfg.padded_vocab)
@@ -2312,7 +2390,7 @@ def lm_path(arch: str, kernel, rng, cfg=None, replay_layers=None,
             f"{arch}: prefill logits {tuple(logits.shape)} not finite or "
             "of the wrong shape")
     ntok = LM_BATCH * LM_SEQ
-    by_route = (f" ({routes['wgmma']} wgmma, {routes['fma']} fma)"
+    by_route = (f" ({routes['wgmma']} wgmma)"
                 if kernel is flash.flash_attention_cuda else "")
     log(f"{arch} prefill B={LM_BATCH} S={LM_SEQ}: wall {walls[0]:.3f} / "
         f"{walls[1]:.3f} s, {ntok / walls[1]:.1f} tokens/s (second call), "
@@ -2352,12 +2430,15 @@ def lm_path(arch: str, kernel, rng, cfg=None, replay_layers=None,
     prompt = torch.from_numpy(rng.integers(
         0, cfg.vocab_size, (1, replay))).cuda()
     before = kernel.launches
-    fma_before = routes.get("fma", 0)
+    f32_before = routes.get("tf32x3", 0)
     full = steps.make_prefill_step(cfg32)(params, {"tokens": prompt})
     require(kernel.launches == before + cfg32.num_layers,
             f"{arch}: the f32 prefill did not go through the kernel")
     if kernel is flash.flash_attention_cuda:
-        path_routes["fma"] = routes["fma"] - fma_before
+        path_routes["tf32x3"] = routes["tf32x3"] - f32_before
+        require(path_routes["tf32x3"] == cfg32.num_layers,
+                f"{arch}: f32 prefill routes {routes}; every launch must "
+                "take the tf32x3 kernel")
     decode = steps.make_decode_step(cfg32)
     cache = M.init_cache(cfg32, 1, replay)
     t0 = time.perf_counter()
@@ -2689,7 +2770,7 @@ def hold(label: str, got: torch.Tensor, want: torch.Tensor) -> None:
 def hubert_path(gen) -> dict:
     """hubert-xlarge at full depth on a frames batch: two bf16 prefills
     through K2 (hd 80, wgmma), the float32 prefill at B=1 through K2's
-    CUDA-core route against the same prefill with `attention.attend` on
+    3xTF32 route against the same prefill with `attention.attend` on
     `attention_ref`, and `serve`'s refusal. Returns K2's launches by
     route."""
     cfg = configs.get(HUBERT)
@@ -2708,7 +2789,7 @@ def hubert_path(gen) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     got = dict(routes)
-    require(got == {"wgmma": 2 * cfg.num_layers, "fma": 0},
+    require(got == {**dict.fromkeys(got, 0), "wgmma": 2 * cfg.num_layers},
             f"{HUBERT}: bf16 prefill routes {got}; want "
             f"{2 * cfg.num_layers} wgmma launches (hd 80)")
     require(tuple(logits.shape) == (LM_BATCH, 1, cfg.padded_vocab)
@@ -2728,21 +2809,22 @@ def hubert_path(gen) -> dict:
     params = M.init_params(cfg32, seed=1)
     x = {"frames": randn(gen, (1, LM_SEQ, cfg.d_model))}
     prefill32 = steps.make_prefill_step(cfg32)
-    fma0 = routes["fma"]
+    f32_0 = routes["tf32x3"]
     out = prefill32(params, x)
-    require(routes["fma"] == fma0 + cfg.num_layers and routes["wgmma"]
-            == 2 * cfg.num_layers, f"{HUBERT}: f32 prefill routes {routes}")
-    fma = routes["fma"] - fma0
+    require(routes["tf32x3"] == f32_0 + cfg.num_layers and routes["wgmma"]
+            == 2 * cfg.num_layers and routes["fma"] == 0,
+            f"{HUBERT}: f32 prefill routes {routes}")
+    n32 = routes["tf32x3"] - f32_0
 
     def plain(q, k, v, causal, window):
         return attention_ref(q, k, v, causal=causal, window=window)
 
     with mock.patch.object(attention, "attend", plain):
         want = prefill32(params, x)
-    require(routes["fma"] == fma0 + cfg.num_layers,
+    require(routes["tf32x3"] == f32_0 + cfg.num_layers,
             f"{HUBERT}: the plain prefill launched K2")
     hold(f"{HUBERT} f32 prefill B=1 S={LM_SEQ}, {cfg.num_layers} layers: "
-         "K2 (fma, hd 80) vs attention_ref", out, want)
+         "K2 (tf32x3, hd 80) vs attention_ref", out, want)
     del params, out, want
     free()
     try:
@@ -2752,7 +2834,7 @@ def hubert_path(gen) -> dict:
         log(f"{HUBERT} serve: {e}")
     else:
         require(False, f"{HUBERT}: serve did not refuse an encoder")
-    return {"wgmma": got["wgmma"], "fma": fma}
+    return {"wgmma": got["wgmma"], "tf32x3": n32}
 
 
 def jamba_blocks(gen) -> dict:
@@ -2826,8 +2908,8 @@ def jamba_blocks(gen) -> dict:
 
 def jamba_smoke(rng) -> dict:
     """jamba's whole hybrid model at its smoke config on the card (K2 on
-    the CUDA-core route at hd 16, K3 at P 32): a prefill, the 8-token
-    replay and `serve --preset tiny --device cuda`. Returns K2's (fma)
+    the 3xTF32 route at hd 16 in f32, K3 at P 32): a prefill, the 8-token
+    replay and `serve --preset tiny --device cuda`. Returns K2's (tf32x3)
     and K3's launches in the prefill."""
     cfg = configs.get_smoke(JAMBA)
     params = M.init_params(cfg, seed=0)
@@ -2837,11 +2919,12 @@ def jamba_smoke(rng) -> dict:
     routes = flash.flash_attention_cuda.route_launches
     reset_counts()
     logits = M.prefill(params, {"tokens": tokens}, cfg)
-    got = {"fma": routes["fma"], "wgmma": routes["wgmma"],
-           "ssd": ssd.ssd_intra_cuda.launches}
-    require(got == {"fma": n_attn, "wgmma": 0, "ssd": n_mamba}
+    got = {**routes, "ssd": ssd.ssd_intra_cuda.launches}
+    require(got == {**dict.fromkeys(routes, 0), "tf32x3": n_attn,
+                    "ssd": n_mamba}
             and bool(torch.isfinite(logits).all()),
-            f"{JAMBA} smoke prefill: launches {got}; want {n_attn} K2 (fma) "
+            f"{JAMBA} smoke prefill: launches {got}; want {n_attn} K2 "
+            f"(tf32x3) "
             f"and {n_mamba} K3, finite logits")
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size,
                                            (1, MOE_REPLAY_LEN))).cuda()
@@ -2857,16 +2940,16 @@ def jamba_smoke(rng) -> dict:
                       "cuda", "--slots", "8", "--requests", "16"])
     require(out["done"] == 16 and out["device"].startswith("cuda"),
             f"{JAMBA} smoke serve: {out['done']} of 16 on {out['device']}")
-    log(f"{JAMBA} smoke: prefill ({LM_BATCH}, 512) K2 {n_attn} (fma) K3 "
+    log(f"{JAMBA} smoke: prefill ({LM_BATCH}, 512) K2 {n_attn} (tf32x3) K3 "
         f"{n_mamba}; serve 16 requests, {out['tokens']} tokens in "
         f"{out['steps']} steps, {out['seconds']:.3f} s")
     return got
 
 
 def phase_configs(rng, gen) -> tuple[dict, dict, dict]:
-    """Phase 17. Returns K2's launches by phase on the wgmma and the fma
+    """Phase 17. Returns K2's launches by phase on the wgmma and the tf32x3
     route, and K3's."""
-    wgmma, fma, k3 = {}, {}, {}
+    wgmma, f32, k3 = {}, {}, {}
     for arch in DENSE:
         t0 = time.perf_counter()
         cfg = configs.get(arch)
@@ -2877,12 +2960,12 @@ def phase_configs(rng, gen) -> tuple[dict, dict, dict]:
                                    else None),
                        profile=arch == DENSE[0])
         wgmma[f"17 {arch}"] = r["wgmma"]
-        fma[f"17 {arch} f32 replay"] = r["fma"]
+        f32[f"17 {arch} f32 replay"] = r["tf32x3"]
         log(f"phase 17 {arch}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     r = hubert_path(gen)
     wgmma[f"17 {HUBERT}"] = r["wgmma"]
-    fma[f"17 {HUBERT} f32"] = r["fma"]
+    f32[f"17 {HUBERT} f32"] = r["tf32x3"]
     log(f"phase 17 {HUBERT}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     cut = dataclasses.replace(configs.get(QWEN3_MOE),
@@ -2891,17 +2974,17 @@ def phase_configs(rng, gen) -> tuple[dict, dict, dict]:
                    replay_layers=2, profile=False,
                    serve_flags=("--layers", str(QWEN3_MOE_LAYERS)))
     wgmma[f"17 {QWEN3_MOE} ({QWEN3_MOE_LAYERS} of 94 layers)"] = r["wgmma"]
-    fma[f"17 {QWEN3_MOE} f32 replay"] = r["fma"]
+    f32[f"17 {QWEN3_MOE} f32 replay"] = r["tf32x3"]
     log(f"phase 17 {QWEN3_MOE}: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     r = jamba_blocks(gen)
     wgmma[f"17 {JAMBA} blocks"] = r["wgmma"]
     k3[f"17 {JAMBA} blocks"] = r["ssd"]
     r = jamba_smoke(rng)
-    fma[f"17 {JAMBA} smoke"] = r["fma"]
+    f32[f"17 {JAMBA} smoke"] = r["tf32x3"]
     k3[f"17 {JAMBA} smoke"] = r["ssd"]
     log(f"phase 17 {JAMBA}: {time.perf_counter() - t0:.1f} s")
-    return wgmma, fma, k3
+    return wgmma, f32, k3
 
 
 # ------------------------------------------------------------------ #
@@ -2956,15 +3039,16 @@ def bwd_check(label: str, gen, q, k, v, causal: bool, window: int | None,
     kernel, do random; the plain version in f32 on the upcast inputs), at
     `grads_hold`'s limits. The call must take the route's kernel, counted
     once, and a second call must give the same bits (no atomics). On the
-    "wgmma" route the "fma" kernel runs on the same inputs too and its
-    error is logged beside (not held: it is the other route). Returns
+    "wgmma" and "tf32x3" routes the "fma" kernel runs on the same inputs
+    too (patched in) and its error is logged beside; in f32 it is held at
+    the same limits, in bf16 not (it keeps P and dS in f32). Returns
     (route, max|err|, the fma route's max|err| or None)."""
     name = flash.bwd_route(q.dtype, q.shape[-1])
+    takes_lse = name in flash.LSE_ROUTES
     with torch.no_grad():
         out = flash.flash_attention_cuda(q, k, v, causal=causal,
-                                         window=window,
-                                         return_lse=name == "wgmma")
-    o, lse = out if name == "wgmma" else (out, None)
+                                         window=window, return_lse=takes_lse)
+    o, lse = out if takes_lse else (out, None)
     do = randn(gen, tuple(o.shape), q.dtype)
     counts = flash.flash_attention_bwd_cuda.route_launches
     before = dict(counts)
@@ -2982,12 +3066,14 @@ def bwd_check(label: str, gen, q, k, v, causal: bool, window: int | None,
                              do.float(), causal, window)
     ok, err, notes = grads_hold(q.dtype, got, want)
     alt_err, alt = None, ""
-    if name == "wgmma":
+    if takes_lse:
         with fma_route():
             other = flash.flash_attention_bwd_cuda(q, k, v, o, do, causal,
                                                    window)
-        _, alt_err, alt_notes = grads_hold(q.dtype, other, want)
+        alt_ok, alt_err, alt_notes = grads_hold(q.dtype, other, want)
         alt = f" | the fma route on the same inputs: {'; '.join(alt_notes)}"
+        if q.dtype == torch.float32:
+            ok = ok and alt_ok
     if not (quiet and ok):
         log(f"backward {label} [{name}]: max|err| {'; '.join(notes)}: "
             f"{ok}{alt}")
@@ -2999,21 +3085,23 @@ def bwd_check(label: str, gen, q, k, v, causal: bool, window: int | None,
 LSE_ATOL = 1e-4               # natural-log units: 1e-4 of the row sum
 
 
-def lse_check(label: str, gen, b, s, t, h, kh, hd, causal, window) -> float:
-    """The wgmma forward's row log-sum-exp (`return_lse=True`) against
-    `attention_lse_ref` on the same bf16 inputs (upcast): +inf on exactly
-    the rows that see no key, elsewhere within atol 1e-4; the output the
-    same bit for bit as without L."""
-    q = randn(gen, (b, s, h, hd), torch.bfloat16)
-    k = randn(gen, (b, t, kh, hd), torch.bfloat16)
-    v = randn(gen, (b, t, kh, hd), torch.bfloat16)
-    before = flash.flash_attention_cuda.route_launches["wgmma"]
+def lse_check(label: str, gen, b, s, t, h, kh, hd, causal, window,
+              dtype=torch.bfloat16) -> float:
+    """The forward's row log-sum-exp (`return_lse=True`, the wgmma route
+    in bf16, tf32x3 in f32) against `attention_lse_ref` on the same inputs
+    (upcast): +inf on exactly the rows that see no key, elsewhere within
+    atol 1e-4; the output the same bit for bit as without L."""
+    q = randn(gen, (b, s, h, hd), dtype)
+    k = randn(gen, (b, t, kh, hd), dtype)
+    v = randn(gen, (b, t, kh, hd), dtype)
+    name = flash.route(dtype, hd)
+    before = flash.flash_attention_cuda.route_launches[name]
     o, lse = flash.flash_attention_cuda(q, k, v, causal=causal,
                                         window=window, return_lse=True)
     o2 = flash.flash_attention_cuda(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    require(flash.flash_attention_cuda.route_launches["wgmma"] == before + 2,
-            f"L {label}: not on the wgmma route")
+    require(flash.flash_attention_cuda.route_launches[name] == before + 2,
+            f"L {label}: not on the {name} route")
     ref = attention_lse_ref(q.float(), k.float(), causal, window)
     require(lse.shape == (b, h, s) and lse.dtype == torch.float32,
             f"L {label}: {tuple(lse.shape)} {lse.dtype}")
@@ -3023,7 +3111,8 @@ def lse_check(label: str, gen, b, s, t, h, kh, hd, causal, window) -> float:
     ok = (bool(torch.equal(torch.isposinf(lse), empty))
           and bool(torch.isfinite(lse[fin]).all()) and err <= LSE_ATOL
           and bool(torch.equal(o, o2)))
-    log(f"forward L {label}: max|err| {err:.3e} on {int(fin.sum())} rows "
+    log(f"forward L {label} [{name}]: max|err| {err:.3e} on "
+        f"{int(fin.sum())} rows "
         f"(atol {LSE_ATOL:g}), +inf on the {int(empty.sum())} rows that see "
         f"no key; output bit-equal to the call without L: {ok}")
     require(ok, f"the forward's L disagrees with attention_lse_ref: {label}")
@@ -3031,8 +3120,9 @@ def lse_check(label: str, gen, b, s, t, h, kh, hd, causal, window) -> float:
 
 
 def lse_cases(gen) -> float:
-    """Phase 18's L cases: qwen3's layer, ragged S=200 and S=5, hd 64 and
-    80, and S > T under a window, where rows see no key."""
+    """Phase 18's L cases, in bf16 (wgmma) and f32 (tf32x3): qwen3's
+    layer, ragged S=200 and S=5, hd 64 and 80, and S > T under a window,
+    where rows see no key; in f32 also hd 16 and 256."""
     qcfg = configs.get(TRAIN_ARCH)
     cases = [(f"qwen3 layer B=1 S={LM_SEQ}", 1, LM_SEQ, LM_SEQ,
               qcfg.num_heads, qcfg.num_kv_heads, qcfg.head_dim, True, None),
@@ -3042,7 +3132,11 @@ def lse_cases(gen) -> float:
              ("hd=80 non-causal S=200", 1, 200, 200, 4, 4, 80, False, None),
              ("S=300 > T=100 window=64 (rows 163-299 see no key)", 1, 300,
               100, 4, 2, 128, True, 64)]
-    return max(lse_check(label, gen, *rest) for label, *rest in cases)
+    f32 = [("hd=16 S=200", 1, 200, 200, 4, 2, 16, True, None),
+           ("hd=256 S=200 window=50", 1, 200, 200, 4, 2, 256, True, 50)]
+    return max([lse_check(label, gen, *rest) for label, *rest in cases]
+               + [lse_check(f"f32 {label}", gen, *rest, dtype=torch.float32)
+                  for label, *rest in cases + f32])
 
 
 def function_check(gen, b, s, h, kh, hd, causal, window) -> float:
@@ -3078,16 +3172,19 @@ def function_check(gen, b, s, h, kh, hd, causal, window) -> float:
 
 def bwd_cases(gen) -> dict:
     """Phase 18's kernel-against-plain cases. Returns each backward
-    route's max|err|."""
-    errs = {"wgmma": [], "fma": []}
+    route's max|err|: the fma route's from its f32 runs beside the tf32x3
+    kernel (held there)."""
+    errs = {"wgmma": [], "tf32x3": [], "fma": []}
 
     def run(label, q, k, v, causal, window, quiet=False):
         name, err, alt = bwd_check(label, gen, q, k, v, causal, window,
                                    quiet)
         errs[name].append(err)
+        if alt is not None and q.dtype == torch.float32:
+            errs["fma"].append(alt)
         return name, err, alt
 
-    for dtype, hds in ((torch.float32, (64, 128)),
+    for dtype, hds in ((torch.float32, (16, 64, 128, 256)),
                        (torch.bfloat16, (64, 128, 256))):
         for hd in hds:
             group, alts = [], []
@@ -3145,16 +3242,16 @@ def bwd_cases(gen) -> dict:
         del q, k, v
     # T != S: kv tiles past S that no q tile reaches (zeros), and rows
     # past T
-    for label, s, t, hd in (("bf16 S=200 T=328 hd=128 causal", 200, 328, 128),
-                            ("bf16 S=328 T=200 hd=64 causal", 328, 200, 64),
-                            ("bf16 S=200 T=328 hd=256 causal", 200, 328, 256),
-                            ("bf16 S=328 T=200 hd=256 causal", 328, 200,
-                             256)):
-        run(label, randn(gen, (1, s, 4, hd), torch.bfloat16),
-            randn(gen, (1, t, 2, hd), torch.bfloat16),
-            randn(gen, (1, t, 2, hd), torch.bfloat16), True, None)
-    errs["fma"].append(function_check(gen, 2, 256, 16, 8, 128, True, None))
-    errs["fma"].append(function_check(gen, 1, 320, 8, 2, 64, True, 128))
+    for dtype in (torch.bfloat16, torch.float32):
+        for s, t, hd in ((200, 328, 128), (328, 200, 64), (200, 328, 256),
+                         (328, 200, 256)):
+            run(f"{str(dtype)[6:]} S={s} T={t} hd={hd} causal",
+                randn(gen, (1, s, 4, hd), dtype),
+                randn(gen, (1, t, 2, hd), dtype),
+                randn(gen, (1, t, 2, hd), dtype), True, None)
+    errs["tf32x3"].append(function_check(gen, 2, 256, 16, 8, 128, True,
+                                         None))
+    errs["tf32x3"].append(function_check(gen, 1, 320, 8, 2, 64, True, 128))
     return {name: max(e) for name, e in errs.items()}
 
 
@@ -3385,58 +3482,161 @@ def gemma_bwd_timing(gen) -> dict:
     return t
 
 
+def sdpa_tf32(q, k, v, do=None) -> dict:
+    """SDPA (causal) with TF32 allowed for f32 matmuls and convolutions,
+    restored after: its time as one library call (`sdpa_yardstick`) and,
+    for the forward, its output (B,S,H,hd), to hold against
+    `attention_ref`: what one TF32 product per multiply gives."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        lib = sdpa_yardstick(q, k, v, do)
+        if do is None and lib["ms"] is not None:
+            with torch.no_grad():
+                lib["out"] = torch.nn.functional.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    is_causal=True, enable_gqa=True).transpose(1, 2)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    return lib
+
+
 def f32_yardsticks(gen) -> dict:
-    """The CUDA-core routes' inputs are f32 (and bf16 at hd 16/32, which no
-    configuration has): both fma kernels in f32 at qwen3's shapes beside
-    SDPA in f32 with TF32 off (`sdpa_yardstick`, naming its backend): the
-    forward at the prefill shape (4, 4,096, 16, 128), the backward at the
-    training shape (8, 4,096, 16, 128), causal; each beside its bound at
-    the f32 rate outside the tensor cores."""
+    """K2's f32 routes, causal, at qwen3's shapes (the forward at the
+    prefill shape (4, 4,096, 16, 128), the backward at the training shape
+    (8, 4,096, 16, 128)) and at gemma3's hd-256 global layer (2, 4,096,
+    16, 256): the tf32x3 kernel and the fma kernel on the same inputs in
+    turns (tf32x3, fma, tf32x3); SDPA in f32 with TF32 off
+    (`sdpa_yardstick`, naming its backend) and with TF32 on (`sdpa_tf32`;
+    in the forward its error against `attention_ref` beside the tf32x3
+    kernel's); each beside the 3xTF32 bound (three TF32 products for each
+    operation, or the bytes), the backward's 7-product floor (S and dP
+    recomputed in both walks) and the f32-FMA bound."""
     require(not torch.backends.cuda.matmul.allow_tf32
             and not torch.backends.cudnn.allow_tf32, "TF32 is on")
-    cfg = configs.get(TRAIN_ARCH)
-    h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    qcfg, gcfg = configs.get(TRAIN_ARCH), configs.get(GEMMA3)
     out = {}
-    for what, b in (("forward", LM_BATCH), ("backward", TRAIN_BATCH)):
+    for key, what, b, cfg in (("forward", "forward", LM_BATCH, qcfg),
+                              ("backward", "backward", TRAIN_BATCH, qcfg),
+                              ("gemma3_forward", "forward", 2, gcfg),
+                              ("gemma3_backward", "backward", 2, gcfg)):
+        h, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         q = randn(gen, (b, TRAIN_SEQ, h, hd))
         k = randn(gen, (b, TRAIN_SEQ, kh, hd))
         v = randn(gen, (b, TRAIN_SEQ, kh, hd))
         w = attention_work(b, TRAIN_SEQ, h, kh, hd, torch.float32)
-        ops = w["ops"] * (2.5 if what == "backward" else 1.0)
-        nbytes = w["bytes"] * (2 if what == "backward" else 1)
-        if what == "forward":
-            ms = time_ms(lambda: flash.flash_attention_cuda(q, k, v), reps=3,
-                         warmup=1)
-            lib = sdpa_yardstick(q, k, v)
-        else:
+        bwd = what == "backward"
+        ops = w["ops"] * (2.5 if bwd else 1.0)
+        nbytes = w["bytes"] * (2 if bwd else 1)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = 3 * ops / TF32_OPS_PER_S
+        row = {"bound_ms": max(t_bytes, t_ops) * 1e3,
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "fp32_bound_ms": max(t_bytes, ops / FP32_OPS_PER_S) * 1e3,
+               "ops": ops, "bytes": nbytes,
+               "shape": f"f32 q ({b}, {TRAIN_SEQ}, {h}, {hd}), k/v "
+                        f"({b}, {TRAIN_SEQ}, {kh}, {hd}), causal"}
+        if bwd:
+            row["floor_7_products_ms"] = (3 * 3.5 * w["ops"]
+                                          / TF32_OPS_PER_S * 1e3)
             do = randn(gen, (b, TRAIN_SEQ, h, hd))
-            o = flash.flash_attention_cuda(q, k, v)
-            ms = time_ms(lambda: flash.flash_attention_bwd_cuda(
-                q, k, v, o, do), reps=2, warmup=1)
-            lib = sdpa_yardstick(q, k, v, do)
-            del do, o
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-        out[what] = {"ms": ms, "library_ms": lib["ms"],
-                     "library_backend": lib["backend"],
-                     "library_kv": lib["kv"],
-                     "bound_ms": max(t_bytes, t_ops) * 1e3,
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "shape": f"f32 q ({b}, {TRAIN_SEQ}, {h}, {hd}), k/v "
-                              f"({b}, {TRAIN_SEQ}, {kh}, {hd}), causal"}
+            with torch.no_grad():
+                o, lse = flash.flash_attention_cuda(q, k, v, return_lse=True)
+
+            def tf32():
+                return flash.flash_attention_bwd_cuda(q, k, v, o, do,
+                                                      lse=lse)
+
+            def fma():
+                with fma_route():
+                    return flash.flash_attention_bwd_cuda(q, k, v, o, do)
+            reps = (3, 2)
+        else:
+            do = None
+
+            def tf32():
+                return flash.flash_attention_cuda(q, k, v)
+
+            def fma():
+                return flash._launch("fma", q, k, v, True, None)
+            reps = (10, 3)
+        before = dict(flash.flash_attention_cuda.route_launches)
+        bbefore = dict(flash.flash_attention_bwd_cuda.route_launches)
+        row["ms"] = time_ms(tf32, reps=reps[0], warmup=1)
+        row["fma_ms"] = time_ms(fma, reps=reps[1], warmup=1)
+        row["ms_again"] = time_ms(tf32, reps=reps[0], warmup=1)
+        took = (flash.flash_attention_bwd_cuda.route_launches["tf32x3"]
+                - bbefore["tf32x3"]) if bwd else (
+            flash.flash_attention_cuda.route_launches["tf32x3"]
+            - before["tf32x3"])
+        require(took == 2 * (reps[0] + 1),
+                f"f32 {key}: {took} tf32x3 launches timed")
+        if bwd:           # the plain version at the largest batch it fits
+            row["plain_ms"] = row["plain_batch"] = None
+            for pb in (b, b // 2, b // 4, 1):
+                try:
+                    free()
+                    row["plain_ms"] = time_ms(lambda: attention_bwd_ref(
+                        q[:pb], k[:pb], v[:pb], o[:pb], do[:pb]), reps=1,
+                        warmup=1)
+                    row["plain_batch"] = pb
+                    break
+                except torch.cuda.OutOfMemoryError:
+                    continue
+            free()
+        else:
+            row["plain_ms"] = time_ms(lambda: attention_ref(q, k, v),
+                                      reps=2, warmup=1)
+            row["plain_batch"] = b
+        lib = sdpa_yardstick(q, k, v, do)
+        row.update(library_ms=lib["ms"], library_backend=lib["backend"],
+                   library_kv=lib["kv"])
+        lib32 = sdpa_tf32(q, k, v, do)
+        row.update(tf32_library_ms=lib32["ms"],
+                   tf32_library_backend=lib32["backend"])
+        note = ""
+        if not bwd:
+            ref = attention_ref(q, k, v)
+            mine = tf32()
+            row["max_abs_err"] = float((mine - ref).abs().max())
+            if "out" in lib32:
+                row["tf32_library_max_abs_err"] = float(
+                    (lib32.pop("out") - ref).abs().max())
+            note = (f"; max|err| against attention_ref: tf32x3 kernel "
+                    f"{row['max_abs_err']:.3e}, SDPA with TF32 on "
+                    f"{row.get('tf32_library_max_abs_err', math.nan):.3e} "
+                    f"(atol {ATTN_ATOL[torch.float32]:g})")
+            del ref, mine
+        floor = (f", 7-product floor {row['floor_7_products_ms']:.4f} ms"
+                 if bwd else "")
         log(f"[{SMI[0]}] time {what} f32 B={b} S={TRAIN_SEQ} H={h} KH={kh} "
-            f"hd={hd} causal, TF32 off: fma kernel {ms:.4f} ms, SDPA "
+            f"hd={hd} causal, in turns: tf32x3 kernel {row['ms']:.4f} ms, "
+            f"fma kernel {row['fma_ms']:.4f} ms, tf32x3 again "
+            f"{row['ms_again']:.4f} ms ({3 * ops / row['ms'] / 1e9:.2f} "
+            f"TFLOP/s of TF32 products); SDPA TF32 off "
             + ("none" if lib["ms"] is None else
                f"{lib['ms']:.4f} ms ({lib['backend']}, {lib['kv']})")
-            + f", bound {out[what]['bound_ms']:.4f} ms at the f32 rate "
-            f"({out[what]['bound_by']})")
-        del q, k, v
+            + ", SDPA TF32 on "
+            + ("none" if lib32["ms"] is None else
+               f"{lib32['ms']:.4f} ms ({lib32['backend']})")
+            + f"; plain {row['plain_ms']:.4f} ms at B={row['plain_batch']}"
+            f"; bound {row['bound_ms']:.4f} ms at 3xTF32 "
+            f"({row['bound_by']}){floor}, f32-FMA bound "
+            f"{row['fp32_bound_ms']:.4f} ms{note}")
+        out[key] = row
+        del q, k, v, do
+        if bwd:
+            del o, lse
         free()
     return out
 
 
 KERNEL_CLASSES = (("K3 forward", ("ssd_intra_y", "ssd_intra_state")),
                   ("K3 backward", ("ssd_bwd_",)),
-                  ("K2 forward", ("flash_wgmma", "flash_fwd")),
+                  ("K2 forward", ("flash_wgmma", "flash_fwd", "fwd_tf32")),
                   ("K2 backward", ("bwd_prep", "bwd_dot", "bwd_dkdv",
                                    "bwd_dq")),
                   ("cuBLAS GEMM", ("gemm", "xmma", "cutlass", "cublas",
@@ -3472,12 +3672,14 @@ def grad_spy(record: list, keep_grads: bool = False):
     return mock.patch.object(adamw, "adamw_update", spying)
 
 
-def profile_train_step(step_fn, state, batch) -> dict:
+def profile_train_step(step_fn, state, batch,
+                       shares: dict | None = None) -> dict:
     """One profiled train step: device time by kernel class, the chunked
     CE's forward and the AdamW update as ranges, and the device's busy
     share of the step's wall. Returns the device ms of each call of K2's
     backward functions (bwd_dot, bwd_dkdv, bwd_dq), in launch order ({}
-    when the profiler saw no device time)."""
+    when the profiler saw no device time); `shares`, when given, takes the
+    step's wall and busy ms and each kernel class's device ms."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     def spanned(name, f):
@@ -3519,6 +3721,8 @@ def profile_train_step(step_fn, state, batch) -> dict:
             other += ms
     parts = {e.key: e.device_time_total / 1e3 for e in events
              if e.key in spans}
+    if shares is not None:
+        shares.update(classes, wall_ms=wall, busy_ms=busy, other_ms=other)
     log(f"profile train step: wall {wall:.1f} ms, device busy {busy:.1f} ms "
         f"({busy / wall:.1%}), {sum(c for _, _, c in kernels)} device ops; "
         + ", ".join(f"{n} {ms:.1f} ms ({ms / busy:.1%})"
@@ -3567,11 +3771,18 @@ def ce_timing(cfg) -> float:
 
 def k2_launches() -> dict:
     """K2's launches since the last `reset_counts`: the forward by route,
-    the backward by route."""
+    the backward by route (``bwd_<route>``)."""
     fwd = flash.flash_attention_cuda.route_launches
     bwd = flash.flash_attention_bwd_cuda.route_launches
-    return {"wgmma": fwd["wgmma"], "fma": fwd["fma"],
-            "bwd_wgmma": bwd["wgmma"], "bwd_fma": bwd["fma"]}
+    return {**fwd, **{f"bwd_{r}": n for r, n in bwd.items()}}
+
+
+def k2_want(**counts) -> dict:
+    """`k2_launches()`'s keys, each 0 but those given."""
+    want = dict.fromkeys(flash.ROUTES, 0)
+    want.update((f"bwd_{r}", 0) for r in flash.BWD_ROUTES)
+    require(set(counts) <= set(want), f"k2_want: no route in {counts}")
+    return {**want, **counts}
 
 
 def train_cell(arch: str, kind: str, leaves: tuple,
@@ -3652,8 +3863,7 @@ def train_main_path(gen) -> tuple[dict, dict]:
         TRAIN_ARCH, "attn", ("wq", "wk", "wv", "q_norm", "k_norm"))
     launches = k2_launches()
     n = cfg.num_layers * TRAIN_STEPS
-    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd_wgmma": n,
-                         "bwd_fma": 0}
+    require(launches == k2_want(wgmma=2 * n, bwd_wgmma=n)
             and flash.flash_attention_bwd_cuda.launches == n,
             f"{TRAIN_ARCH} train: launches {launches}; want {2 * n} K2 "
             f"forward (wgmma; remat runs each block twice) and {n} backward "
@@ -3668,6 +3878,122 @@ def train_main_path(gen) -> tuple[dict, dict]:
     log(f"chunked CE alone (8 chunks, fwd + bwd, hidden ({TRAIN_BATCH}, "
         f"{TRAIN_SEQ}, {cfg.d_model}) bf16): {out['ce_ms']:.2f} ms")
     return launches, out
+
+
+F32_TRAIN_BATCH, F32_TRAIN_STEPS = 2, 3   # qwen3 whole in f32, B=2 x 4,096
+
+
+@contextlib.contextmanager
+def fma_routes():
+    """K2's forward and backward both patched onto their "fma" routes, here
+    only (the package has no such knob): the f32 train step's comparison,
+    never the main path."""
+    with mock.patch.object(flash, "route", lambda dtype, hd: "fma"), \
+            fma_route():
+        yield
+
+
+def f32_main_path() -> tuple[dict, dict]:
+    """qwen3-0.6b whole (28 layers) at full width in f32, B=2 x 4,096
+    from `SyntheticTextDataset(vocab, 4,096, 2, seed=4)` through
+    `make_train_step` with remat, 3 steps, the counts set to 0 just
+    before: a finite, falling loss; every gradient finite; K2's forward
+    2 x 28 x 3 launches and backward 28 x 3, all tf32x3; one profiled step
+    (K2's forward and backward device ms and share); then step 1 again from
+    the same parameters and batch with both K2 routes patched to "fma"
+    (`fma_routes`): its loss within 1e-5 relative and every gradient within
+    a relative Frobenius error of 1e-4 of the tf32x3 step's. Returns the
+    launches (the main path's and the patched step's) and the logged
+    numbers."""
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    opt_cfg = AdamWConfig(total_steps=F32_TRAIN_STEPS, warmup_steps=1)
+    ds = SyntheticTextDataset(cfg.vocab_size, TRAIN_SEQ, F32_TRAIN_BATCH,
+                              seed=4)
+    batches = [{k: torch.from_numpy(x).cuda() for k, x in b.items()}
+               for _, b in make_batches(ds, 0, F32_TRAIN_STEPS + 1)]
+    runs, shares, peak = [], {}, 0.0
+    for patched in (False, True):
+        params = M.init_params(cfg, seed=6)
+        state = {"params": params, "opt": init_opt_state(params, opt_cfg)}
+        step_fn = steps.make_train_step(cfg, opt_cfg)
+        record: list = []
+        losses, walls = [], []
+        # the f32 main path: counts start at 0 here (the patched step's
+        # are read apart)
+        reset_counts()
+        with (fma_routes() if patched else contextlib.nullcontext()), \
+                grad_spy(record, True):
+            for batch in batches[:1 if patched else F32_TRAIN_STEPS]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                if len(record) > 1:        # step 1's gradients are kept
+                    record[-1].pop("grads")
+        launches = k2_launches()
+        runs.append((losses, walls, record, launches))
+        if not patched:
+            n = cfg.num_layers * F32_TRAIN_STEPS
+            require(launches == k2_want(tf32x3=2 * n, bwd_tf32x3=n)
+                    and flash.flash_attention_bwd_cuda.launches == n,
+                    f"{TRAIN_ARCH} f32 train: launches {launches}; want "
+                    f"{2 * n} K2 forward (remat runs each block twice) and "
+                    f"{n} backward, all tf32x3")
+            bad = [n_ for e in record for n_, ok in e["finite"].items()
+                   if not ok]
+            require(all(math.isfinite(x) for x in losses)
+                    and losses[-1] < losses[0] and not bad,
+                    f"{TRAIN_ARCH} f32 train: losses {losses}, non-finite "
+                    f"gradients {bad[:4]}")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            profile_train_step(step_fn, state, batches[-1], shares)
+        del params, state
+        free()
+    (losses, walls, record, launches), (lf, _, rf, lf_launches) = runs
+    n = cfg.num_layers
+    require(lf_launches == k2_want(fma=2 * n, bwd_fma=n),
+            f"{TRAIN_ARCH} f32 patched step: launches {lf_launches}; want "
+            f"{2 * n} K2 forward and {n} backward, all fma")
+    rel = grads_rel(record[0]["grads"], rf[0]["grads"])
+    worst = max(rel, key=rel.get)
+    attn = max(v for k, v in rel.items() if ".attn." in k)
+    ok = (abs(losses[0] - lf[0]) <= 1e-5 * abs(lf[0])
+          and rel[worst] <= 1e-4)
+    med = float(np.median(walls[1:]))
+    ntok = F32_TRAIN_BATCH * TRAIN_SEQ
+    out = {"losses": losses, "walls": walls, "ms_per_step": med * 1e3,
+           "tokens_per_s": ntok / med, "peak_gib": peak,
+           "fma_loss": lf[0], "worst_grad_rel": rel[worst],
+           "worst_grad": worst, "worst_attn_grad_rel": attn,
+           "profile": shares}
+    busy = shares.get("busy_ms")
+    log(f"[{SMI[0]}] {TRAIN_ARCH} f32 train ({cfg.num_layers} layers, full "
+        f"width, B={F32_TRAIN_BATCH} S={TRAIN_SEQ}, remat, "
+        f"{F32_TRAIN_STEPS} steps): losses {losses}; every gradient "
+        f"finite; {out['ms_per_step']:.1f} ms per step, "
+        f"{out['tokens_per_s']:.1f} tokens/s (median of steps 2-"
+        f"{F32_TRAIN_STEPS}); peak {peak:.2f} GiB; K2 launches {launches}; "
+        + ("profiled step: device time not measured" if not busy else
+           f"profiled step: K2 forward {shares['K2 forward']:.1f} ms "
+           f"({shares['K2 forward'] / busy:.1%} of {busy:.1f} ms busy), "
+           f"K2 backward {shares['K2 backward']:.1f} ms "
+           f"({shares['K2 backward'] / busy:.1%})"))
+    log(f"{TRAIN_ARCH} f32 step 1, tf32x3 vs both K2 routes patched to fma: "
+        f"loss {losses[0]!r} vs {lf[0]!r} (rtol 1e-5); worst gradient "
+        f"relative Frobenius {rel[worst]:.3e} ({worst}), worst attention "
+        f"weight {attn:.3e} (tol 1e-4); patched launches {lf_launches}: "
+        f"{ok}")
+    require(ok, f"{TRAIN_ARCH} f32 train: the tf32x3 step disagrees with "
+            "the same step through the fma kernels")
+    del runs, record, rf
+    free()
+    return {"main": launches, "patched": lf_launches}, out
 
 
 def grads_rel(gk: dict, gp: dict) -> dict:
@@ -3711,7 +4037,7 @@ def hold_f32(gen) -> dict:
     first-step sensitivity to the two gradients' difference (an element
     whose clipped gradient is near 0 moves by lr * g/(|g| + 1e-8)), with
     at most 0.01% of the elements past 1e-6; then 3 steps each, losses
-    rtol 1e-4. Returns K2's launches (wgmma, fma, backward)."""
+    rtol 1e-4. Returns K2's launches by route (all tf32x3)."""
     cfg = dataclasses.replace(configs.get(TRAIN_ARCH), num_layers=HOLD_LAYERS,
                               param_dtype="float32",
                               activation_dtype="float32")
@@ -3743,8 +4069,8 @@ def hold_f32(gen) -> dict:
         runs.append((losses, record[0]["grads"], after))
         del params, state, record
     launches = k2_launches()
-    require(launches == {"wgmma": 0, "fma": 2 * 3 * HOLD_LAYERS,
-                         "bwd_wgmma": 0, "bwd_fma": 3 * HOLD_LAYERS},
+    require(launches == k2_want(tf32x3=2 * 3 * HOLD_LAYERS,
+                                bwd_tf32x3=3 * HOLD_LAYERS),
             f"f32 hold: K2 launches {launches}; the plain run must launch "
             "none")
     (lk, gk, pk), (lp, gp, pp) = runs
@@ -3784,7 +4110,7 @@ def cli_resume(arch: str = TRAIN_ARCH) -> dict:
     the card (in process): 8 steps, then --resume to 12; a 12-step run
     resumed from its own step-8 checkpoint ends at the uninterrupted run's
     step-12 loss (rtol 1e-4: the embedding's gradient sums in no fixed
-    order on the card). Returns `launch_counts()`: K2 (fma) and K3 twice
+    order on the card). Returns `launch_counts()`: K2 (tf32x3) and K3 twice
     forward (remat) and once backward per layer and step."""
     base = ["--arch", arch, "--preset", "tiny", "--seq", "64",
             "--batch", "4", "--ckpt-every", "4", "--log-every", "4"]
@@ -3829,11 +4155,10 @@ def cli_resume(arch: str = TRAIN_ARCH) -> dict:
     n_attn, n_ssd = (layers_of(cfg, kind) * (8 + 4 + 12 + 4)
                      for kind in ("attn", "mamba"))
     launches = launch_counts()
-    require(launches == {"wgmma": 0, "fma": 2 * n_attn, "bwd_wgmma": 0,
-                         "bwd_fma": n_attn, "ssd": 2 * n_ssd,
-                         "ssd_bwd": n_ssd},
+    require(launches == {**k2_want(tf32x3=2 * n_attn, bwd_tf32x3=n_attn),
+                         "ssd": 2 * n_ssd, "ssd_bwd": n_ssd},
             f"train CLI {arch}: launches {launches}; want {2 * n_attn} K2 "
-            f"forward and {n_attn} backward (fma), {2 * n_ssd} K3 forward "
+            f"forward and {n_attn} backward (tf32x3), {2 * n_ssd} K3 forward "
             f"and {n_ssd} backward")
     return launches
 
@@ -3867,8 +4192,8 @@ def hold_bf16_routes() -> dict:
         runs.append((float(metrics["loss"]), record[0]["grads"]))
         del params, state, record
     launches = k2_launches()
-    require(launches == {"wgmma": 2 * 2 * HOLD_LAYERS, "fma": 0,
-                         "bwd_wgmma": HOLD_LAYERS, "bwd_fma": HOLD_LAYERS},
+    require(launches == k2_want(wgmma=2 * 2 * HOLD_LAYERS,
+                                bwd_wgmma=HOLD_LAYERS, bwd_fma=HOLD_LAYERS),
             f"bf16 hold: K2 launches {launches}")
     (lw, gw), (lf, gf) = runs
     rel = grads_rel({n: g.float() for n, g in gw.items()},
@@ -3901,8 +4226,7 @@ def gemma_main_path() -> tuple[dict, dict]:
         layers=GEMMA3_LAYERS)
     launches = k2_launches()
     n = cfg.num_layers * TRAIN_STEPS
-    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd_wgmma": n,
-                         "bwd_fma": 0}
+    require(launches == k2_want(wgmma=2 * n, bwd_wgmma=n)
             and flash.flash_attention_bwd_cuda.launches == n,
             f"{GEMMA3} train: launches {launches}; want {2 * n} K2 forward "
             f"(wgmma; remat runs each block twice) and {n} backward (wgmma)")
@@ -3948,8 +4272,7 @@ def hold_gemma_routes() -> dict:
         del loss, grads
     launches = k2_launches()
     n = cfg.num_layers
-    require(launches == {"wgmma": 2 * 2 * n, "fma": 0, "bwd_wgmma": n,
-                         "bwd_fma": n},
+    require(launches == k2_want(wgmma=2 * 2 * n, bwd_wgmma=n, bwd_fma=n),
             f"gemma3 route hold: K2 launches {launches}")
     (lw, gw), (lf, gf) = runs
     rel = grads_rel(gw, gf)
@@ -3973,8 +4296,8 @@ def hold_gemma_routes() -> dict:
 
 def phase_train(gen) -> tuple[dict, dict, dict, dict]:
     """Phase 18. Returns each backward route's max error, the backward's
-    times, K2's launches by phase (forward wgmma, forward fma, backward
-    wgmma, backward fma) and the main path's numbers."""
+    times, K2's launches by phase and route (forward wgmma, tf32x3, fma;
+    backward the same) and the main paths' numbers."""
     t0 = time.perf_counter()
     err = bwd_cases(gen)
     err["lse"] = lse_cases(gen)
@@ -3987,6 +4310,9 @@ def phase_train(gen) -> tuple[dict, dict, dict, dict]:
     t0 = time.perf_counter()
     main_launches, train_out = train_main_path(gen)
     log(f"phase 18 main path: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    f32_launches, train_out["f32"] = f32_main_path()
+    log(f"phase 18 f32 main path: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     hold16 = hold_bf16_routes()
     hold = hold_f32(gen)
@@ -4005,14 +4331,22 @@ def phase_train(gen) -> tuple[dict, dict, dict, dict]:
                   "18 bf16 hold": hold16["wgmma"],
                   "18 gemma3 train": gemma_launches["wgmma"],
                   "18 gemma3 route hold": hold_g["wgmma"]},
-        "fma": {"18 f32 hold": hold["fma"], "18 CLI": cli["fma"]},
+        "tf32x3": {"18 qwen3 f32 train": f32_launches["main"]["tf32x3"],
+                   "18 f32 hold": hold["tf32x3"], "18 CLI": cli["tf32x3"]},
+        "fma": {"18 qwen3 f32 step (patched)":
+                f32_launches["patched"]["fma"]},
         "bwd_wgmma": {"18 qwen3 train": main_launches["bwd_wgmma"],
                       "18 bf16 hold": hold16["bwd_wgmma"],
                       "18 gemma3 train": gemma_launches["bwd_wgmma"],
                       "18 gemma3 route hold": hold_g["bwd_wgmma"]},
+        "bwd_tf32x3": {
+            "18 qwen3 f32 train": f32_launches["main"]["bwd_tf32x3"],
+            "18 f32 hold": hold["bwd_tf32x3"],
+            "18 CLI": cli["bwd_tf32x3"]},
         "bwd_fma": {"18 bf16 hold (patched)": hold16["bwd_fma"],
-                    "18 f32 hold": hold["bwd_fma"], "18 CLI": cli["bwd_fma"],
-                    "18 gemma3 route hold (patched)": hold_g["bwd_fma"]}}
+                    "18 gemma3 route hold (patched)": hold_g["bwd_fma"],
+                    "18 qwen3 f32 step (patched)":
+                    f32_launches["patched"]["bwd_fma"]}}
     return err, t_bwd, by_phase, train_out
 
 
@@ -4191,8 +4525,7 @@ def mamba_main_path() -> tuple[dict, dict]:
                                               MAMBA_LEAVES)
     launches = launch_counts()
     n = layers_of(cfg, "mamba") * TRAIN_STEPS
-    require(launches == {"wgmma": 0, "fma": 0, "bwd_wgmma": 0, "bwd_fma": 0,
-                         "ssd": 2 * n, "ssd_bwd": n},
+    require(launches == {**k2_want(), "ssd": 2 * n, "ssd_bwd": n},
             f"{MAMBA_ARCH} train: launches {launches}; want {2 * n} K3 "
             f"forward (remat runs each block twice) and {n} backward")
     log(f"{MAMBA_ARCH} train: K3 launches forward {launches['ssd']}, "
@@ -4355,9 +4688,8 @@ def jamba_train(gen) -> dict:
     launches = launch_counts()
     n_attn, n_ssd = (3 * layers_of(smoke, kind) for kind in ("attn",
                                                               "mamba"))
-    require(launches == {"wgmma": 0, "fma": 2 * n_attn, "bwd_wgmma": 0,
-                         "bwd_fma": n_attn, "ssd": 2 * n_ssd,
-                         "ssd_bwd": n_ssd},
+    require(launches == {**k2_want(tf32x3=2 * n_attn, bwd_tf32x3=n_attn),
+                         "ssd": 2 * n_ssd, "ssd_bwd": n_ssd},
             f"{JAMBA} smoke train: launches {launches}")
     bad = [n for e in record for n, f in e["finite"].items() if not f]
     require(all(math.isfinite(v) for v in losses) and not bad,
@@ -4401,7 +4733,7 @@ def phase_train_mamba(gen) -> tuple[float, dict, dict]:
              f"19 {JAMBA} f32 layer": jam["layer"],
              f"19 {JAMBA} smoke train": jam["smoke"], "19 CLI": cli}
     by_phase = {k: {name: c[k] for name, c in parts.items()}
-                for k in ("ssd", "ssd_bwd", "fma", "bwd_fma")}
+                for k in ("ssd", "ssd_bwd", "tf32x3", "bwd_tf32x3")}
     return max(errs), t_bwd, by_phase
 
 
@@ -4804,8 +5136,7 @@ def mesh_nccl(train18: dict) -> tuple[dict, dict]:
             dist.destroy_process_group()
     free()
     n = cfg.num_layers * MESH_STEPS
-    require(launches == {"wgmma": 2 * n, "fma": 0, "bwd_wgmma": n,
-                         "bwd_fma": 0},
+    require(launches == k2_want(wgmma=2 * n, bwd_wgmma=n),
             f"mesh (1, 1) train: K2 launches {launches}; want {2 * n} "
             f"forward and {n} backward, all wgmma")
     l18, g18 = train18["losses"][0], train18["grad_norms"][0]
@@ -4838,16 +5169,15 @@ def check_mesh_ranks(got: dict) -> dict:
     for rank in range(MESH_WORLD):
         res = got.get(rank)
         require(isinstance(res, dict), f"mesh gloo rank {rank} failed: {res}")
-        by_rank[rank] = {k: 0 for k in ("wgmma", "fma", "bwd_wgmma",
-                                        "bwd_fma", "ssd", "ssd_bwd")}
+        by_rank[rank] = {**k2_want(), "ssd": 0, "ssd_bwd": 0}
         log(f"gloo probe (rank {rank}, CUDA tensors): {res['probe']}")
         require(all(res["probe"].values()),
                 f"gloo refuses a collective for CUDA tensors: {res['probe']}")
         for mname in MESH_SHAPES:
             n = HOLD_LAYERS
             h = res[f"{mname}/qwen3 hold"]
-            require(h["launches"] == {"wgmma": 0, "fma": 2 * n,
-                                      "bwd_wgmma": 0, "bwd_fma": n,
+            require(h["launches"] == {**k2_want(tf32x3=2 * n,
+                                                bwd_tf32x3=n),
                                       "ssd": 0, "ssd_bwd": 0},
                     f"mesh {mname} qwen3 hold rank {rank}: launches "
                     f"{h['launches']}")
@@ -4887,8 +5217,7 @@ def check_mesh_ranks(got: dict) -> dict:
             b = res[f"{mname}/bf16"]
             nb = MESH_BF16_LAYERS * MESH_BF16_STEPS
             local, whole = b["bytes"]
-            require(b["launches"] == {"wgmma": 2 * nb, "fma": 0,
-                                      "bwd_wgmma": nb, "bwd_fma": 0}
+            require(b["launches"] == k2_want(wgmma=2 * nb, bwd_wgmma=nb)
                     and all(math.isfinite(x) for x in b["losses"])
                     and local < whole,
                     f"mesh {mname} bf16 rank {rank}: {b}")
@@ -5055,7 +5384,7 @@ def direct_k2():
     before K2's forward and backward became custom ops (the same kernels
     and launches, without the ops' dispatch)."""
     def forward(ctx, q, k, v, causal, window):
-        if flash.bwd_route(q.dtype, q.shape[-1]) == "wgmma":
+        if flash.bwd_route(q.dtype, q.shape[-1]) in flash.LSE_ROUTES:
             o, lse = flash.flash_attention_cuda(q, k, v, causal=causal,
                                                 window=window,
                                                 return_lse=True)
@@ -5234,11 +5563,11 @@ def phase_dryrun() -> dict:
          MAMBA_ARCH: configs.get(MAMBA_ARCH).num_layers}
     k = 2 + 2 * DISPATCH_TURNS          # qwen3's steps
     want_launches = {
-        TRAIN_ARCH: {"wgmma": 2 * k * n[TRAIN_ARCH], "fma": 0,
-                     "bwd_wgmma": k * n[TRAIN_ARCH], "bwd_fma": 0,
+        TRAIN_ARCH: {**k2_want(wgmma=2 * k * n[TRAIN_ARCH],
+                               bwd_wgmma=k * n[TRAIN_ARCH]),
                      "ssd": 0, "ssd_bwd": 0},
-        MAMBA_ARCH: {"wgmma": 0, "fma": 0, "bwd_wgmma": 0, "bwd_fma": 0,
-                     "ssd": 4 * n[MAMBA_ARCH], "ssd_bwd": 2 * n[MAMBA_ARCH]}}
+        MAMBA_ARCH: {**k2_want(), "ssd": 4 * n[MAMBA_ARCH],
+                     "ssd_bwd": 2 * n[MAMBA_ARCH]}}
     for arch, c in card.items():
         dr = {m: json.loads(res[f"measure {arch} {m}"].strip()
                             .splitlines()[-1]) for m in ("none", "1x1")}
@@ -5425,9 +5754,9 @@ def main() -> None:
             dist.destroy_process_group()
 
     t0 = time.perf_counter()
-    wgmma17, fma17, k3_17 = phase_configs(rng, gen)
+    wgmma17, f32_17, k3_17 = phase_configs(rng, gen)
     log(f"phase 17 configs: {time.perf_counter() - t0:.1f} s; K2 wgmma "
-        f"{wgmma17}, fma {fma17}; K3 {k3_17}")
+        f"{wgmma17}, tf32x3 {f32_17}; K3 {k3_17}")
 
     t0 = time.perf_counter()
     err_bwd, t_bwd, k2_18, train18 = phase_train(gen)
@@ -5442,7 +5771,7 @@ def main() -> None:
     m20 = phase_mesh(train18)
     k20 = {"wgmma": {"20 mesh (1, 1) NCCL": m20["nccl"]["wgmma"]},
            "bwd_wgmma": {"20 mesh (1, 1) NCCL": m20["nccl"]["bwd_wgmma"]}}
-    for kind in ("wgmma", "fma", "bwd_wgmma", "bwd_fma", "ssd", "ssd_bwd"):
+    for kind in (*k2_want(), "ssd", "ssd_bwd"):
         k20.setdefault(kind, {}).update(
             {f"20 gloo rank {r}": n[kind]
              for r, n in m20["by_rank"].items()})
@@ -5455,13 +5784,17 @@ def main() -> None:
     wgmma_by_phase = {"8 qwen3": qwen3_routes["wgmma"],
                       "16 granite": granite_routes["wgmma"], **wgmma17,
                       **k2_18["wgmma"], **k20["wgmma"], **k21["wgmma"]}
-    fma_by_phase = {"8 qwen3 f32 replay": qwen3_routes["fma"],
-                    "16 granite f32 replay": granite_routes["fma"], **fma17,
-                    **k2_18["fma"], **k3_19["fma"], **k20["fma"]}
+    f32_by_phase = {"8 qwen3 f32 replay": qwen3_routes["tf32x3"],
+                    "16 granite f32 replay": granite_routes["tf32x3"],
+                    **f32_17, **k2_18["tf32x3"], **k3_19["tf32x3"],
+                    **k20["tf32x3"]}
+    fma_by_phase = {**k2_18["fma"], **k20["fma"]}
     bwd_wgmma_by_phase = {**k2_18["bwd_wgmma"], **k20["bwd_wgmma"],
                           **k21["bwd_wgmma"]}
-    bwd_fma_by_phase = {**k2_18["bwd_fma"], **k3_19["bwd_fma"],
-                        **k20["bwd_fma"]}
+    bwd_f32_by_phase = {**k2_18["bwd_tf32x3"], **k3_19["bwd_tf32x3"],
+                        **k20["bwd_tf32x3"]}
+    bwd_fma_by_phase = {**k2_18["bwd_fma"], **k20["bwd_fma"]}
+    t32 = t_bwd["f32"]
     ssd_by_phase = {"8 mamba2": ssd_launches, **k3_17, **k3_19["ssd"],
                     **k20["ssd"], **k21["ssd"]}
     ssd_bwd_by_phase = {**k3_19["ssd_bwd"], **k20["ssd_bwd"],
@@ -5484,14 +5817,36 @@ def main() -> None:
             gemma3_hd256=t_bwd["gemma3"]["forward"]),
         dict(kernel_row(
             "flash_attention",
+            "src/repro_torch/kernels/attention/csrc/flash_attention_tf32.cu",
+            "src/repro/kernels/attention/flash.py:84",
+            process_launches(f32_by_phase),
+            max(t32["forward"]["max_abs_err"],
+                t_attn["max_abs_err_by_route"]["tf32x3"]),
+            t32["forward"], f32_by_phase),
+            kernel_route="tf32x3",
+            shape=t32["forward"]["shape"],
+            ms_again=t32["forward"]["ms_again"],
+            fma_ms=t32["forward"]["fma_ms"],
+            fp32_bound_ms=t32["forward"]["fp32_bound_ms"],
+            library_backend=t32["forward"]["library_backend"],
+            tf32_library_ms=t32["forward"]["tf32_library_ms"],
+            tf32_library_max_abs_err=t32["forward"].get(
+                "tf32_library_max_abs_err"),
+            lse_max_abs_err=err_bwd["lse"],
+            gemma3_hd256=t32["gemma3_forward"]),
+        dict(kernel_row(
+            "flash_attention",
             "src/repro_torch/kernels/attention/csrc/flash_attention.cu",
             "src/repro/kernels/attention/flash.py:84",
-            process_launches(fma_by_phase), err_attn,
+            process_launches(fma_by_phase),
+            t_attn["max_abs_err_by_route"]["fma"],
             dict(t_attn, ms=t_attn["fma_ms"]), fma_by_phase),
             kernel_route="fma", hubert_hd80={
                 "ms": t_attn["hd80"]["fma_ms"],
                 "bound_ms": t_attn["hd80"]["bound_ms"]},
-            f32=t_bwd["f32"]["forward"]),
+            f32={**{k: t32["forward"][k] for k in (
+                "shape", "library_ms", "library_backend", "fp32_bound_ms")},
+                 "ms": t32["forward"]["fma_ms"]}),
         dict(kernel_row(
             "flash_attention_bwd",
             "src/repro_torch/kernels/attention/csrc/"
@@ -5510,6 +5865,26 @@ def main() -> None:
                           for k in ("shape", "global", "local")}),
         dict(kernel_row(
             "flash_attention_bwd",
+            "src/repro_torch/kernels/attention/csrc/"
+            "flash_attention_bwd_tf32.cu",
+            "src/repro/kernels/attention/flash.py:84",
+            process_launches(bwd_f32_by_phase), err_bwd["tf32x3"],
+            t32["backward"], bwd_f32_by_phase),
+            kernel_route="tf32x3",
+            shape=t32["backward"]["shape"],
+            plain_batch=t32["backward"]["plain_batch"],
+            ms_again=t32["backward"]["ms_again"],
+            fma_ms=t32["backward"]["fma_ms"],
+            floor_7_products_ms=t32["backward"]["floor_7_products_ms"],
+            fp32_bound_ms=t32["backward"]["fp32_bound_ms"],
+            library_backend=t32["backward"]["library_backend"],
+            tf32_library_ms=t32["backward"]["tf32_library_ms"],
+            gemma3_hd256=t32["gemma3_backward"],
+            qwen3_f32_train={k: train18["f32"][k] for k in (
+                "ms_per_step", "tokens_per_s", "peak_gib", "profile",
+                "worst_grad_rel")}),
+        dict(kernel_row(
+            "flash_attention_bwd",
             "src/repro_torch/kernels/attention/csrc/flash_attention_bwd.cu",
             "src/repro/kernels/attention/flash.py:84",
             process_launches(bwd_fma_by_phase), err_bwd["fma"],
@@ -5518,7 +5893,9 @@ def main() -> None:
             shape="bf16 q (8, 4096, 16, 128), k/v (8, 4096, 8, 128), causal",
             plain_batch=t_bwd["plain_batch"],
             bound_recompute_ms=t_bwd["bound_recompute_ms"],
-            f32=t_bwd["f32"]["backward"],
+            f32={**{k: t32["backward"][k] for k in (
+                "shape", "library_ms", "library_backend", "fp32_bound_ms")},
+                 "ms": t32["backward"]["fma_ms"]},
             gemma3_hd256_ms={w: t_bwd["gemma3"][w]["fma_ms"]
                              for w in ("global", "local")}),
         dict(kernel_row("ssd_intra",

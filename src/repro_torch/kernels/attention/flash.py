@@ -1,41 +1,51 @@
 """The hand-written CUDA flash-attention kernels: binding and wrapper.
 
-Two kernels compute the Pallas TPU kernel
+Three kernels compute the Pallas TPU kernel
 `repro.kernels.attention.flash.flash_attention_pallas`, one route each;
 `route` picks it from the dtype and head dim, in one place:
 
+* ``"tf32x3"``: `csrc/flash_attention_tf32.cu`, f32 at every hd, on the
+  tensor cores: each product as three TF32 products (every operand split
+  hi + lo, f32 accumulation; one TF32 product would miss the f32 hold),
+  mma.sync m16n8k8; at hd 256 two warp halves split the output's hd;
 * ``"wgmma"``: `csrc/flash_attention_wgmma.cu`, bf16 at hd 64/80/128/256,
   on the tensor cores (wgmma, TMA-fed K/V, a producer warpgroup); hd 80
   runs in the hd-128 tile (`wgmma_tile`), its columns 80-127 zero-filled
   by TMA;
-* ``"fma"``: `csrc/flash_attention.cu`, f32 at every hd and bf16 at hd
-  16/32, f32 FMAs on the CUDA cores (a tensor-core product would not hold
-  the f32 cases).
+* ``"fma"``: `csrc/flash_attention.cu`, bf16 at hd 16/32 (no
+  configuration has it), f32 FMAs on the CUDA cores. Its kernel takes f32
+  too: `chip_smoke.py` times it against the tf32x3 kernel and holds the
+  routes against each other by patching `route`.
 
-The backward, `flash_attention_bwd_cuda`, has two routes too;
+The backward, `flash_attention_bwd_cuda`, has the same three routes;
 `bwd_route` picks it, in one place:
 
+* ``"tf32x3"``: `csrc/flash_attention_bwd_tf32.cu`, f32 at every hd, 3xTF32
+  on the tensor cores (`bwd_dot` for rowsum(dout * out), then `bwd_dkdv`
+  and `bwd_dq`, every product mma.sync; at hd 256 dkdv's eight warps split
+  hd in two halves; tiles `bwd_tiles`);
 * ``"wgmma"``: `csrc/flash_attention_bwd_wgmma.cu`, bf16 at hd
-  64/80/128/256, on the tensor cores (`bwd_dot` for rowsum(dout * out),
-  then `bwd_dkdv` and `bwd_dq`, every product a wgmma fed by TMA; hd 80
-  in the hd-128 tile; hd 256 in 64-row tiles whose hd its two consumer
-  warpgroups split, `bwd_tiles`). It takes the row log-sum-exp L that the
-  wgmma forward writes when asked (`flash_attention_cuda(...,
-  return_lse=True)`) and raises without it;
-* ``"fma"``: `csrc/flash_attention_bwd.cu`, f32 at every hd and bf16 at
-  hd 16/32, f32 FMAs on the CUDA cores (`bwd_prep` recomputes L and D,
+  64/80/128/256, on the tensor cores (`bwd_dot`, then `bwd_dkdv` and
+  `bwd_dq`, every product a wgmma fed by TMA; hd 80 in the hd-128 tile;
+  hd 256 in 64-row tiles whose hd its two consumer warpgroups split);
+* ``"fma"``: `csrc/flash_attention_bwd.cu`, bf16 at hd 16/32 (and f32 when
+  patched in), f32 FMAs on the CUDA cores (`bwd_prep` recomputes L and D,
   then `bwd_dkdv`, `bwd_dq`).
 
-`ops.FlashAttention` joins them to the forward under autograd, asking the
-forward for L when the backward's route takes it.
+The "tf32x3" and "wgmma" backwards take the row log-sum-exp L that their
+forwards write when asked (`flash_attention_cuda(..., return_lse=True)`)
+and raise without it (`LSE_ROUTES`). `ops.FlashAttention` joins each
+backward to the forward under autograd, asking the forward for L when the
+backward's route takes it.
 
 Each source's header says what bounds it and how the design answers that.
 They are built at first use by `repro_torch.kernels._build` and launched
-on PyTorch's current stream. There is no fallback from one route to the
-other: a failed build or launch raises. The plain PyTorch versions of the
-same functions are `ref.attention_ref` and `ref.attention_bwd_ref`. The
-raw wrappers raise under grad mode when an input requires grad
-(`kernels._grad.require_no_grad`): their outputs carry no gradient.
+on PyTorch's current stream. There is no fallback from one route to
+another: a failed build or launch raises. The plain PyTorch versions of
+the same functions are `ref.attention_ref`, `ref.attention_lse_ref` and
+`ref.attention_bwd_ref`. The raw wrappers raise under grad mode when an
+input requires grad (`kernels._grad.require_no_grad`): their outputs carry
+no gradient.
 """
 from __future__ import annotations
 
@@ -52,45 +62,51 @@ from repro_torch.kernels._grad import require_no_grad
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCE = CSRC / "flash_attention.cu"                # the "fma" route
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"    # the "wgmma" route
+TF32_SOURCE = CSRC / "flash_attention_tf32.cu"      # the "tf32x3" route
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"        # the "fma" backward
 BWD_WGMMA_SOURCE = CSRC / "flash_attention_bwd_wgmma.cu"   # "wgmma" backward
+BWD_TF32_SOURCE = CSRC / "flash_attention_bwd_tf32.cu"     # "tf32x3" backward
 HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 BWD_WGMMA_HEAD_DIMS = (64, 80, 128, 256)
 DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 # route -> (source, prefix of its C functions `<prefix>_launch` and
 # `<prefix>_error_string`, which share one signature)
-ROUTES = {"wgmma": (WGMMA_SOURCE, "flash_attention_wgmma"),
+ROUTES = {"tf32x3": (TF32_SOURCE, "flash_attention_tf32"),
+          "wgmma": (WGMMA_SOURCE, "flash_attention_wgmma"),
           "fma": (SOURCE, "flash_attention")}
-# the backward's routes, the same way (each its own signature)
-BWD_ROUTES = {"wgmma": (BWD_WGMMA_SOURCE, "flash_attention_bwd_wgmma"),
+# the backward's routes, the same way ("tf32x3" and "wgmma" share one
+# signature, "fma" has its own)
+BWD_ROUTES = {"tf32x3": (BWD_TF32_SOURCE, "flash_attention_bwd_tf32"),
+              "wgmma": (BWD_WGMMA_SOURCE, "flash_attention_bwd_wgmma"),
               "fma": (BWD_SOURCE, "flash_attention_bwd")}
+# the routes whose forward writes L on request and whose backward takes it
+LSE_ROUTES = ("tf32x3", "wgmma")
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that q/k/v of `dtype` and `head_dim` take: ``"wgmma"``
-    for bf16 at hd 64/80/128/256, ``"fma"`` for f32 at any hd in
-    `HEAD_DIMS` and bf16 at hd 16/32. Raises on anything else."""
+    """The kernel that q/k/v of `dtype` and `head_dim` take: ``"tf32x3"``
+    for f32 at any hd in `HEAD_DIMS`, ``"wgmma"`` for bf16 at hd
+    64/80/128/256, ``"fma"`` for bf16 at hd 16/32. Raises on anything
+    else."""
     if head_dim not in HEAD_DIMS:
         raise ValueError(f"flash_attention_cuda: head_dim {head_dim} not "
                          f"in {HEAD_DIMS}")
-    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
-        return "wgmma"
-    if dtype in DTYPE_IDS:
-        return "fma"
+    if dtype == torch.float32:
+        return "tf32x3"
+    if dtype == torch.bfloat16:
+        return "wgmma" if head_dim in WGMMA_HEAD_DIMS else "fma"
     raise ValueError(f"flash_attention_cuda: dtype {dtype}; the kernels "
                      "take float32 or bfloat16")
 
 
 def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The backward kernel that q/k/v of `dtype` and `head_dim` take:
-    ``"wgmma"`` for bf16 at hd 64/80/128/256 (it needs the forward's L),
-    ``"fma"`` for f32 at any hd in `HEAD_DIMS` and bf16 at hd 16/32.
-    Raises on anything else."""
-    route(dtype, head_dim)                 # the same dtypes and head dims
-    if dtype == torch.bfloat16 and head_dim in BWD_WGMMA_HEAD_DIMS:
-        return "wgmma"
-    return "fma"
+    """The backward kernel that q/k/v of `dtype` and `head_dim` take: the
+    forward's route name (`BWD_WGMMA_HEAD_DIMS` = `WGMMA_HEAD_DIMS`):
+    ``"tf32x3"`` for f32 at any hd in `HEAD_DIMS`, ``"wgmma"`` for bf16 at
+    hd 64/80/128/256 (both need the forward's L), ``"fma"`` for bf16 at
+    hd 16/32. Raises on anything else."""
+    return route(dtype, head_dim)
 
 
 def wgmma_tile(head_dim: int) -> int:
@@ -127,8 +143,12 @@ def bwd_tiles(head_dim: int, route_name: str
     walk)``. "wgmma": dkdv owns 128 kv rows and steps 64 q rows, dq owns
     128 q rows and steps 64 kv rows; at hd 256 each owns 64 rows (its two
     consumer warpgroups split hd, not rows: registers and shared memory).
-    "fma": 64 q rows and 64 kv rows in both, 32 kv rows at hd 256 (shared
-    memory)."""
+    "tf32x3": dkdv owns 64 kv rows and steps 32 q rows (at hd 256 its
+    eight warps split hd), dq owns 64 q rows and steps 32 kv rows, 16 at
+    hd 256 (registers). "fma": 64 q rows and 64 kv rows in both, 32 kv
+    rows at hd 256 (shared memory)."""
+    if route_name == "tf32x3":
+        return (32, 64), (64, 16 if head_dim > 128 else 32)
     if route_name == "wgmma":
         return ((64, 64), (64, 64)) if head_dim > 128 else ((64, 128),
                                                             (128, 64))
@@ -234,22 +254,23 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """GQA attention on the card. q: (B,S,H,hd); k/v: (B,T,KH,hd), all
     contiguous, 16-byte aligned CUDA tensors of one dtype (f32 or bf16),
     H % KH == 0, hd in `HEAD_DIMS`. Returns (B,S,H,hd) in q's dtype; with
-    `return_lse` (the "wgmma" route only) also the (B,H,S) f32 row
-    log-sum-exp of the masked, scaled scores (natural log; +inf on a row
-    that sees no key), which the "wgmma" backward takes (plain version:
-    `ref.attention_lse_ref`). The route is `route(q.dtype, hd)`. Raises on
-    anything the kernels do not take, and under grad mode when an input
-    requires grad (use `ops.flash_attention`); never falls back to the
-    plain version or the other route."""
+    `return_lse` (the `LSE_ROUTES` only: "tf32x3", "wgmma") also the
+    (B,H,S) f32 row log-sum-exp of the masked, scaled scores (natural log;
+    +inf on a row that sees no key), which the same route's backward takes
+    (plain version: `ref.attention_lse_ref`). The route is
+    `route(q.dtype, hd)`. Raises on anything the kernels do not take, and
+    under grad mode when an input requires grad (use
+    `ops.flash_attention`); never falls back to the plain version or
+    another route."""
     require_no_grad("flash_attention_cuda",
                     "differentiate through ops.flash_attention", q, k, v)
     name = _check(q, k, v, window)
     lse = None
     if return_lse:
-        if name != "wgmma":
-            raise ValueError("flash_attention_cuda: return_lse needs the "
-                             f"wgmma route; {q.dtype} at hd {q.shape[3]} "
-                             f"takes {name!r}")
+        if name not in LSE_ROUTES:
+            raise ValueError("flash_attention_cuda: return_lse needs a "
+                             f"route of {LSE_ROUTES}; {q.dtype} at hd "
+                             f"{q.shape[3]} takes {name!r}")
         b, s, h = q.shape[:3]
         lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
     out = _launch(name, q, k, v, causal, window, lse)
@@ -259,7 +280,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0    # kernel launches since the last reset
-flash_attention_cuda.route_launches = {"wgmma": 0, "fma": 0}   # by route
+flash_attention_cuda.route_launches = dict.fromkeys(ROUTES, 0)  # by route
 
 
 @functools.cache
@@ -269,7 +290,7 @@ def _bwd_library(route_name: str):
     lib = _build.load(source)
     launch = getattr(lib, f"{prefix}_launch")
     error = getattr(lib, f"{prefix}_error_string")
-    if route_name == "wgmma":
+    if route_name in LSE_ROUTES:
         # q, k, v, o, do, lse, dq, dk, dv, D; B, S, T, H, KH, hd, causal,
         # window; scale; stream
         launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
@@ -297,18 +318,18 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     dtype, accumulated in f32, dk/dv summed over each kv head's group of
     query heads. q, k, v as `flash_attention_cuda` takes them; o and do of
     q's shape, dtype and device, contiguous and 16-byte aligned. The route
-    is `bwd_route(q.dtype, hd)`: "wgmma" takes `lse`, the forward's (B,H,S)
-    f32 row log-sum-exp (`flash_attention_cuda(..., return_lse=True)`) and
-    raises without it; "fma" recomputes it and takes none. One call
-    launches the route's three functions and counts once. Raises on
-    anything the kernels do not take, and under grad mode when an input
-    requires grad (double backward is not supported); never falls back to
-    the plain version or the other route."""
+    is `bwd_route(q.dtype, hd)`: "tf32x3" and "wgmma" take `lse`, the
+    forward's (B,H,S) f32 row log-sum-exp (`flash_attention_cuda(...,
+    return_lse=True)`) and raise without it; "fma" recomputes it and takes
+    none. One call launches the route's three functions and counts once.
+    Raises on anything the kernels do not take, and under grad mode when
+    an input requires grad (double backward is not supported); never falls
+    back to the plain version or another route."""
     require_no_grad("flash_attention_bwd_cuda",
                     "double backward is not supported", q, k, v, o, do)
     name = bwd_route(q.dtype, q.shape[-1])
-    if name == "wgmma" and lse is None:
-        raise ValueError("flash_attention_bwd_cuda: the wgmma backward "
+    if name in LSE_ROUTES and lse is None:
+        raise ValueError(f"flash_attention_bwd_cuda: the {name} backward "
                          "takes the forward's row log-sum-exp: pass lse "
                          "from flash_attention_cuda(..., return_lse=True)")
     if name == "fma" and lse is not None:
@@ -337,7 +358,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     scale = 1.0 / math.sqrt(hd)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        if name == "wgmma":
+        if name in LSE_ROUTES:
             delta = torch.empty((b, h, s), dtype=torch.float32,
                                 device=q.device)
             err = launch(
@@ -364,4 +385,4 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 
 
 flash_attention_bwd_cuda.launches = 0    # calls (3 kernels each) since reset
-flash_attention_bwd_cuda.route_launches = {"wgmma": 0, "fma": 0}   # by route
+flash_attention_bwd_cuda.route_launches = dict.fromkeys(BWD_ROUTES, 0)

@@ -62,10 +62,10 @@ def _flash_fwd_cuda(q, k, v, causal, window, return_lse):
 @flash_attention_fwd.register_fake
 def _flash_fwd_fake(q, k, v, causal, window, return_lse):
     name = flash.route(q.dtype, q.shape[-1])
-    if return_lse and name != "wgmma":
-        raise ValueError("flash_attention_fwd: return_lse needs the wgmma "
-                         f"route; {q.dtype} at hd {q.shape[-1]} takes "
-                         f"{name!r}")
+    if return_lse and name not in flash.LSE_ROUTES:
+        raise ValueError("flash_attention_fwd: return_lse needs a route of "
+                         f"{flash.LSE_ROUTES}; {q.dtype} at hd "
+                         f"{q.shape[-1]} takes {name!r}")
     b, s, h = q.shape[:3]
     lse = (q.new_empty((b, h, s), dtype=torch.float32) if return_lse
            else q.new_empty(_NO_LSE, dtype=torch.float32))
@@ -95,9 +95,10 @@ def _flash_bwd_cuda(q, k, v, o, do, lse, causal, window):
 @flash_attention_bwd.register_fake
 def _flash_bwd_fake(q, k, v, o, do, lse, causal, window):
     name = flash.bwd_route(q.dtype, q.shape[-1])
-    if (name == "wgmma") != (lse is not None):
+    takes_lse = name in flash.LSE_ROUTES
+    if takes_lse != (lse is not None):
         raise ValueError(f"flash_attention_bwd: the {name} backward "
-                         + ("takes the forward's L" if name == "wgmma"
+                         + ("takes the forward's L" if takes_lse
                             else "recomputes L; pass lse=None"))
     return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
@@ -110,14 +111,15 @@ register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)(
 
 class FlashAttention(torch.autograd.Function):
     """K2 under autograd: the forward op, saving q, k, v, its output and,
-    when the backward's route (`flash.bwd_route`) is "wgmma", the row
-    log-sum-exp the forward writes beside it; the backward op of that
-    route for (dq, dk, dv). Under a non-reentrant checkpoint the saved L is
-    the recomputed forward's, like the other saved tensors."""
+    when the backward's route (`flash.bwd_route`) takes it ("tf32x3",
+    "wgmma": `flash.LSE_ROUTES`), the row log-sum-exp the forward writes
+    beside it; the backward op of that route for (dq, dk, dv). Under a
+    non-reentrant checkpoint the saved L is the recomputed forward's, like
+    the other saved tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, window: int | None):
-        want_lse = flash.bwd_route(q.dtype, q.shape[-1]) == "wgmma"
+        want_lse = flash.bwd_route(q.dtype, q.shape[-1]) in flash.LSE_ROUTES
         o, lse = torch.ops.repro_torch.flash_attention_fwd(
             q, k, v, causal, window, want_lse)
         ctx.save_for_backward(q, k, v, o, lse if want_lse else None)

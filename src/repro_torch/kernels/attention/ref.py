@@ -6,7 +6,8 @@ is held against: the full score matrix, masked with the reference's -1e30
 and softmaxed in f32. `attention_bwd_ref` is the plain version of the
 backward kernels (`flash.flash_attention_bwd_cuda`): the same gradient
 from explicit formulas, in f32. `attention_lse_ref` is the plain version of
-the row log-sum-exp that the "wgmma" forward writes for its backward.
+the row log-sum-exp that the "tf32x3" and "wgmma" forwards write for
+their backwards.
 """
 from __future__ import annotations
 

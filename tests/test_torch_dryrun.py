@@ -422,7 +422,8 @@ def test_custom_ops_are_the_plain_versions_on_cpu():
     assert torch.equal(ob, attention_ref(qb, kb, vb, True, None))
     assert torch.equal(lb, attention_lse_ref(qb, kb, True, None))
     do = torch.randn_like(o)
-    for got, want in zip(ops.flash_attention_bwd(q, k, v, o, do, None, True,
+    lse = attention_lse_ref(q, k, True, 8)      # f32 takes the tf32x3 route
+    for got, want in zip(ops.flash_attention_bwd(q, k, v, o, do, lse, True,
                                                  8),
                          attention_bwd_ref(q, k, v, o, do, True, 8)):
         assert torch.equal(got, want)
@@ -442,7 +443,7 @@ def test_custom_ops_are_the_plain_versions_on_cpu():
     checks = [
         (ops.flash_attention_fwd, (qb, kb, vb, True, None, True)),
         (ops.flash_attention_fwd, (q, k, v, False, 8, False)),
-        (ops.flash_attention_bwd, (q, k, v, o, do, None, True, 8)),
+        (ops.flash_attention_bwd, (q, k, v, o, do, lse, True, 8)),
         (ops.flash_attention_bwd, (qb, kb, vb, ob, torch.randn_like(ob), lb,
                                    True, None)),
         (ops.ssd_intra, (C, B, dtx, cums)),

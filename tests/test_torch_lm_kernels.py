@@ -7,10 +7,16 @@ and the CPU dispatch `ops.flash_attention` against
 head dim, and against `flash_attention_pallas(interpret=True)` at
 bq == bkv (f32, atol 2e-5). `kv_tile_range`, whose formula both CUDA
 kernels mirror, against a brute-force mask at both kernels' tile pairs
-and at bq != bkv. The routing rule (dtype x hd -> "wgmma" / "fma" /
-raise), and the "wgmma" route's numerics (bf16 q, k, v; P rounded to bf16
-before P.V; tiled online softmax in exp2) emulated on the CPU and held
-against both references at the bf16 tolerances of `chip_smoke.py`.
+and at bq != bkv. The routing rule (dtype x hd -> "tf32x3" / "wgmma" /
+"fma" / raise), and the "wgmma" route's numerics (bf16 q, k, v; P rounded
+to bf16 before P.V; tiled online softmax in exp2) emulated on the CPU and
+held against both references at the bf16 tolerances of `chip_smoke.py`.
+The "tf32x3" route's numerics (f32 q, k, v; every product as three TF32
+products of split operands; the tiled online softmax in exp2 and its L)
+emulated tile by tile and held against
+`flash_attention_pallas(interpret=True)` and `attention_ref` at the f32
+atol 2e-5 over hd 16/64/80/128/256, causal x window, GQA 1/2/8, ragged S
+and S != T; one TF32 product per multiply shown to miss that hold.
 
 hd 80 (hubert-xlarge) against `flash_attention_pallas(interpret=True)`,
 and on the "wgmma" route in the hd-128 tile with zero columns 80-127.
@@ -146,6 +152,8 @@ def test_flash_cuda_wrapper_rejects_cpu_tensors():
     routes = dict(flash.flash_attention_cuda.route_launches)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         flash.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):   # tf32x3
+        flash.flash_attention_cuda(q, k, v, return_lse=True)
     assert flash.flash_attention_cuda.launches == before
     assert flash.flash_attention_cuda.route_launches == routes
     assert set(flash.HEAD_DIMS) == {16, 32, 64, 80, 128, 256}
@@ -155,19 +163,35 @@ def test_flash_cuda_wrapper_rejects_cpu_tensors():
         assert "kv_tile_range" in src
 
 
+@pytest.mark.parametrize("source", ["TF32_SOURCE", "BWD_TF32_SOURCE"])
+def test_tf32x3_sources_name_what_they_replace(source):
+    """Each "tf32x3" source names the Pallas kernel it stands for and the
+    tile-range formula it mirrors, says which instruction runs its
+    products and splits every operand with cvt.rna; its route is the one
+    `ROUTES` / `BWD_ROUTES` name, and it uses no atomics."""
+    path = getattr(flash, source)
+    src = path.read_text()
+    assert "flash_attention_pallas" in src and "kv_tile_range" in src
+    assert "cvt.rna.tf32.f32" in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert not any(w in src for w in ("atomicAdd", "\"red.", "\"atom."))
+    table = flash.ROUTES if source == "TF32_SOURCE" else flash.BWD_ROUTES
+    assert table["tf32x3"][0] == path
+
+
 @pytest.mark.parametrize("hd", [16, 32, 48, 64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float16])
 def test_flash_route_rule(dtype, hd):
-    """bf16 at hd 64/80/128/256 takes the tensor-core kernel (hd 80 in the
-    hd-128 tile); f32 at every hd and bf16 at hd 16/32 the CUDA-core
-    kernel; anything else raises."""
+    """f32 at every hd takes the 3xTF32 tensor-core kernel; bf16 at hd
+    64/80/128/256 the wgmma kernel (hd 80 in the hd-128 tile); bf16 at hd
+    16/32 the CUDA-core kernel; anything else raises."""
     if hd not in flash.HEAD_DIMS or dtype == torch.float16:
         with pytest.raises(ValueError):
             flash.route(dtype, hd)
         return
-    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 80, 128, 256)
-            else "fma")
+    want = ("tf32x3" if dtype == torch.float32
+            else "wgmma" if hd in (64, 80, 128, 256) else "fma")
     assert flash.wgmma_tile(hd) == (128 if hd == 80 else hd)
     assert flash.route(dtype, hd) == want
     assert flash.ROUTES[want][0].exists()
@@ -462,3 +486,116 @@ def test_ssd_kernel_limits_match_wrapper():
     for name, want in (("MAXQ", ssd.MAX_CHUNK), ("MAXN", ssd.MAX_STATE),
                        ("MAXP", ssd.MAX_HEAD_DIM), ("HG", ssd.HEAD_GROUP)):
         assert f"constexpr int {name} = {want};" in src
+
+
+# ------------------------------------------------------------------ #
+# K2's "tf32x3" route: 3xTF32 tensor-core products, f32 accumulate
+# ------------------------------------------------------------------ #
+def _tf32x3_emulation(q, k, v, causal, window, passes=3):
+    """The "tf32x3" forward's arithmetic in f32 on the CPU, tile by tile:
+    per 64-row q tile the 64-row kv tiles of `kv_tile_range`; S = q k^T
+    and P.V as `_mm_tf32` products (three TF32 products of split operands,
+    or one with passes=1); the online softmax in log2 units with the
+    kernel's -1e30 mask and -inf past T; O / max(l, 1e-30); and the row
+    log-sum-exp L = (m + log2 l) ln 2, +inf on a row whose max never rose
+    above the mask. Returns (out, L)."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    bq = bkv = 64                                   # BQ, BKV of the source
+    scale_log2 = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32) \
+        * torch.tensor(1.4426950408889634, dtype=torch.float32)
+    qf, kf, vf = (x.float().transpose(1, 2) for x in (q, k, v))
+    kf, vf = (x.repeat_interleave(h // kh, dim=1) for x in (kf, vf))
+    out = torch.empty(b, h, s, hd)
+    lse = torch.empty(b, h, s)
+    for qi in range(-(-s // bq)):
+        rows = torch.arange(qi * bq, min(qi * bq + bq, s))
+        m = torch.full((b, h, rows.numel()), -1e30)
+        l = torch.zeros_like(m)
+        o = torch.zeros(b, h, rows.numel(), hd)
+        first, last = flash.kv_tile_range(qi, bq, bkv, causal, window, s, t)
+        for kt in range(first, last + 1):
+            keys = torch.arange(kt * bkv, min(kt * bkv + bkv, t))
+            x = _mm_tf32(qf[:, :, rows], kf[:, :, keys].mT, passes) \
+                * scale_log2
+            ok = torch.ones(rows.numel(), keys.numel(), dtype=torch.bool)
+            if causal:
+                ok &= keys[None] <= rows[:, None]
+            if window is not None:
+                ok &= keys[None] > rows[:, None] - window
+            x = torch.where(ok, x, -1e30)
+            mn = torch.maximum(m, x.amax(dim=-1))
+            corr = torch.exp2(m - mn)
+            p = torch.exp2(x - mn[..., None])
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + _mm_tf32(p, vf[:, :, keys], passes)
+            m = mn
+        out[:, :, rows] = o / l.clamp_min(1e-30)[..., None]
+        lse[:, :, rows] = torch.where(m > -1e30, (m + torch.log2(l))
+                                      * 0.6931471805599453, math.inf)
+    return out.transpose(1, 2), lse
+
+
+TF32X3_FWD_CASES = [   # (h, kh, hd, s, t, causal, window)
+    *((8, 8 // g, hd, 128, 128, causal, window)
+      for (hd, g), (causal, window) in zip(
+          [(16, 1), (16, 2), (16, 8), (16, 1), (64, 2), (64, 8), (64, 1),
+           (64, 2), (80, 8), (80, 1), (80, 2), (80, 8), (128, 1), (128, 2),
+           (128, 8), (128, 1), (256, 2), (256, 8), (256, 1), (256, 2)],
+          [(True, None), (True, 24), (False, None), (False, 24)] * 5)),
+    (4, 2, 64, 200, 200, True, 50),         # ragged, shorter than a tile
+    (4, 2, 128, 5, 5, True, None),          # one partial tile
+    (4, 2, 128, 200, 328, True, None),      # T > S: kv tiles past S
+    (4, 2, 64, 328, 200, True, None),       # S > T: rows past T
+]
+
+
+@pytest.mark.parametrize("h,kh,hd,s,t,causal,window", TF32X3_FWD_CASES)
+def test_tf32x3_forward_holds_against_pallas(h, kh, hd, s, t, causal,
+                                             window):
+    """`chip_smoke.py`'s f32 hold of the "tf32x3" forward (atol 2e-5) is
+    met by its arithmetic, against the interpret-mode Pallas kernel (64-row
+    blocks where S and T divide, one block each otherwise) and
+    `attention_ref`; its L against `attention_lse_ref` at atol 1e-4."""
+    rng = np.random.default_rng(hd + s + t + h // kh)
+    q, k, v = (rng.normal(size=shape).astype(np.float32)
+               for shape in ((1, s, h, hd), (1, t, kh, hd), (1, t, kh, hd)))
+    bq = 64 if s % 64 == 0 else s
+    bkv = 64 if t % 64 == 0 else t
+    want = np.asarray(flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        window=window, bq=bq, bkv=bkv, interpret=True))
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got, lse = _tf32x3_emulation(tq, tk, tv, causal, window)
+    np.testing.assert_allclose(got.numpy(), want, atol=ATOL, rtol=0)
+    ref = attention_ref(tq, tk, tv, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), atol=ATOL, rtol=0)
+    want_l = attention_lse_ref(tq, tk, causal, window)
+    assert bool(torch.isfinite(want_l).all())
+    assert float((lse - want_l).abs().max()) <= 1e-4
+
+
+def test_tf32x3_forward_lse_where_rows_see_no_key():
+    """S=300 > T=100 under window 64: the emulated L is +inf on exactly
+    the rows that see no key (163-299) and within 1e-4 elsewhere."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+               for shape in ((1, 300, 4, 128), (1, 100, 2, 128),
+                             (1, 100, 2, 128)))
+    _, got = _tf32x3_emulation(q, k, v, True, 64)
+    want = attention_lse_ref(q, k, True, 64)
+    empty = torch.isinf(want)
+    assert torch.equal(torch.isposinf(got), empty)
+    assert int(empty.sum()) == 4 * 137
+    assert float((got[~empty] - want[~empty]).abs().max()) <= 1e-4
+
+
+def test_tf32x3_forward_one_tf32_product_misses_the_hold():
+    """Why the kernel splits: at qwen3's head dim one TF32 product per
+    multiply misses the f32 hold (atol 2e-5) that three meet."""
+    q, k, v = map(torch.from_numpy, _qkv(512, 4, 2, 128, seed=29))
+    want = attention_ref(q, k, v)
+    one, _ = _tf32x3_emulation(q, k, v, True, None, passes=1)
+    three, _ = _tf32x3_emulation(q, k, v, True, None)
+    assert float((one - want).abs().max()) > ATOL
+    assert float((three - want).abs().max()) <= ATOL

@@ -4,9 +4,12 @@ Every case feeds the same numpy-seeded inputs to the reference and to the
 port: AdamW and its schedule, the data pipeline, gradient compression,
 `step_guard`, the checkpoint manager, the plain backward of flash
 attention (`attention_bwd_ref`, also against `jax.grad`), the forward's
-row log-sum-exp (`attention_lse_ref`), both backward routes' tile ranges
-and tile walks (the "wgmma" route's with L given and P, dS rounded to
-bf16), the backward route table and the wrapper's refusals, `train_loss`
+row log-sum-exp (`attention_lse_ref`), the three backward routes' tile
+ranges and tile walks (the "wgmma" route's with L given and P, dS rounded
+to bf16; the "tf32x3" route's with L given and every product as three
+TF32 products, held against jax.vjp over hd 16-256, causal x window, GQA
+1/2/8, ragged S and S != T, and one TF32 product shown to miss that
+hold), the backward route table and the wrapper's refusals, `train_loss`
 with every gradient for six smoke configs (and gemma3's at hd 256),
 eight training steps, the
 grad-mode guards of the raw kernel wrappers, and the training launcher
@@ -54,6 +57,7 @@ from repro_torch.models import model as M
 from repro_torch.models.convert import opt_state_from_jax, params_from_jax
 from repro_torch.optim import adamw
 from repro_torch.optim.adamw import AdamWConfig
+from test_torch_lm_kernels import _mm_tf32
 
 
 def _np_tree(tree):
@@ -306,12 +310,15 @@ def test_attention_bwd_ref(causal, window, gqa, hd):
             np.testing.assert_allclose(g.numpy(), wt.numpy(), atol=1e-5)
 
 
-@pytest.mark.parametrize("route_name", ["fma", "wgmma"])
+@pytest.mark.parametrize("route_name", ["fma", "wgmma", "tf32x3"])
 def test_bwd_tile_ranges_brute_force(route_name):
     """For each tile pair of the route's two walks (`bwd_tiles`),
     q_tile_range(kj) is exactly the q tiles whose kv_tile_range holds kj,
-    and together the ranges visit every (q, key) pair the mask allows."""
-    hds = (16, 128, 256) if route_name == "fma" else flash.BWD_WGMMA_HEAD_DIMS
+    and together the ranges visit every (q, key) pair the mask allows.
+    "fma" at the head dims whose tiles differ (it takes f32 when patched
+    in, as `chip_smoke.py`'s holds do)."""
+    hds = {"fma": (16, 128, 256), "wgmma": flash.BWD_WGMMA_HEAD_DIMS,
+           "tf32x3": flash.HEAD_DIMS}[route_name]
     pairs = {tile for hd in hds for tile in flash.bwd_tiles(hd, route_name)}
     for s, t in ((5, 5), (64, 64), (70, 200), (200, 70), (257, 257)):
         for bq, bkv in sorted(pairs):
@@ -471,17 +478,143 @@ def _emulate_bwd_wgmma(q, k, v, o, do, lse, causal, window):
             dv.bfloat16())
 
 
+def _emulate_bwd_tf32(q, k, v, o, do, lse, causal, window, passes=3):
+    """The "tf32x3" backward kernel's arithmetic, tile by tile, in f32:
+    L taken as given (natural log, turned into log2 units as the kernel
+    does), D = rowsum(do * o); bwd_dkdv's walk at its tiles
+    (`bwd_tiles(hd, "tf32x3")[0]`) over every query head of the GQA group
+    and q_tile_range, bwd_dq's at its own over kv_tile_range; every
+    product (S, dP, dV += P^T do, dK += dS^T q, dQ += dS k) as `_mm_tf32`
+    of split operands (passes=3) or one TF32 product (passes=1).
+    Disallowed pairs weigh 0. Returns (dq, dk, dv) in f32."""
+    b, s, h, hd = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    (bq_kv, bkv_kv), (bq_q, bkv_q) = flash.bwd_tiles(hd, "tf32x3")
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32)
+    scale_log2 = scale * log2e
+    l2 = lse * log2e                                       # (b, h, s)
+    dd = (do * o).sum(-1).permute(0, 2, 1)                 # (b, h, s)
+
+    def mm(a, c):
+        return _mm_tf32(a.contiguous(), c.contiguous(), passes)
+
+    def p_ds(bi, hi, qs, ks):
+        kvh = hi // g
+        sc = mm(q[bi, qs, hi], k[bi, ks, kvh].T)
+        qr = torch.arange(s)[qs][:, None]
+        kr = torch.arange(t)[ks][None, :]
+        ok = torch.ones_like(sc, dtype=torch.bool)
+        if causal:
+            ok &= kr <= qr
+        if window is not None:
+            ok &= kr > qr - window
+        p = torch.where(ok, torch.exp2(sc * scale_log2
+                                       - l2[bi, hi, qs][:, None]), 0.0)
+        dp = mm(do[bi, qs, hi], v[bi, ks, kvh].T)
+        return p, p * (dp - dd[bi, hi, qs][:, None])
+
+    dq, dk, dv = (torch.zeros_like(x) for x in (q, k, v))
+    for bi in range(b):
+        for kvh in range(kh):
+            for kj in range(-(-t // bkv_kv)):
+                ks = slice(kj * bkv_kv, (kj + 1) * bkv_kv)
+                first, last = flash.q_tile_range(kj, bq_kv, bkv_kv, causal,
+                                                 window, s)
+                for hi in range(kvh * g, (kvh + 1) * g):
+                    for qi in range(first, last + 1):
+                        qs = slice(qi * bq_kv, (qi + 1) * bq_kv)
+                        p, ds = p_ds(bi, hi, qs, ks)
+                        dv[bi, ks, kvh] += mm(p.T, do[bi, qs, hi])
+                        dk[bi, ks, kvh] += mm(ds.T, q[bi, qs, hi])
+        for hi in range(h):
+            for qi in range(-(-s // bq_q)):
+                qs = slice(qi * bq_q, (qi + 1) * bq_q)
+                first, last = flash.kv_tile_range(qi, bq_q, bkv_q, causal,
+                                                  window, s, t)
+                for kt in range(first, last + 1):
+                    ks = slice(kt * bkv_q, (kt + 1) * bkv_q)
+                    _, ds = p_ds(bi, hi, qs, ks)
+                    dq[bi, qs, hi] += mm(ds, k[bi, ks, hi // g])
+    return dq * scale, dk * scale, dv
+
+
+def _bwd_hold(got, want):
+    """`chip_smoke.py`'s f32 hold of a backward kernel: per output, max|err|
+    <= 1e-4 x max(1, max|ref|). Returns each output's (err, limit)."""
+    out = []
+    for g, w in zip(got, want):
+        w = torch.from_numpy(np.array(w))
+        out.append((float((g - w).abs().max()),
+                    1e-4 * max(1.0, float(w.abs().max()))))
+    return out
+
+
+TF32X3_BWD_CASES = [   # (causal, window, gqa, hd, s, t)
+    (True, None, 1, 16, 128, 128), (False, 24, 2, 16, 128, 128),
+    (True, 24, 8, 64, 128, 128), (False, None, 1, 64, 128, 128),
+    (False, None, 1, 80, 128, 128), (True, 24, 2, 80, 128, 128),
+    (True, None, 2, 128, 128, 128), (False, 24, 8, 128, 128, 128),
+    (True, 24, 1, 256, 128, 128), (False, None, 8, 256, 128, 128),
+    (True, 50, 2, 64, 200, 200),            # ragged
+    (False, None, 2, 128, 5, 5),            # one partial tile
+    (True, None, 2, 128, 200, 328),         # T > S: kv tiles no q reaches
+    (True, None, 2, 64, 328, 200),          # S > T: rows past T
+]
+
+
+@pytest.mark.parametrize("causal,window,gqa,hd,s,t", TF32X3_BWD_CASES)
+def test_tf32x3_bwd_holds_against_jax_vjp(causal, window, gqa, hd, s, t):
+    """The "tf32x3" backward's arithmetic (L from `attention_lse_ref`, as
+    the forward writes it) meets `chip_smoke.py`'s f32 hold against
+    jax.vjp of the reference's attention_ref (XLA's autodiff)."""
+    h = 8
+    rng = np.random.default_rng(hd + s + t + gqa)
+    q, do = (rng.normal(size=(1, s, h, hd)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(1, t, h // gqa, hd)).astype(np.float32)
+            for _ in range(2))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o = attention_ref(tq, tk, tv, causal=causal, window=window)
+    lse = attention_lse_ref(tq, tk, causal, window)
+    got = _emulate_bwd_tf32(tq, tk, tv, o, tdo, lse, causal, window)
+    want = _jax_attention_vjp(q, k, v, do, causal, window)
+    for err, limit in _bwd_hold(got, want):
+        assert err <= limit
+
+
+def test_tf32x3_bwd_one_tf32_product_misses_the_hold():
+    """Why the kernel splits: at qwen3's head dim one TF32 product per
+    multiply misses the f32 backward hold that three meet."""
+    q, k, v, do = map(torch.from_numpy, _attn_inputs(1, 512, 4, 2, 128,
+                                                     seed=29))
+    o = attention_ref(q, k, v)
+    lse = attention_lse_ref(q, k, True, None)
+    want = attention_bwd_ref(q, k, v, o, do, True, None)
+    one = _bwd_hold(_emulate_bwd_tf32(q, k, v, o, do, lse, True, None,
+                                      passes=1), want)
+    three = _bwd_hold(_emulate_bwd_tf32(q, k, v, o, do, lse, True, None),
+                      want)
+    assert any(err > limit for err, limit in one)
+    assert all(err <= limit for err, limit in three)
+
+
 @pytest.mark.parametrize("route_name,case", [
     ("fma", (True, None, 2, 16, 200)), ("fma", (True, 50, 4, 64, 150)),
     ("fma", (False, None, 1, 80, 70)), ("fma", (True, 8, 2, 256, 100)),
     ("wgmma", (True, None, 2, 128, 200)), ("wgmma", (True, 50, 4, 64, 150)),
     ("wgmma", (False, None, 1, 80, 70)), ("wgmma", (True, 8, 2, 128, 300)),
     ("wgmma", (True, 8, 2, 256, 100)), ("wgmma", (False, None, 1, 256, 64)),
-    ("wgmma", (True, None, 4, 256, 150))])
+    ("wgmma", (True, None, 4, 256, 150)),
+    ("tf32x3", (True, None, 2, 16, 200)), ("tf32x3", (True, 50, 4, 64, 150)),
+    ("tf32x3", (False, None, 1, 80, 70)), ("tf32x3", (True, 8, 2, 256, 100))])
 def test_bwd_kernel_tile_walk(route_name, case):
     """Each backward route's tiling (bwd_tiles, both ranges, the GQA sum
     inside the dkdv walk) emulated in torch holds against
-    attention_bwd_ref. "fma": f32 throughout, atol 1e-5. "wgmma": bf16
+    attention_bwd_ref. "fma" (bf16 at hd 16/32, and f32 where the holds
+    patch it in): f32 throughout, atol 1e-5. "tf32x3": the forward's L
+    given, every product as three TF32 products, atol 1e-5. "wgmma": bf16
     inputs, the forward's L given, P and dS rounded to bf16 before the
     products and the outputs to bf16: the card's bf16 limits (atol 2e-2
     plus the output's bf16 rounding 2^-8 |ref|, relative Frobenius 1e-2),
@@ -489,9 +622,12 @@ def test_bwd_kernel_tile_walk(route_name, case):
     causal, window, gqa, hd, s = case
     q, k, v, do = map(torch.from_numpy, _attn_inputs(1, s, 4, 4 // gqa, hd,
                                                      seed=hd))
-    if route_name == "fma":
+    if route_name in ("fma", "tf32x3"):
         o = attention_ref(q, k, v, causal=causal, window=window)
-        got = _emulate_bwd(q, k, v, o, do, causal, window)
+        got = (_emulate_bwd(q, k, v, o, do, causal, window)
+               if route_name == "fma" else _emulate_bwd_tf32(
+                   q, k, v, o, do, attention_lse_ref(q, k, causal, window),
+                   causal, window))
         want = attention_bwd_ref(q, k, v, o, do, causal, window)
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5)
@@ -545,44 +681,53 @@ def test_attention_lse_ref(s, t, causal, window):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                    torch.float16])
 def test_bwd_route_rule(dtype, hd):
-    """The backward's route table: bf16 at hd 64/80/128/256 takes the
-    tensor-core kernel, which needs the forward's L (on the forward's
-    "wgmma" route); f32 at every hd and bf16 at hd 16/32 the CUDA-core
-    kernel; anything else raises."""
+    """The backward's route table: f32 at every hd takes the 3xTF32
+    tensor-core kernel, bf16 at hd 64/80/128/256 the wgmma one (both need
+    the forward's L, on the forward's route of the same name); bf16 at hd
+    16/32 the CUDA-core kernel; anything else raises."""
     if hd not in flash.HEAD_DIMS or dtype == torch.float16:
         with pytest.raises(ValueError):
             flash.bwd_route(dtype, hd)
         return
-    want = ("wgmma" if dtype == torch.bfloat16 and hd in (64, 80, 128, 256)
-            else "fma")
+    want = ("tf32x3" if dtype == torch.float32
+            else "wgmma" if hd in (64, 80, 128, 256) else "fma")
     assert flash.bwd_route(dtype, hd) == want
     assert flash.BWD_ROUTES[want][0].exists()
-    if want == "wgmma":
-        assert flash.route(dtype, hd) == "wgmma"
+    assert (want in flash.LSE_ROUTES) == (want != "fma")
+    if want in flash.LSE_ROUTES:
+        assert flash.route(dtype, hd) == want
     src = flash.BWD_ROUTES[want][0].read_text()
     assert "flash_attention_pallas" in src and "q_tile_range" in src
 
 
 def test_bwd_wrapper_refusals():
     """`flash_attention_bwd_cuda` raises, launching nothing: on the wgmma
-    route without the forward's L, on the fma route with one, and on CPU
-    tensors; the forward's `return_lse` needs CUDA tensors too."""
+    and tf32x3 routes without the forward's L, on the fma route (bf16 at
+    hd 16) with one, and on CPU tensors; the forward's `return_lse` needs
+    CUDA tensors too, and a route that writes L."""
     q, k, v, do = (torch.from_numpy(x).bfloat16()
                    for x in _attn_inputs(1, 64, 4, 2, 128, seed=3))
     lse = torch.zeros((1, 4, 64))
     launches = (flash.flash_attention_bwd_cuda.launches,
                 dict(flash.flash_attention_bwd_cuda.route_launches))
-    with pytest.raises(ValueError, match="row log-sum-exp"):
+    with pytest.raises(ValueError, match="wgmma backward takes the forward"):
         flash.flash_attention_bwd_cuda(q, k, v, q, do)
     with pytest.raises(ValueError, match="needs CUDA"):
         flash.flash_attention_bwd_cuda(q, k, v, q, do, lse=lse)
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
-    with pytest.raises(ValueError, match="recomputes L"):
-        flash.flash_attention_bwd_cuda(q32, k32, v32, q32, do32, lse=lse)
-    with pytest.raises(ValueError, match="needs CUDA"):
+    with pytest.raises(ValueError, match="tf32x3 backward takes the forward"):
         flash.flash_attention_bwd_cuda(q32, k32, v32, q32, do32)
     with pytest.raises(ValueError, match="needs CUDA"):
+        flash.flash_attention_bwd_cuda(q32, k32, v32, q32, do32, lse=lse)
+    q16, k16, v16, do16 = (x[..., :16].contiguous() for x in (q, k, v, do))
+    with pytest.raises(ValueError, match="recomputes L"):
+        flash.flash_attention_bwd_cuda(q16, k16, v16, q16, do16, lse=lse)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash.flash_attention_bwd_cuda(q16, k16, v16, q16, do16)
+    with pytest.raises(ValueError, match="needs CUDA"):
         flash.flash_attention_cuda(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="needs CUDA"):
+        flash.flash_attention_cuda(q32, k32, v32, return_lse=True)
     assert (flash.flash_attention_bwd_cuda.launches,
             flash.flash_attention_bwd_cuda.route_launches) == launches
 
@@ -600,7 +745,7 @@ def test_flash_attention_function_passes_lse(dtype, hd, remat):
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils.checkpoint import checkpoint
     from repro_torch.kernels.attention import ops
-    want_lse = flash.bwd_route(dtype, hd) == "wgmma"
+    want_lse = flash.bwd_route(dtype, hd) in flash.LSE_ROUTES
     seen = {"fwd": [], "bwd": []}
     fwd_op = torch.ops.repro_torch.flash_attention_fwd
     bwd_op = torch.ops.repro_torch.flash_attention_bwd
@@ -816,8 +961,10 @@ def test_raw_wrappers_refuse_grad_mode():
     launches = (flash.flash_attention_cuda.launches,
                 flash.flash_attention_bwd_cuda.launches,
                 ssd.ssd_intra_cuda.launches)
+    lse = torch.zeros((1, 2, 8))             # f32 takes the tf32x3 route
     calls = [lambda: flash.flash_attention_cuda(q, kv, kv),
-             lambda: flash.flash_attention_bwd_cuda(q, kv, kv, kv, kv)]
+             lambda: flash.flash_attention_bwd_cuda(q, kv, kv, kv, kv,
+                                                    lse=lse)]
     C = torch.zeros((1, 1, 16, 4), requires_grad=True)
     dtx, cums = torch.zeros((1, 1, 16, 2, 4)), torch.zeros((1, 1, 16, 2))
     calls.append(lambda: ssd.ssd_intra_cuda(C, C.detach(), dtx, cums))
