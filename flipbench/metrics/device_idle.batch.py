@@ -1,0 +1,8 @@
+"""device_idle.batch: share of the traced part of a closed-loop window
+in which no operation ran on the card (profiler timeline)."""
+
+
+def read(run):
+    if not run.queries or run.trace is None or not run.trace.ops:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)
