@@ -487,7 +487,7 @@ from torch.distributed.tensor import distribute_tensor
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import flip_torch  # noqa: E402
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, obs  # noqa: E402
 from repro_torch.algebra import ALGEBRAS  # noqa: E402
 from repro_torch.autotune import (TuningStore, autotune,  # noqa: E402
                                   profile_graph)
@@ -994,15 +994,27 @@ def run_query(cq, srcs, label: str):
     return launches, r
 
 
+@contextlib.contextmanager
+def spans_off():
+    """The port's program spans off under a profiler (`obs.enable`), so
+    that a profiled busy share reads as it did before the port had
+    spans."""
+    obs.enable(False)
+    try:
+        yield
+    finally:
+        obs.enable(None)
+
+
 def profile_query(cq, srcs, label: str, **kw) -> float | None:
     """Where one query's time goes on the card: device time by kernel
-    (torch.profiler over the whole query) against the profiled wall.
-    Returns the device's busy share of the wall, None when the profiler
-    saw no device event."""
+    (torch.profiler over the whole query, the program's spans off)
+    against the profiled wall. Returns the device's busy share of the
+    wall, None when the profiler saw no device event."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with spans_off(), profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         r = cq.query(srcs, **kw)
         torch.cuda.synchronize()
@@ -1242,8 +1254,8 @@ def phase_serving(g, rng) -> int:
              if s not in set(pool.tolist())][:16]
     w0 = srv.windows
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with spans_off(), profile(activities=[ProfilerActivity.CPU,
+                                          ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         burst = srv.serve([(("bfs", "sssp")[i % 2], s)
                            for i, s in enumerate(fresh)])

@@ -36,6 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import Graph
 from repro_torch.kernels.frontier.ops import UpdateDelta
 from repro_torch.obs.telemetry import QueryTelemetry
+from repro_torch.obs.trace import span
 from repro_torch.resilience.errors import ConvergenceFailure, InvalidRequest
 
 
@@ -153,8 +154,15 @@ class CompiledQuery:
                       call (default plan.deadline_s), enforced at step
                       boundaries; `deadline_expired` marks queries it
                       stopped.
+
+        The call is one `flip.query` span (`repro_torch.obs.span`).
         """
         t0 = time.perf_counter()
+        with span("flip.query", batch=int(np.size(srcs))):
+            return self._query(t0, srcs, warm, trace, max_steps,
+                               deadline_s)
+
+    def _query(self, t0, srcs, warm, trace, max_steps, deadline_s):
         if trace and self.plan.distributed:
             raise ValueError(
                 "query(trace=...) is not supported on a distributed "

@@ -53,6 +53,13 @@ the reference:
   * tracing (`execute(trace=)`): per-step frontier stats into
     `repro_torch.obs`, kept on the device until the loop ends, so
     tracing adds no device->host read per step;
+  * program spans (`repro_torch.obs.span`) in the host code of the loops:
+    `flip.init`, `flip.fixpoint` over either loop, `flip.capture` over a
+    CUDA graph's capture, `flip.finalize`; per chunk (`fine_span`,
+    recorded only after `obs.enable(True)`) one `flip.chunk` per replay
+    (a host-loop step) and `flip.read` over the loop's device->host read;
+    and the `PROGRAM` counters (chunks, steps enqueued, iterations).
+    None sits in code that a CUDA graph captures;
   * the segment surface (`idle_state`, `write_slot`, `run_segment`,
     `finalize_state`) that the continuous-batching scheduler
     (`repro_torch.serving`) drives;
@@ -78,7 +85,9 @@ from repro_torch.kernels.frontier.ops import (BlockedGraph, UpdateDelta,
                                               build_blocks, frontier_relax,
                                               resolve_relax_mode,
                                               tile_activity)
+from repro_torch.obs.metrics import PROGRAM
 from repro_torch.obs.telemetry import DispatchTelemetry, StepTrace
+from repro_torch.obs.trace import fine_span, span
 from repro_torch.resilience.errors import InvalidRequest
 
 # default per-step trace row capacity (`execute(trace=True)`); steps
@@ -89,6 +98,11 @@ TRACE_CAP_DEFAULT = 4096
 # steps per chunk of the device loop: one device->host read per chunk,
 # and at most DEVICE_CHUNK - 1 no-op steps past a fixpoint's end
 DEVICE_CHUNK = 8
+
+# the fixpoint's always-on counters (see `repro_torch.obs.metrics`)
+_CHUNKS = PROGRAM.counter("fixpoint.chunks")
+_STEPS_ENQUEUED = PROGRAM.counter("fixpoint.steps_enqueued")
+_ITERATIONS = PROGRAM.counter("fixpoint.iterations")
 
 
 def fixpoint_route(device_type: str, relax_mode: str, deadlined: bool,
@@ -348,40 +362,42 @@ class FlipEngine:
         d, features = self.feature_dim, self._features
         srcs = np.atleast_1d(np.asarray(srcs, dtype=np.int64))
         b = srcs.shape[0]
-        frontier = np.zeros((b, bg.padded_n), dtype=bool)
-        if warm is not None:
-            if alg.kind != "monotone":
-                raise ValueError(
-                    f"warm start needs a monotone algebra; {alg.name} is "
-                    f"{alg.kind!r} -- recompute from scratch instead")
-            prev = np.asarray(warm.attrs, dtype=np.float32)
-            want = (b, bg.n, d) if features else (b, bg.n)
-            if features and (prev.ndim < 2 or prev.shape[-1] != d):
-                wd = prev.shape[-1] if prev.ndim >= 2 else 1
-                raise ValueError(
-                    f"warm attrs carry feature_dim {wd} but this "
-                    f"engine runs {alg.name} at feature_dim {d}; "
-                    f"warm state shape {prev.shape} != {want}")
-            if prev.ndim == len(want) - 1:   # shared across the batch
-                prev = np.broadcast_to(prev, want)
-            if prev.shape != want:
-                raise ValueError(
-                    f"warm attrs shape {prev.shape} does not match "
-                    f"{want} (B={b}, n={bg.n}"
-                    + (f", d={d})" if features else ")"))
-            attrs = bg.to_tiled(prev, features=features)
-            seeds = np.asarray(warm.seeds, dtype=np.int64)
-            frontier[:, bg.perm[seeds]] = True
-        else:
-            attrs = bg.to_tiled(alg.initial_attrs(bg.n, srcs, feature_dim=d),
-                                features=features)
-            frontier[:, bg.perm] = alg.initial_frontier(bg.n, srcs,
-                                                        feature_dim=d)
-        attrs = attrs.to(self.device)
-        aux = torch.zeros_like(attrs)
-        frontier = torch.from_numpy(
-            frontier.reshape(b, bg.ntiles, bg.tile)).to(self.device)
-        return attrs, aux, frontier
+        with span("flip.init", batch=b):
+            frontier = np.zeros((b, bg.padded_n), dtype=bool)
+            if warm is not None:
+                if alg.kind != "monotone":
+                    raise ValueError(
+                        f"warm start needs a monotone algebra; {alg.name} "
+                        f"is {alg.kind!r} -- recompute from scratch instead")
+                prev = np.asarray(warm.attrs, dtype=np.float32)
+                want = (b, bg.n, d) if features else (b, bg.n)
+                if features and (prev.ndim < 2 or prev.shape[-1] != d):
+                    wd = prev.shape[-1] if prev.ndim >= 2 else 1
+                    raise ValueError(
+                        f"warm attrs carry feature_dim {wd} but this "
+                        f"engine runs {alg.name} at feature_dim {d}; "
+                        f"warm state shape {prev.shape} != {want}")
+                if prev.ndim == len(want) - 1:   # shared across the batch
+                    prev = np.broadcast_to(prev, want)
+                if prev.shape != want:
+                    raise ValueError(
+                        f"warm attrs shape {prev.shape} does not match "
+                        f"{want} (B={b}, n={bg.n}"
+                        + (f", d={d})" if features else ")"))
+                attrs = bg.to_tiled(prev, features=features)
+                seeds = np.asarray(warm.seeds, dtype=np.int64)
+                frontier[:, bg.perm[seeds]] = True
+            else:
+                attrs = bg.to_tiled(
+                    alg.initial_attrs(bg.n, srcs, feature_dim=d),
+                    features=features)
+                frontier[:, bg.perm] = alg.initial_frontier(bg.n, srcs,
+                                                            feature_dim=d)
+            attrs = attrs.to(self.device)
+            aux = torch.zeros_like(attrs)
+            frontier = torch.from_numpy(
+                frontier.reshape(b, bg.ntiles, bg.tile)).to(self.device)
+            return attrs, aux, frontier
 
     def _step(self, attrs, aux, frontier, with_stats: bool = False):
         alg, features = self.algebra, self._features
@@ -481,11 +497,15 @@ class FlipEngine:
                                                  self.device),
             deadlines is not None, step is not None,
             step is not None and step.capturable)
-        if route == "device":
-            return self._fixpoint_device(attrs, aux, frontier, trace_cap,
-                                         budgets, step)
-        return self._fixpoint_host(attrs, aux, frontier, trace_cap,
-                                   budgets, deadlines, step)
+        with span("flip.fixpoint", route=route, batch=b):
+            if route == "device":
+                out = self._fixpoint_device(attrs, aux, frontier,
+                                            trace_cap, budgets, step)
+            else:
+                out = self._fixpoint_host(attrs, aux, frontier, trace_cap,
+                                          budgets, deadlines, step)
+        _ITERATIONS.inc(int(out[3].max(initial=0)))
+        return out
 
     def _fixpoint_host(self, attrs, aux, frontier, trace_cap: int,
                        budgets: np.ndarray, deadlines, step=None):
@@ -504,7 +524,8 @@ class FlipEngine:
         while True:
             # the loop's one device->host read per step; it also closes
             # the previous traced step's wall
-            active = frontier.flatten(1).any(dim=1).cpu().numpy()
+            with fine_span("flip.read"):
+                active = frontier.flatten(1).any(dim=1).cpu().numpy()
             if len(walls) < len(rows):
                 walls.append(time.perf_counter() - t0)
             if deadlines is not None:
@@ -514,14 +535,17 @@ class FlipEngine:
             if not live.any():
                 break
             t0 = time.perf_counter()
-            if trace_cap:
-                (attrs, aux, frontier), st = self._masked_step(
-                    attrs, aux, frontier, live, with_stats=True)
-                if n_iter < trace_cap:
-                    rows.append(st + (~live,))
-            else:
-                attrs, aux, frontier = self._masked_step(
-                    attrs, aux, frontier, live, step=step)
+            with fine_span("flip.chunk", n=1):
+                if trace_cap:
+                    (attrs, aux, frontier), st = self._masked_step(
+                        attrs, aux, frontier, live, with_stats=True)
+                    if n_iter < trace_cap:
+                        rows.append(st + (~live,))
+                else:
+                    attrs, aux, frontier = self._masked_step(
+                        attrs, aux, frontier, live, step=step)
+            _CHUNKS.inc()
+            _STEPS_ENQUEUED.inc()
             steps = steps + live.astype(np.int32)
             n_iter += 1
         trace = None
@@ -573,13 +597,17 @@ class FlipEngine:
         cap, run = int(budgets.max(initial=0)), 0
         while run < cap:
             n = min(DEVICE_CHUNK, cap - run)
-            if loop is not None:
-                out = self._replay(loop, n)
-            else:
-                state, out = self._device_chunk(state, bud, n, trace_cap,
-                                                step=step)
+            with fine_span("flip.chunk", n=n):
+                if loop is not None:
+                    out = self._replay(loop, n)
+                else:
+                    state, out = self._device_chunk(state, bud, n,
+                                                    trace_cap, step=step)
+            _CHUNKS.inc()
+            _STEPS_ENQUEUED.inc(n)
             run += n
-            summary = out.cpu().numpy()          # the one read per chunk
+            with fine_span("flip.read"):
+                summary = out.cpu().numpy()      # the one read per chunk
             if not summary[0]:
                 break
         if loop is not None:
@@ -698,7 +726,8 @@ class FlipEngine:
         group's timeout ends them)."""
         dev = loop.budgets.device
         before = frontier_relax_cuda.launches
-        with torch.cuda.device(dev):
+        with span("flip.capture", n=n, batch=int(loop.budgets.shape[0])), \
+                torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
@@ -1016,8 +1045,9 @@ class FlipEngine:
         """A tiled state -> original-vertex-order numpy results:
         (B, ntiles, T[, d]) -> (B, n[, d]). Lane-independent, so a
         rotating batch finalizes one lane by slicing ``attrs[b:b+1]``."""
-        return self.bg.to_orig(self.algebra.finalize(attrs, aux),
-                               features=self._features)
+        with span("flip.finalize"):
+            return self.bg.to_orig(self.algebra.finalize(attrs, aux),
+                                   features=self._features)
 
     def _resolve_budgets(self, max_steps, b: int):
         """Per-query step budgets ((B,) i32) from a caller cap: None

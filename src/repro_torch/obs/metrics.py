@@ -6,6 +6,17 @@ actually did -- requests, cache hits, latencies, windows -- into one
 `MetricsRegistry`, and everything downstream (server `stats()`, logs)
 reads the same snapshot schema instead of scraping prints.
 
+`PROGRAM` is the process-wide registry of the engine's always-on
+counters, one integer add each per fixpoint chunk or fixpoint:
+
+  * ``fixpoint.chunks`` -- chunks run (a host-loop step is a chunk of
+    one); each is followed by one device->host read, and the host loop
+    makes one read more per fixpoint, the one that finds it done;
+  * ``fixpoint.steps_enqueued`` -- the steps those chunks enqueue;
+  * ``fixpoint.iterations`` -- each fixpoint's largest per-query step
+    count, so ``steps_enqueued - iterations`` are the device loop's
+    no-op steps past the fixpoint.
+
 Design constraints, in order:
 
   * **cheap on the hot path** -- `Counter.inc` / `Histogram.observe`
@@ -17,9 +28,7 @@ Design constraints, in order:
     while p50/p95/p99 stay representative; exact count/sum/min/max are
     always maintained besides the reservoir;
   * **JSON all the way down** -- `snapshot()` returns plain
-    dict/list/float structures that `json.dump` accepts unmodified, and
-    `write_events_jsonl` appends one JSON object per line (the format
-    log scrapers and the autotuner's history loader expect).
+    dict/list/float structures that `json.dump` accepts unmodified.
 """
 from __future__ import annotations
 
@@ -27,7 +36,6 @@ import dataclasses
 import json
 import random
 import threading
-import time
 
 
 @dataclasses.dataclass
@@ -118,7 +126,7 @@ class Histogram:
 
 
 class MetricsRegistry:
-    """Get-or-create store of named metrics plus a JSONL event log.
+    """Get-or-create store of named metrics.
 
     Metric names are free-form dotted strings (``latency_s.bfs``); the
     registry never interprets them. Access is thread-safe at the
@@ -131,7 +139,6 @@ class MetricsRegistry:
         self._counters: dict[str, Counter] = {}
         self._gauges: dict[str, Gauge] = {}
         self._histograms: dict[str, Histogram] = {}
-        self._events: list[dict] = []
 
     # ------------------------------------------------------------ #
     def counter(self, name: str) -> Counter:
@@ -162,18 +169,6 @@ class MetricsRegistry:
                        if n.startswith(prefix))
 
     # ------------------------------------------------------------ #
-    def emit(self, kind: str, **fields) -> dict:
-        """Append one structured event (returned for reuse); exported
-        verbatim by `write_events_jsonl`."""
-        ev = {"ts": time.time(), "kind": kind, **fields}
-        self._events.append(ev)
-        return ev
-
-    @property
-    def events(self) -> list[dict]:
-        return self._events
-
-    # ------------------------------------------------------------ #
     def snapshot(self) -> dict:
         """One JSON-ready view of every metric."""
         return {
@@ -190,8 +185,5 @@ class MetricsRegistry:
             json.dump(self.snapshot(), f, indent=1)
         return path
 
-    def write_events_jsonl(self, path: str, append: bool = True) -> str:
-        with open(path, "a" if append else "w") as f:
-            for ev in self._events:
-                f.write(json.dumps(ev) + "\n")
-        return path
+
+PROGRAM = MetricsRegistry()

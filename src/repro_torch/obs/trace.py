@@ -11,12 +11,143 @@ Timing semantics: the port's fixpoint is host-driven and records real
 per-step wall times, which become the step span durations. A dispatch
 without them (a `DispatchTelemetry` built by hand) has its step spans
 divide the dispatch wall evenly, tagged ``"synthetic_timing": true``.
+
+Program spans (`span`, `fine_span`, `enable`, `recorded`,
+`chrome_trace_from_spans`): the port's host code marks its layer
+boundaries -- `flip.query`, `flip.init`, `flip.fixpoint`, `flip.capture`,
+`flip.finalize`, and the server's `flip.pump`, `flip.admit`,
+`flip.window`, `flip.retire` -- with ``with span(name, **args):``, and
+the fixpoint loop's per-chunk work -- `flip.chunk`, `flip.read` -- with
+`fine_span`. Three settings:
+
+  * by default, while a `torch.profiler` runs in the process, a `span`
+    is the profiler's `record_function(name)`: it shows in the
+    profiler's trace as a `user_annotation` on the device trace's own
+    clock, over exactly the profiled stretch. A `fine_span` is not
+    recorded then: under a profiler a span costs tens of µs, once per
+    query or pump for the layer spans but once per chunk for these;
+  * `enable(True)` records every span, `fine_span` too, profiler or
+    not, into a bounded in-memory list (`recorded`, exported by
+    `chrome_trace_from_spans` through `TraceBuilder`), besides
+    `record_function`;
+  * `enable(False)` records none, even under a profiler.
+
+A span not recorded is one shared null context after a flag read and the
+profiler's is-it-running check (`torch.autograd._profiler_enabled`, which
+the tests pin): nothing allocated, nothing formatted. Spans sit only in
+host code, never in code that a CUDA graph captures.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import dataclasses
 import json
+import threading
+import time
 
 import numpy as np
+from torch.autograd import _profiler_enabled as _profiling
+from torch.profiler import record_function
+
+# the in-memory span list keeps the newest SPAN_CAP spans
+SPAN_CAP = 1 << 16
+
+_NULL = contextlib.nullcontext()
+
+
+@dataclasses.dataclass(slots=True)
+class SpanRecord:
+    """One recorded span: `time.perf_counter_ns` at entry and exit (0
+    while open), the span it opened inside (None at the top) and its
+    args."""
+    name: str
+    start_ns: int
+    end_ns: int
+    parent: "SpanRecord | None"
+    args: dict
+
+
+class _Spans(threading.local):
+    """The open spans of this thread, innermost last."""
+
+    def __init__(self):
+        self.stack: list[SpanRecord] = []
+
+
+_forced: bool | None = None     # set by enable(); None: the profiler's
+_records: collections.deque = collections.deque(maxlen=SPAN_CAP)
+_open = _Spans()
+
+
+def enable(on: bool | None) -> None:
+    """True: record every span, `fine_span` too, with or without a
+    profiler, starting a fresh in-memory list. False: record none, even
+    under a profiler. None (the default): `span` only, while a
+    `torch.profiler` runs, into the profiler's trace alone."""
+    global _forced
+    _forced = on
+    if on:
+        _records.clear()
+
+
+def span(name: str, **args):
+    """A context over one layer boundary of the port's host code (see
+    `enable` for when it is recorded); else one shared null context."""
+    on = _forced
+    if on is None:
+        return record_function(name) if _profiling() else _NULL
+    return _Span(name, args) if on else _NULL
+
+
+def fine_span(name: str, **args):
+    """A span the fixpoint loop opens once per chunk or step: recorded
+    only after `enable(True)`, never by a profiler alone."""
+    return _Span(name, args) if _forced else _NULL
+
+
+class _Span:
+    __slots__ = ("name", "args", "rec", "rf")
+
+    def __init__(self, name: str, args: dict):
+        self.name, self.args = name, args
+
+    def __enter__(self) -> SpanRecord:
+        self.rf = record_function(self.name)
+        self.rf.__enter__()
+        stack = _open.stack
+        self.rec = SpanRecord(self.name, time.perf_counter_ns(), 0,
+                              stack[-1] if stack else None, self.args)
+        stack.append(self.rec)
+        _records.append(self.rec)
+        return self.rec
+
+    def __exit__(self, *exc):
+        self.rec.end_ns = time.perf_counter_ns()
+        _open.stack.pop()
+        self.rf.__exit__(*exc)
+
+
+def recorded() -> list[SpanRecord]:
+    """The in-memory list: the newest `SPAN_CAP` spans, in entry order."""
+    return list(_records)
+
+
+def chrome_trace_from_spans(records=None) -> dict:
+    """A Chrome trace of recorded spans (default: `recorded()`), times
+    from the first span's start; each span's args carry its parent's
+    index in `records` (None at the top, or once the list dropped it)."""
+    records = recorded() if records is None else list(records)
+    tb = TraceBuilder()
+    tb.thread(0, "spans")
+    index = {id(r): i for i, r in enumerate(records)}
+    t0 = min((r.start_ns for r in records), default=0)
+    for r in records:
+        end = r.end_ns or r.start_ns
+        parent = None if r.parent is None else index.get(id(r.parent))
+        tb.span(r.name, (r.start_ns - t0) / 1e3, (end - r.start_ns) / 1e3,
+                args={**r.args, "parent": parent})
+    return tb.to_chrome()
 
 
 class TraceBuilder:

@@ -38,6 +38,11 @@ serving. As in the reference, this scheduler retries nothing: the
 degradation ladder (`resilience.fallback_chain`) belongs to the bucket
 server (`repro_torch.launch.serve_graph.GraphServer`), and on the card
 its rungs all launch the kernel.
+
+The server's host work carries program spans (`repro_torch.obs.span`):
+`flip.pump` over each `pump`, `flip.admit` over one lane's admission,
+`flip.window` over one algebra's K-step segment and `flip.retire` over
+one lane's retirement; those of one request carry its `req_id` as `req`.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ from repro_torch import api as flip
 from repro_torch.algebra import get_algebra
 from repro_torch.api import CompiledQuery, ExecutionPlan
 from repro_torch.graphs.csr import Graph
-from repro_torch.obs import MetricsRegistry
+from repro_torch.obs import MetricsRegistry, span
 from repro_torch.resilience import (CapacityExceeded, ConvergenceFailure,
                                     DeadlineExceeded, InvalidRequest,
                                     classify)
@@ -368,14 +373,15 @@ class AsyncGraphServer:
         segment and retire what finished. Returns the number of
         requests still pending. An empty pump (nothing queued, nothing
         in flight) is a no-op -- the clock does not advance."""
-        for algo in sorted(set(self._queues) | set(self._batches)):
-            self._expire_queued(algo)
-            self._refill(algo)
-            rb = self._batches.get(algo)
-            if rb is not None and rb.occupied:
-                self._run_window(algo, rb)
-        self._refresh_gauges()
-        return self.pending
+        with span("flip.pump"):
+            for algo in sorted(set(self._queues) | set(self._batches)):
+                self._expire_queued(algo)
+                self._refill(algo)
+                rb = self._batches.get(algo)
+                if rb is not None and rb.occupied:
+                    self._run_window(algo, rb)
+            self._refresh_gauges()
+            return self.pending
 
     def drain(self) -> None:
         """Pump until every submitted request is retired."""
@@ -444,7 +450,9 @@ class AsyncGraphServer:
                 break
             req = queue.popleft()
             req.admit_window = self.windows
-            rb.admit(b, req, self.clock.now(), warm=self._warm_for(req))
+            with span("flip.admit", req=req.req_id, algo=algo):
+                rb.admit(b, req, self.clock.now(),
+                         warm=self._warm_for(req))
             self.metrics.counter(f"admitted.{algo}").inc()
             self.metrics.histogram(f"queue_wait_s.{algo}").observe(
                 req.queue_wait_s)
@@ -469,7 +477,8 @@ class AsyncGraphServer:
         """One K-step segment plus the retirement pass."""
         occupied = rb.occupied
         try:
-            steps, converged, iters = rb.run_window(self.segment_steps)
+            with span("flip.window", algo=algo, lanes=len(occupied)):
+                steps, converged, iters = rb.run_window(self.segment_steps)
         except Exception as e:                      # noqa: BLE001
             # typed per-request failure, never a lost bucket: classify,
             # attach, and reset the lanes so the stream keeps serving
@@ -519,25 +528,26 @@ class AsyncGraphServer:
         """Produce lane `b`'s result (full or flagged partial), attach
         the outcome, free the lane, and feed the cache."""
         req = rb.slots[b]
-        req.result = rb.finalize_lane(b)
-        req.converged = converged
-        req.service_s = now - rb.t_admit[b]
-        rb.evict(b)
-        m = self.metrics
-        if converged:
-            self.cache.put(self.graph.fingerprint(), req.algo, req.src,
-                           req.result, req.steps)
-            self.completed += 1
-            m.counter(f"completed.{req.algo}").inc()
-        else:
-            # a partial is attached AND flagged: the typed error says why
-            req.error = error
-            self.failed += 1
-            m.counter(f"errors.{error.code}").inc()
-        m.histogram(f"latency_s.{req.algo}").observe(
-            req.queue_wait_s + req.service_s)
-        m.histogram(f"service_s.{req.algo}").observe(req.service_s)
-        m.histogram(f"steps.{req.algo}").observe(req.steps)
+        with span("flip.retire", req=req.req_id, algo=req.algo):
+            req.result = rb.finalize_lane(b)
+            req.converged = converged
+            req.service_s = now - rb.t_admit[b]
+            rb.evict(b)
+            m = self.metrics
+            if converged:
+                self.cache.put(self.graph.fingerprint(), req.algo, req.src,
+                               req.result, req.steps)
+                self.completed += 1
+                m.counter(f"completed.{req.algo}").inc()
+            else:
+                # a partial is attached AND flagged: the typed error says why
+                req.error = error
+                self.failed += 1
+                m.counter(f"errors.{error.code}").inc()
+            m.histogram(f"latency_s.{req.algo}").observe(
+                req.queue_wait_s + req.service_s)
+            m.histogram(f"service_s.{req.algo}").observe(req.service_s)
+            m.histogram(f"steps.{req.algo}").observe(req.steps)
 
     # ------------------------------------------------------------ #
     def update(self, updates) -> dict:

@@ -7,12 +7,17 @@ skipped, the converged mask) must equal the reference's traced rows on
 the same graph and sources (`step_wall_s` is a host clock and is not
 compared). Then truncation, compile-time attribution, bucketed
 collection, the Chrome-trace round trip, the CLI, and the reference's
-metrics tests run against the port's classes.
+metrics tests run against the port's classes. Last, the program's spans
+and counters: nested as the layers nest, in the profiler's trace only
+while they are on, exact (results and steps unchanged), counting what the
+fixpoint ran, one admission and one retirement per served request, and
+exported through `TraceBuilder`.
 """
 import json
 
 import numpy as np
 import pytest
+import torch
 
 import flip
 import flip_torch
@@ -21,8 +26,11 @@ from repro.api import ExecutionPlan as RefPlan
 from repro.graphs import make_power_law as ref_power_law
 from repro_torch.algebra import ALGEBRAS
 from repro_torch.graphs import make_power_law
+from repro_torch import obs
+from repro_torch.core import engine as eng_mod
 from repro_torch.obs import (Counter, Histogram, MetricsRegistry,
                              chrome_trace_from_result, write_chrome_trace)
+from repro_torch.serving import AsyncGraphServer
 
 ALGOS = sorted(ALGEBRAS)
 TILE = 16
@@ -245,7 +253,6 @@ def test_registry_snapshot_and_exports(tmp_path):
     m.counter("req").inc(3)
     m.gauge("depth").set(7)
     m.histogram("lat").observe(0.25)
-    m.emit("dispatch", algo="bfs", batch=4)
     snap = m.snapshot()
     assert snap["counters"]["req"] == 3
     assert snap["gauges"]["depth"] == 7.0
@@ -253,12 +260,203 @@ def test_registry_snapshot_and_exports(tmp_path):
     p = m.write_snapshot_json(str(tmp_path / "snap.json"))
     with open(p) as f:
         assert json.load(f) == snap
-    p = m.write_events_jsonl(str(tmp_path / "events.jsonl"))
-    with open(p) as f:
-        lines = [json.loads(ln) for ln in f]
-    assert len(lines) == 1
-    assert lines[0]["kind"] == "dispatch" and lines[0]["algo"] == "bfs"
     assert m.counter("req") is m.counter("req")
     m.counter("shed.bfs").inc(2)
     m.counter("shed.sssp").inc()
     assert m.sum_counters("shed.") == 3
+
+
+# ------------------------------------------------------------------ #
+# program spans and counters
+# ------------------------------------------------------------------ #
+# each span's parent: the span it nests in directly
+QUERY_TREE = {"flip.query": None, "flip.init": "flip.query",
+              "flip.fixpoint": "flip.query", "flip.chunk": "flip.fixpoint",
+              "flip.read": "flip.fixpoint", "flip.finalize": "flip.query"}
+
+
+@pytest.fixture
+def spans():
+    """The span switch, put back to its default after the test."""
+    try:
+        yield obs.enable
+    finally:
+        obs.enable(None)
+
+
+@pytest.fixture(params=["host", "device"])
+def route(request, monkeypatch):
+    """Either fixpoint loop: the CPU's host loop, or the device loop
+    (run eagerly on the CPU, as its captured chunks replay on the card)."""
+    if request.param == "device":
+        monkeypatch.setattr(eng_mod, "fixpoint_route",
+                            lambda *a, **k: "device")
+    return request.param
+
+
+def _profiled(fn, tmp_path):
+    """`fn()` under torch.profiler (CPU); the `flip.*` events of its
+    Chrome trace as (name, start, end) in µs, in start order."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    path = tmp_path / "prof.json"
+    prof.export_chrome_trace(str(path))
+    evs = json.loads(path.read_text())["traceEvents"]
+    return sorted((e["name"], float(e["ts"]), float(e["ts"]) + e["dur"])
+                  for e in evs if e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation"
+                  and e["name"].startswith("flip."))
+
+
+def _parents(events):
+    """Each (name, start, end) event's innermost enclosing event's name."""
+    out = []
+    for i, (name, s, e) in enumerate(events):
+        around = [(e2 - s2, n2) for j, (n2, s2, e2) in enumerate(events)
+                  if j != i and s2 <= s and e <= e2 and (e2 - s2) > (e - s)]
+        out.append((name, min(around)[1] if around else None))
+    return out
+
+
+def test_query_spans_nest_under_the_profiler(tmp_path, route, spans):
+    cq = session("sssp")
+    spans(True)
+    events = _profiled(lambda: cq.query(SRCS4), tmp_path)
+    names = [n for n, _, _ in events]
+    assert set(names) == set(QUERY_TREE)
+    assert names.count("flip.query") == names.count("flip.fixpoint") == 1
+    assert names.count("flip.chunk") >= 2
+    for name, parent in _parents(events):
+        assert parent == QUERY_TREE[name], (name, parent)
+    # the in-memory list holds the same spans
+    assert sorted(r.name for r in obs.recorded()) == sorted(names)
+
+
+def test_the_profiler_alone_records_the_layer_spans(tmp_path, route,
+                                                    spans):
+    """By default a profiler turns on the layer spans, into its trace
+    alone, and leaves the loop's per-chunk spans off: a gap inside the
+    loop falls under `flip.fixpoint`."""
+    cq = session("sssp")
+    before = obs.recorded()
+    cq.query(SRCS4)
+    events = _profiled(lambda: cq.query(SRCS4), tmp_path)
+    want = {k: v for k, v in QUERY_TREE.items()
+            if k not in ("flip.chunk", "flip.read")}
+    assert sorted(n for n, _, _ in events) == sorted(want)
+    for name, parent in _parents(events):
+        assert parent == want[name], (name, parent)
+    assert obs.recorded() == before
+
+
+def test_the_profiler_check_follows_torch_profiler():
+    """The spans' default follows `torch.autograd._profiler_enabled`, a
+    private torch call: pinned here to `torch.profiler.profile`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+    assert trace._profiling() is False
+    with profile(activities=[ProfilerActivity.CPU]):
+        assert trace._profiling() is True
+    assert trace._profiling() is False
+
+
+@pytest.mark.parametrize("what", ["query", "pump"])
+def test_spans_off_leave_no_trace(tmp_path, spans, what):
+    spans(False)
+    if what == "query":
+        call = lambda: session("bfs").query(SRCS4)        # noqa: E731
+    else:
+        srv = AsyncGraphServer(make_power_law(**GRAPH_ARGS), batch=2,
+                               tile=TILE, device="cpu")
+        for src in SRCS4:
+            srv.submit("bfs", src)
+        call = srv.drain
+    assert _profiled(call, tmp_path) == []
+
+
+@pytest.mark.parametrize("algo", ["bfs", "sssp", "pagerank", "multi_bfs"])
+def test_spans_change_no_result(algo, route, spans):
+    cq = session(algo)
+    spans(False)
+    off = cq.query(SRCS4)
+    spans(True)
+    on = cq.query(SRCS4)
+    assert len(obs.recorded()) > 0
+    np.testing.assert_array_equal(on.attrs, off.attrs)
+    np.testing.assert_array_equal(on.steps, off.steps)
+    np.testing.assert_array_equal(on.converged, off.converged)
+
+
+def test_program_counters_count_the_fixpoint(route):
+    names = ("chunks", "steps_enqueued", "iterations")
+
+    def now():
+        return {k: obs.PROGRAM.counter(f"fixpoint.{k}").value
+                for k in names}
+
+    cq = session("bfs")
+    before = now()
+    r = cq.query(SRCS4)
+    d = {k: v - before[k] for k, v in now().items()}
+    assert d["iterations"] == int(np.max(r.steps))
+    assert d["steps_enqueued"] >= d["iterations"]
+    if route == "host":                             # a chunk is one step
+        assert d["chunks"] == d["steps_enqueued"] == d["iterations"]
+    else:
+        chunk = eng_mod.DEVICE_CHUNK
+        assert d["steps_enqueued"] - d["iterations"] < chunk
+        assert d["chunks"] == -(-d["steps_enqueued"] // chunk)
+
+
+def test_served_spans_carry_each_request(spans):
+    srv = AsyncGraphServer(make_power_law(**GRAPH_ARGS), batch=2,
+                           tile=TILE, segment_steps=2, cache_capacity=0,
+                           device="cpu")
+    spans(True)
+    reqs = [srv.submit(algo, src) for algo, src in
+            [("bfs", 0), ("sssp", 7), ("bfs", 42), ("sssp", 299),
+             ("bfs", 5)]]
+    srv.drain()
+    assert all(r.ok for r in reqs)
+    recs = obs.recorded()
+    for kind, child in (("flip.admit", "flip.init"),
+                        ("flip.retire", "flip.finalize")):
+        mine = [r for r in recs if r.name == kind]
+        assert sorted(r.args["req"] for r in mine) == \
+            sorted(q.req_id for q in reqs)
+        by_id = {q.req_id: q for q in reqs}
+        assert all(r.args["algo"] == by_id[r.args["req"]].algo
+                   for r in mine)
+        assert all(r.parent.name == "flip.pump" for r in mine)
+        assert {id(r.parent) for r in recs if r.name == child} \
+            <= {id(r) for r in mine}
+    windows = [r for r in recs if r.name == "flip.window"]
+    assert windows and all(r.parent.name == "flip.pump" for r in windows)
+    fix = [r for r in recs if r.name == "flip.fixpoint"]
+    assert [id(r.parent) for r in fix] == [id(w) for w in windows]
+    assert all(r.end_ns >= r.start_ns > 0 for r in recs)
+
+
+def test_span_list_exports_through_trace_builder(spans):
+    spans(True)
+    session("wcc").query(SRCS4)
+    recs = obs.recorded()
+    doc = json.loads(json.dumps(obs.chrome_trace_from_spans()))
+    evs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+    assert [e["name"] for e in evs] == [r.name for r in recs]
+    assert evs[0]["name"] == "flip.query" and evs[0]["ts"] == 0.0
+    assert evs[0]["args"] == {"batch": len(SRCS4), "parent": None}
+    for e, r in zip(evs, recs):
+        assert e["dur"] == pytest.approx((r.end_ns - r.start_ns) / 1e3)
+        if r.parent is not None:
+            p = evs[e["args"]["parent"]]
+            assert p["name"] == r.parent.name
+            assert p["ts"] <= e["ts"] and \
+                e["ts"] + e["dur"] <= p["ts"] + p["dur"] + 1e-3
+    chunks = [e for e in evs if e["name"] == "flip.chunk"]
+    assert chunks and all(e["args"]["n"] == 1 for e in chunks)
+    # enable(True) starts a fresh list
+    spans(True)
+    assert obs.recorded() == []
