@@ -41,9 +41,20 @@ Phases (every failure raises and exits nonzero):
                 weight block, a source lane and a carry lane for min_plus,
                 max_min and or_and at B in {1, 8}. min_plus, max_min and
                 or_and must be bit-equal, NaN positions included; plus_times
-                within atol 1e-5 (summation order differs). Times the kernel and
-                the plain version at the main path's shapes and computes
-                the card's bound for the same work;
+                within atol 1e-5 (summation order differs). B=11 and
+                d=12 (two query chunks, two feature slabs). At a Kronecker
+                graph's shape (512 destination tiles of 502 blocks, 16.8
+                GB at T=128: the kernel's deep plan, its ring and split
+                segments) every semiring dense / frontier-masked / empty
+                (min_plus also at B=1 and d=8; plus_times on PageRank-
+                sized masses), a rank's slab of it, T=64 and T=256 deep
+                layouts, two launches bit-identical. Times the kernel and
+                the plain version at the main path's shapes, and the
+                kernel at the Kronecker shape with its bytes a second,
+                and computes the card's bound for the same work. Phase 2
+                logs K1's registers, stack and spills per instantiation
+                (cuobjdump) and its SASS counts, the SASS itself in
+                chiprun_out/k1.sass;
   4. main path -- a 262,144-vertex road network (the repo's generator at
                 the Ext. LRN setting) through `flip_torch.compile(...)
                 .query(...)` with the default plan and device: sssp over 8
@@ -712,6 +723,34 @@ def wgmma_waits(library: Path) -> dict:
     return sass_counts(library, ("HGMMA", "WARPGROUP.DEPBAR"))
 
 
+def k1_resources(library: Path) -> None:
+    """K1's registers, stack and spills for every instantiation
+    (`cuobjdump -res-usage`), and per function the SASS counts of its
+    semiring operations (FADD / FMNMX), shared loads, bulk copies and
+    mbarrier operations; the whole SASS goes to chiprun_out/k1.sass."""
+    tool = Path(_build.nvcc()).parent / "cuobjdump"
+    require(tool.exists(), f"no {tool}: K1's resources cannot be read")
+    res = subprocess.run([str(tool), "-res-usage", str(library)],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    lines = res.splitlines()
+    names = [ln.split("Function", 1)[1].strip(" :") for ln in lines
+             if ln.strip().startswith("Function")]
+    usage = [ln.strip() for ln in lines if "REG:" in ln]
+    for name, use in zip(demangle(names), usage):
+        log(f"  {name}: {use}")
+    counts = sass_counts(library, ("FADD", "FMNMX", "LDS", "UBLKCP",
+                                   "SYNCS", "BAR"))
+    for name, c in counts.items():
+        log(f"  {name}: SASS FADD {c[0]}, FMNMX {c[1]}, LDS {c[2]}, "
+            f"bulk copies {c[3]}, mbarrier {c[4]}, BAR {c[5]}")
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "k1.sass").write_text(subprocess.run(
+        [str(tool), "-sass", str(library)], capture_output=True, text=True,
+        timeout=120, check=True).stdout)
+
+
 def phase_build() -> None:
     sources = (relax.SOURCE, flash.SOURCE, flash.WGMMA_SOURCE,
                flash.TF32_SOURCE, flash.BWD_SOURCE, flash.BWD_WGMMA_SOURCE,
@@ -733,6 +772,8 @@ def phase_build() -> None:
                 props[-1].append(ln.split(":", 1)[-1].strip())
         for name, prop in zip(demangle(names), props):
             log(f"  {name}: {'; '.join(prop)}")
+        if source == relax.SOURCE:
+            k1_resources(path)
         if source in wgmma_sources:
             require("C7510" not in text and "C7508" not in text,
                     f"{source.name}: ptxas serialized wgmma (C7510) or "
@@ -843,6 +884,24 @@ def phase_kernel_small(rng) -> float:
                 "a destination with no block lost its carry")
     errs.append(tile_cases(g))
     errs.append(nan_cases(g))
+    errs.append(chunk_cases(g))
+    return max(errs)
+
+
+def chunk_cases(g) -> float:
+    """More queries than one work item's chunk of 8 and more features
+    than its slab of 8: B=11 (two query chunks, the second of 3) and
+    d=12 (two feature slabs, the second of 4), every semiring. Draws
+    from a generator of its own, so the later phases' seeded draws are
+    those of earlier PRs."""
+    rng = np.random.default_rng(6)
+    errs = []
+    for algo in ("sssp", "widest", "reach", "pagerank"):
+        bg = build_blocks(g, algo, tile=128, device="cuda")
+        for b, d in ((11, 1), (3, 12), (11, 12)):
+            sv, carry = state(bg, b, d, "sparse", rng)
+            errs.append(compare(f"{bg.semiring.name} n=3000 T=128 sparse "
+                                f"B={b} d={d}", bg, sv, carry, d))
     return max(errs)
 
 
@@ -902,6 +961,136 @@ def nan_cases(g) -> float:
             errs.append(compare(f"{name} NaN carry lane B={b}", bg, sv,
                                 carry, 1))
     return max(errs)
+
+
+G500_TILES = 512             # a Kronecker scale-16 graph's tiles at T=128
+G500_PER_TILE = 502          # its blocks a destination tile (257k in all)
+
+
+def dense_layout(ntiles: int, per_tile: int, tile: int, algo: str,
+                 seed: int) -> BlockedGraph:
+    """A block layout of a Kronecker graph's shape, made on the card:
+    `ntiles` destination tiles, each with `per_tile` distinct random
+    source tiles (the diagonal one always), each block holding an edge
+    in 5% of its lanes (weights of the algebra's kind, the ⊕-identity
+    elsewhere)."""
+    rng = np.random.default_rng(seed)
+    src = np.stack([np.sort(np.concatenate([
+        [t], rng.choice(np.delete(np.arange(ntiles), t), per_tile - 1,
+                        replace=False)])) for t in range(ntiles)])
+    bsrc = src.reshape(-1).astype(np.int32)
+    bdst = np.repeat(np.arange(ntiles), per_tile).astype(np.int32)
+    alg = ALGEBRAS[algo]
+    zero = float(alg.semiring.zero)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    blocks = torch.empty(bsrc.size, tile, tile, device="cuda")
+    for i in range(0, bsrc.size, 4096):
+        w = blocks[i:i + 4096]
+        edge = torch.rand(w.shape, generator=gen, device="cuda") < 0.05
+        val = torch.rand(w.shape, generator=gen, device="cuda")
+        if algo == "reach":
+            val = torch.ones_like(val)
+        elif algo != "pagerank":
+            val = 1.0 + torch.floor(8.0 * val)
+        w.copy_(torch.where(edge, val, zero))
+    n = ntiles * tile
+    return BlockedGraph(
+        n=n, tile=tile, ntiles=ntiles, blocks=blocks,
+        bsrc=torch.as_tensor(bsrc, device="cuda"),
+        bdst=torch.as_tensor(bdst, device="cuda"),
+        perm=np.arange(n), inv_perm=np.arange(n), algebra=alg)
+
+
+def deep_state(bg: BlockedGraph, b: int, d: int, density: str, rng):
+    """`state` for a deep layout; for plus_times as PageRank's masses
+    (each lane's value over n): a destination there sums ~3,000
+    products, and of O(1) values those round at ~1e-3 in f32 whatever
+    the order, past PLUS_TIMES_ATOL."""
+    sv, carry = state(bg, b, d, density, rng)
+    if bg.semiring.name == "plus_times":
+        sv, carry = sv / bg.n, carry / bg.n
+    return sv, carry
+
+
+def phase_kernel_deep() -> tuple[float, dict]:
+    """K1 at a Kronecker graph's shape (512 destination tiles of ~500
+    blocks, 16.8 GB of blocks at T=128): the deep plan, its ring and its
+    split segments. Every semiring dense / frontier-masked / empty at
+    B=8 (min_plus also at B=1 and d=8), a rank's slab of it (nsrc !=
+    ntiles), T=64 and T=256 layouts of the same depth, and two launches
+    bit-identical (plus_times too, whose parts are summed in a fixed
+    order). Times min_plus B=8 d=1 beside the bound, with the bytes a
+    second it reached; logs each launch plan. Draws from a generator of
+    its own, so the later phases' seeded draws are those of earlier
+    PRs."""
+    rng = np.random.default_rng(5)
+    errs = [0.0]
+    timing = {}
+    for algo in ("sssp", "widest", "reach", "pagerank"):
+        bg = dense_layout(G500_TILES, G500_PER_TILE, 128, algo, seed=3)
+        sr = bg.semiring
+        plan = relax.launch_plan(128, 1, 8, bg.bsrc.numel(), bg.ntiles)
+        log(f"deep layout {sr.name}: {bg.bsrc.numel()} blocks, "
+            f"{bg.blocks.numel() * 4 / 1e9:.2f} GB; plan {plan}")
+        combos = [("all", 8, 1), ("sparse", 8, 1), ("none", 8, 1)]
+        if algo == "sssp":
+            combos += [("all", 1, 1), ("sparse", 1, 1), ("none", 1, 1),
+                       ("all", 8, 8), ("sparse", 8, 8), ("none", 1, 8),
+                       ("sparse", 1, 8)]
+        for density, b, d in combos:
+            sv, carry = deep_state(bg, b, d, density, rng)
+            errs.append(compare(f"{sr.name} deep T=128 {density} B={b} "
+                                f"d={d}", bg, sv, carry, d))
+        sv, carry = deep_state(bg, 8, 1, "all", rng)
+        run = lambda: relax.frontier_relax_cuda(          # noqa: E731
+            sv, carry, bg.blocks, bg.bsrc, bg.dst_start, sr)
+        require(torch.equal(run(), run()),
+                f"deep {sr.name}: two launches differ")
+        log(f"deep {sr.name}: two launches bit-identical")
+        if algo == "sssp":
+            lo, hi = 128, 256                   # a rank's slab of tiles
+            a, z = int(bg.dst_start[lo]), int(bg.dst_start[hi])
+            slab = BlockedGraph(
+                n=(hi - lo) * bg.tile, tile=bg.tile, ntiles=hi - lo,
+                blocks=bg.blocks[a:z], bsrc=bg.bsrc[a:z],
+                bdst=bg.bdst[a:z] - lo, perm=np.arange((hi - lo) * bg.tile),
+                inv_perm=np.arange((hi - lo) * bg.tile), algebra=bg.algebra)
+            for b in (8, 1):
+                sv, carry = deep_state(bg, b, 1, "sparse", rng)
+                errs.append(compare(
+                    f"min_plus deep slab tiles {lo}..{hi - 1} of "
+                    f"{bg.ntiles} B={b}", slab, sv,
+                    carry[:, lo:hi].contiguous(), 1))
+            for density in ("all", "sparse", "none"):
+                sv, carry = deep_state(bg, 8, 1, density, rng)
+                w = work(bg, sv, 1)
+                ms = time_ms(lambda: relax.frontier_relax_cuda(
+                    sv, carry, bg.blocks, bg.bsrc, bg.dst_start, sr),
+                    reps=10)
+                rate = w["bytes"] / (ms * 1e-3)
+                log(f"time deep {density} B=8 d=1: kernel {ms:.4f} ms, "
+                    f"bound {w['bound_ms']:.4f} ms ({w['bound_by']}; "
+                    f"{w['active_blocks']} of {bg.bsrc.numel()} blocks "
+                    f"active, {w['bytes']} B), {rate / 1e12:.3f} TB/s, "
+                    f"{100 * w['bound_ms'] / ms:.1f}% of the bound")
+                timing[density] = dict(w, ms=ms, bytes_per_s=rate)
+        del bg, sv, carry
+        torch.cuda.empty_cache()
+    for tile, ntiles, per_tile in ((64, 1024, 400), (256, 128, 100)):
+        for algo in ("sssp", "pagerank"):
+            bg = dense_layout(ntiles, per_tile, tile, algo, seed=4)
+            plan = relax.launch_plan(tile, 1, 8, bg.bsrc.numel(), ntiles)
+            log(f"deep layout T={tile}: {bg.bsrc.numel()} blocks; plan "
+                f"{plan}")
+            for density, b, d in (("all", 8, 1), ("sparse", 8, 1),
+                                  ("sparse", 1, 1), ("sparse", 8, 8)):
+                sv, carry = deep_state(bg, b, d, density, rng)
+                errs.append(compare(
+                    f"{bg.semiring.name} deep T={tile} {density} B={b} "
+                    f"d={d}", bg, sv, carry, d))
+            del bg
+            torch.cuda.empty_cache()
+    return max(errs), timing
 
 
 def phase_kernel_full(bg: BlockedGraph, rng) -> tuple[float, dict]:
@@ -5683,6 +5872,7 @@ def main() -> None:
         f"{bg.blocks.numel() * 4 / 2**20:.1f} MiB on {bg.device}")
     require(bg.device.type == "cuda", "the default session is not on CUDA")
     err_full, timing = phase_kernel_full(bg, rng)
+    err_deep, timing_deep = phase_kernel_deep()
 
     # the main path: counts start at 0 here
     srcs = np.sort(rng.choice(g.n, size=8, replace=False))
@@ -5812,11 +6002,13 @@ def main() -> None:
     ssd_bwd_by_phase = {**k3_19["ssd_bwd"], **k20["ssd_bwd"],
                         **k21["ssd_bwd"]}
     print(json.dumps({"kernels": [
-        kernel_row("frontier_relax",
-                   "src/repro_torch/kernels/frontier/csrc/frontier_relax.cu",
-                   "src/repro/kernels/frontier/frontier.py:137", k1_main,
-                   max(err_small, err_full, d15["err"]),
-                   dict(timing["all"], library_ms=None), k1_phases),
+        dict(kernel_row(
+            "frontier_relax",
+            "src/repro_torch/kernels/frontier/csrc/frontier_relax.cu",
+            "src/repro/kernels/frontier/frontier.py:137", k1_main,
+            max(err_small, err_full, err_deep, d15["err"]),
+            dict(timing["all"], library_ms=None), k1_phases),
+            deep_shape=timing_deep),
         dict(kernel_row(
             "flash_attention",
             "src/repro_torch/kernels/attention/csrc/flash_attention_wgmma.cu",

@@ -13,8 +13,10 @@ Knobs the space deliberately does NOT explore (as in the reference):
   * `mode` ('data' vs 'op') and `warm`: policy contracts with the
     caller, kept at the base plan's setting;
   * `feature_dim`: the program's native width is semantics;
-  * K1's launch shape (queries and features per thread block): the
-    reference does not tune its kernel's launch shape either.
+  * K1's launch plan (`kernels.frontier.frontier.launch_plan`: ring,
+    split, blocks an SM), which the kernel's wrapper derives from the
+    shapes: the reference does not tune its kernel's launch shape
+    either.
 
 The knob restriction that keeps "bit-exact" honest is the reference's:
 `tile` and the route only vary when the algebra's ⊕ is *idempotent*

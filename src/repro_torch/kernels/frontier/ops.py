@@ -8,10 +8,11 @@ re-blocks only the tiles an edge batch touches. `frontier_relax`
 dispatches one step:
 
   * 'cuda'  -- the hand-written kernel (`frontier.frontier_relax_cuda`)
-    on CUDA tensors. It tests the packet-trigger rule per (block, query)
-    inside the kernel, so inactive weight blocks never leave HBM: that is
-    the compaction, with no pre-pass and no sentinel block. `compact`
-    therefore changes nothing on this route.
+    on CUDA tensors. Its own pre-pass tests the packet-trigger rule once
+    per (source tile, query) and the kernel fetches a weight block only
+    when some query needs it, so inactive blocks never leave HBM: that
+    is the compaction, with no compacted block list and no sentinel
+    block. `compact` therefore changes nothing on this route.
   * 'torch' -- the plain PyTorch version (`frontier_relax_torch`) on CPU
     tensors, dense or compacted (only blocks with an active source tile
     are gathered). Exact either way.
@@ -53,8 +54,8 @@ class BlockedGraph:
     inv_perm: np.ndarray        # tiled position -> original vertex id
     algebra: VertexAlgebra = None
     # (ntiles+1,) i32: the blocks writing destination tile t occupy
-    # positions dst_start[t]:dst_start[t+1] -- the segment one CUDA
-    # thread block walks
+    # positions dst_start[t]:dst_start[t+1] -- the segment one work item
+    # of the CUDA kernel walks (or a part of it)
     dst_start: torch.Tensor = None
     version: int = 0            # Graph.version this layout was built from
     graph_fp: str = None        # Graph.fingerprint() of that graph, so

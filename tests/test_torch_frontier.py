@@ -357,3 +357,138 @@ def test_nan_weight_propagates_like_reference(algo):
     assert "min_nan" in ops and "max_nan" in ops
     assert "fminf" not in ops and "fmaxf" not in ops
     assert "min.NaN.f32" in src and "max.NaN.f32" in src
+
+
+# ------------------------------------------------------------------ #
+# (h) the kernel's launch plan and its activity pre-pass, on the CPU
+# ------------------------------------------------------------------ #
+# (name, T, d, B, blocks, destination tiles): g500-s16 (257,054 blocks
+# of 128 over 512 tiles), road-ny (12,476 over 2,066), the tuner's other
+# tiles, the tests' small tiles, d = 8, and the 8-lane layout of a
+# destination no block writes
+PLAN_SHAPES = [
+    ("g500", 128, 1, 8, 257_054, 512),
+    ("g500-b1", 128, 1, 1, 257_054, 512),
+    ("road-ny", 128, 1, 8, 12_476, 2_066),
+    ("road-ny-b1", 128, 1, 1, 12_476, 2_066),
+    ("road-ny-d8", 128, 8, 8, 12_476, 2_066),
+    ("deep-t64", 64, 1, 8, 409_600, 1_024),
+    ("deep-t256", 256, 1, 8, 12_800, 128),
+    ("road-t256", 256, 1, 1, 3_125, 521),
+    ("t16", 16, 1, 8, 100, 20),
+    ("t32-d8", 32, 8, 8, 100, 20),
+    ("t256-d8", 256, 8, 8, 3_000, 100),
+    ("t8", 8, 1, 2, 1, 3),
+    ("b11-d12", 128, 12, 11, 6_000, 100),
+]
+
+
+def _segments(nb, ntiles, rng):
+    """dst_start of `nb` blocks over `ntiles` tiles, some of them empty."""
+    cuts = np.sort(rng.integers(0, nb + 1, ntiles - 1))
+    return np.concatenate([[0], cuts, [nb]])
+
+
+@pytest.mark.parametrize("name,tile,d,b,nb,ntiles", PLAN_SHAPES,
+                         ids=[s[0] for s in PLAN_SHAPES])
+def test_launch_plan_fits_and_covers(name, tile, d, b, nb, ntiles):
+    """Shared memory within a block's 232,448 B (and the plan's blocks
+    within an SM's), whole 16-byte rows of one block a stage, every
+    block of a segment in exactly one part, and exactly one combine a
+    destination tile."""
+    plan = kernel.launch_plan(tile, d, b, nb, ntiles)
+    fd = plan.feature_slab
+    assert plan.smem <= kernel.MAX_SMEM == 232_448
+    assert plan.smem == kernel.layout_bytes(tile, fd, plan.lanes,
+                                            plan.consumers, plan.rows,
+                                            plan.stages)
+    assert plan.blocks_per_sm * (plan.smem + kernel.CTA_RESERVED) \
+        <= kernel.SM_SHARED
+    assert plan.stages >= 2 and 1 <= plan.rows <= tile
+    assert 4 * plan.rows * tile <= kernel.STAGE_BYTES       # never a block
+    assert (4 * plan.rows * tile) % 16 == 0                 # bulk copies
+    assert (4 * plan.rows * kernel.QUERY_CHUNK * fd) % 16 == 0
+    assert plan.consumers % 32 == 0
+    assert plan.consumers + 32 <= (544 if d == 1 else 288)  # launch bounds
+    assert plan.groups == plan.consumers // (tile // plan.lanes) >= 1
+    chunks = -(-b // kernel.QUERY_CHUNK) * -(-d // fd)
+    assert plan.items == ntiles * plan.split * chunks
+    assert plan.grid == min(plan.items, kernel.SMS * plan.blocks_per_sm)
+    assert kernel.scratch_bytes(plan, b, ntiles, ntiles, tile, d) >= \
+        4 * chunks * ntiles * tile * kernel.QUERY_CHUNK * fd
+    rng = np.random.default_rng(len(name))
+    ds = _segments(nb, ntiles, rng)
+    seen = np.zeros(nb, dtype=int)
+    done = np.zeros(ntiles, dtype=int)
+    combines = np.zeros(ntiles, dtype=int)
+    order = [(t, p) for t in range(ntiles) for p in range(plan.split)]
+    for k in rng.permutation(len(order)):                 # any finish order
+        t, p = order[k]
+        lo, hi = kernel.part_bounds(int(ds[t]), int(ds[t + 1]), p,
+                                    plan.split)
+        assert ds[t] <= lo <= hi <= ds[t + 1]
+        seen[lo:hi] += 1
+        combines[t] += done[t] == plan.split - 1           # the last part
+        done[t] += 1
+    assert (seen == 1).all()
+    assert (combines == 1).all()
+
+
+def test_launch_plan_per_shape():
+    """g500's dense steps: one deep-ring block an SM with 64 KiB or more
+    of weights in flight beside the stage being relaxed, segments split;
+    road-ny's short segments: whole, several blocks an SM."""
+    g500 = kernel.launch_plan(128, 1, 8, 257_054, 512)
+    assert g500.blocks_per_sm == 1 and g500.split > 1
+    assert (g500.stages - 1) * 4 * g500.rows * 128 >= 64 * 1024
+    assert g500.grid == kernel.SMS
+    for b in (1, 8):
+        road = kernel.launch_plan(128, 1, b, 12_476, 2_066)
+        assert road.split == 1 and road.blocks_per_sm >= 2
+        assert road.grid == kernel.SMS * road.blocks_per_sm
+    assert kernel.launch_plan(128, 1, 1, 12_476, 2_066).blocks_per_sm == 4
+
+
+@pytest.mark.parametrize("tile,d", [(6, 1), (130, 1), (2052, 1), (1024, 8),
+                                    (260, 8)])
+def test_launch_plan_refuses(tile, d):
+    with pytest.raises(ValueError, match="frontier_relax_cuda"):
+        kernel.launch_plan(tile, d, 8, 100, 10)
+
+
+@pytest.mark.parametrize("d", [1, 8, 12])
+@pytest.mark.parametrize("batch", [0, 1, 8, 11])
+@pytest.mark.parametrize("name", sorted(SEMIRING_ALGOS))
+def test_activity_mask_matches_tile_activity(name, batch, d):
+    """The pre-pass's plain twin: bit q of a (query chunk, feature slab)
+    word is the reference's `tile_activity` of query q alone over the
+    slab's features, NaN counting as active; the bits of all words
+    together give `tile_activity` of the whole state."""
+    algo = SEMIRING_ALGOS[name]
+    g = make_road_network(40, seed=3, delete_frac=0.5)
+    ref = ref_build_blocks(g, algo, tile=16)
+    bg = carried(ref, algo)
+    sv, _ = make_state(bg, batch, d, np.random.default_rng(batch + d))
+    q_nan = max(batch, 1) - 1                      # last query, tile 0
+    sv_t = torch.from_numpy(sv)
+    flat = sv_t if batch else sv_t[None]
+    flat[q_nan, 0, 0] = float("nan")
+    words = kernel.activity_mask(sv_t, bg.semiring, feature_dim=d).numpy()
+    b = max(batch, 1)
+    fd = kernel.FEATURE_SLAB if d > 1 else 1
+    nfc = -(-d // fd)
+    assert words.shape == (-(-b // 8) * nfc, bg.ntiles)
+    for q in range(b):
+        for fc in range(nfc):
+            x = flat[q].numpy()
+            if d > 1:
+                x = x[..., fc * fd:(fc + 1) * fd]
+            want = np.asarray(ref_tile_activity(jnp.asarray(x),
+                                                ref.semiring,
+                                                features=d > 1))
+            got = (words[(q // 8) * nfc + fc] >> (q % 8)) & 1
+            np.testing.assert_array_equal(got.astype(bool), want)
+    assert (words[(q_nan // 8) * nfc, 0] >> (q_nan % 8)) & 1
+    union = np.bitwise_or.reduce(words, axis=0) != 0
+    np.testing.assert_array_equal(
+        union, tile_activity(sv_t, bg.semiring, features=d > 1).numpy())
